@@ -1,0 +1,204 @@
+"""Command-line entry point of the port (counterpart of cudasbmp_tpu/cli.py):
+
+    python -m cudasbmp_torch.cli demo [--device cuda|cpu] [config flags]
+    python -m cudasbmp_torch.cli plan --configurations DIR [--device ...] [...]
+
+``demo`` plans the reference demo scenario, ``plan`` a ``configurations/``
+directory (its numR1/numR2 files set the grid unless a flag does). Config
+flags are the JAX CLI's; a flag given on the command line overrides
+``--config FILE`` even at its default value. Output: the reference's parity
+lines (``Goal: ...``, ``time inside KGMT is ...``, ``Iteration ..., Tree
+size ...``), then a JSON summary; ``--verbose`` adds the per-iteration
+table, ``--out-dir`` the 13 artifact CSVs. Exit code 0 when solved, 1 when
+not, 2 on a usage error.
+
+``--device`` is explicit and defaults to ``cuda``, where the rollouts run
+through the hand-written CUDA kernels; without a CUDA device the CLI stops
+with an error instead of moving to the CPU. ``--device cpu`` runs the plain
+PyTorch versions.
+
+Not yet ported (exit 2): ``--shortcut``, ``--refine``, ``--plot`` and the
+subcommands ``probe``, ``viz``, ``record``, ``profile``, ``multi``,
+``sweep`` and ``sharded``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+
+NOT_PORTED_COMMANDS = ("probe", "viz", "record", "profile", "multi", "sweep",
+                       "sharded")
+NOT_PORTED_FLAGS = ("shortcut", "refine", "plot")
+
+
+def _add_config_args(p: argparse.ArgumentParser) -> None:
+    # Flags default to None so that "set on the command line" is detectable:
+    # an explicit flag overrides --config even at the dataclass default.
+    from cudasbmp_torch.config import ROLLOUT_BACKENDS, KGMTConfig
+
+    d = KGMTConfig()
+    p.add_argument("--width", type=float, default=None,
+                   help=f"workspace width (default {d.width})")
+    p.add_argument("--height", type=float, default=None,
+                   help=f"workspace height (default {d.height})")
+    p.add_argument("--N", type=int, default=None,
+                   help=f"R1 cells per axis (default {d.N})")
+    p.add_argument("--n", type=int, default=None,
+                   help=f"R2 subcells per axis (default {d.n})")
+    p.add_argument("--num-iterations", type=int, default=None,
+                   help=f"default {d.num_iterations}")
+    p.add_argument("--max-tree-size", type=int, default=None,
+                   help=f"default {d.max_tree_size}")
+    p.add_argument("--num-disc", type=int, default=None,
+                   help=f"default {d.num_disc}")
+    p.add_argument("--agent-length", type=float, default=None,
+                   help=f"default {d.agent_length}")
+    p.add_argument("--goal-threshold", type=float, default=None,
+                   help=f"default {d.goal_threshold}")
+    p.add_argument("--rollouts-per-iter", type=int, default=None,
+                   help=f"default {d.rollouts_per_iter}")
+    p.add_argument("--system", default=None,
+                   help=f"dynamics system (default {d.system})")
+    p.add_argument("--seed", type=int, default=None, help=f"default {d.seed}")
+    p.add_argument("--rollout-backend", default=None, choices=ROLLOUT_BACKENDS,
+                   help="rollout implementation (see KGMTConfig)")
+    p.add_argument("--goal-bias", type=float, default=None,
+                   help="fraction of each wave expanded from the top-k "
+                   "goal-nearest frontier nodes (0 = reference semantics)")
+    p.add_argument("--fast-math", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="chained-rotation trig in the rollout kernels "
+                   "(positions differ from exact only by f32 rounding)")
+    p.add_argument("--footprint-width", type=float, default=None,
+                   help="agent body width for the oriented-footprint "
+                   "collision test (0 = broad phase only)")
+    p.add_argument("--adaptive-waves", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="several sub-waves per iteration so every frontier "
+                   "node gets its full fan-out")
+    p.add_argument("--exchange-frac", type=float, default=None,
+                   help="sharded-tree exchange fraction (kept in the config; "
+                   "the sharded planner is not yet ported)")
+    p.add_argument("--exchange-k", type=int, default=None,
+                   help="sharded-tree exchange pool size (kept in the config)")
+    p.add_argument("--need-path", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="--no-need-path runs the pathless feasibility "
+                   "planner: (solved, cost, iterations) only")
+    p.add_argument("--config", help="YAML/JSON config file (overridden by "
+                   "flags set on the command line)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the solve (default cuda; cpu runs "
+                   "the plain PyTorch versions)")
+    p.add_argument("--out-dir", help="dump the artifact CSVs here")
+    p.add_argument("--verbose", action="store_true")
+    for flag in NOT_PORTED_FLAGS:
+        p.add_argument(f"--{flag}", action="store_true",
+                       help="not yet ported (exits 2)")
+
+
+def _config_from_args(args: argparse.Namespace):
+    from cudasbmp_torch.config import KGMTConfig
+
+    cfg = KGMTConfig.from_file(args.config) if args.config else KGMTConfig()
+    flag_fields = dict(
+        width=args.width, height=args.height, N=args.N, n=args.n,
+        num_iterations=args.num_iterations, max_tree_size=args.max_tree_size,
+        num_disc=args.num_disc, agent_length=args.agent_length,
+        goal_threshold=args.goal_threshold,
+        rollouts_per_iter=args.rollouts_per_iter, system=args.system,
+        seed=args.seed, rollout_backend=args.rollout_backend,
+        goal_bias=args.goal_bias, footprint_width=args.footprint_width,
+        fast_math=args.fast_math, adaptive_waves=args.adaptive_waves,
+        exchange_frac=args.exchange_frac, exchange_k=args.exchange_k,
+        need_path=args.need_path,
+    )
+    overrides = {k: v for k, v in flag_fields.items() if v is not None}
+    return dataclasses.replace(cfg, **overrides)
+
+
+def _error(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return 2
+
+
+def _run_plan(args: argparse.Namespace, scenario) -> int:
+    import torch
+
+    from cudasbmp_torch.io.csv import write_artifacts
+    from cudasbmp_torch.planners.kgmt import KGMT
+    from cudasbmp_torch.utils.metrics import (
+        iteration_metrics_table,
+        summarize_result,
+    )
+
+    wants = [f"--{f}" for f in NOT_PORTED_FLAGS if getattr(args, f)]
+    if wants:
+        return _error(f"{', '.join(wants)}: not yet ported to cudasbmp_torch")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        return _error(f"--device {args.device}: torch.cuda.is_available() is "
+                      "false; pass --device cpu to run the plain PyTorch "
+                      "versions on the CPU")
+    cfg = _config_from_args(args)
+    if not cfg.need_path and args.out_dir:
+        return _error("--no-need-path keeps no tree; incompatible with --out-dir")
+    planner = KGMT(cfg, device=device)
+    print(f"Goal: {scenario.goal[0]:f}, {scenario.goal[1]:f}")
+    result = planner.plan(scenario)
+    print(f"time inside KGMT is {result.wall_time_s}")
+    print(f"Iteration {result.iterations}, Tree size {result.tree_size}")
+    print(json.dumps(summarize_result(result), indent=2))
+    if args.verbose:
+        print(iteration_metrics_table(result.metrics))
+    if args.out_dir:
+        written = write_artifacts(result.state, cfg, args.out_dir)
+        print(f"wrote {len(written)} artifact CSVs to {args.out_dir}")
+    return 0 if result.solved else 1
+
+
+def _first_command(argv: list[str]) -> str | None:
+    return next((a for a in argv if not a.startswith("-")), None)
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    cmd = _first_command(argv)
+    if cmd in NOT_PORTED_COMMANDS:
+        return _error(f"subcommand {cmd!r}: not yet ported to cudasbmp_torch "
+                      "(use python -m cudasbmp_tpu.cli)")
+
+    parser = argparse.ArgumentParser(prog="cudasbmp_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p_demo = sub.add_parser("demo", help="plan the reference demo scenario")
+    _add_config_args(p_demo)
+    p_plan = sub.add_parser("plan", help="plan a configurations/ scenario")
+    _add_config_args(p_plan)
+    p_plan.add_argument("--configurations", required=True,
+                        help="directory in the reference configurations/ "
+                        "layout")
+    for name in NOT_PORTED_COMMANDS:
+        sub.add_parser(name, help="not yet ported (exits 2)")
+    args = parser.parse_args(argv)
+
+    if args.cmd == "demo":
+        from cudasbmp_torch.config import Scenario
+
+        return _run_plan(args, Scenario.demo())
+    from cudasbmp_torch.io.csv import load_scenario
+
+    scenario, grid_params = load_scenario(args.configurations)
+    # a PRESENT numR1/numR2 CSV sets the grid unless a flag does; an absent
+    # one defers to --config and the defaults
+    if args.N is None and grid_params["N"] is not None:
+        args.N = grid_params["N"]
+    if args.n is None and grid_params["n"] is not None:
+        args.n = grid_params["n"]
+    return _run_plan(args, scenario)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

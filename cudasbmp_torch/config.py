@@ -10,15 +10,18 @@ Differences from the JAX config:
 - ``rollout_backend`` takes ``auto``/``cuda`` (the hand-written CUDA rollout
   kernel), ``cuda_rng`` (the kernel that also draws its controls with an
   in-kernel Philox stream) or ``torch`` (the plain PyTorch rollout, kept for
-  kernel-versus-plain comparisons).
-- ``unsupported_options()`` names the options this package does not run yet;
-  the planner refuses a config that sets any of them.
+  kernel-versus-plain comparisons). As the JAX package's ``jnp`` backend,
+  ``torch`` ignores ``fast_math``, which changes only the kernel backends.
+- YAML files are read by a small strict reader of flat ``key: value``
+  scalars (``read_flat_yaml``), not pyyaml, which the GPU machine lacks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import re
 from typing import Any
 
 import numpy as np
@@ -87,16 +90,14 @@ class KGMTConfig:
         if problems:
             raise ValueError("invalid KGMTConfig: " + "; ".join(problems))
 
-    def unsupported_options(self) -> list[str]:
-        """Options set to a value this package does not implement yet."""
-        out = []
-        if self.goal_bias > 0.0:
-            out.append("goal_bias")
-        if self.footprint_width > 0.0:
-            out.append("footprint_width")
-        if self.fast_math:
-            out.append("fast_math")
-        return out
+    @property
+    def footprint(self) -> tuple[float, float] | None:
+        """Narrow-phase body half extents (half_len, half_wid), or None when
+        ``footprint_width`` is 0 (broad phase only). The body is
+        ``agent_length`` long and ``footprint_width`` wide."""
+        if self.footprint_width <= 0.0:
+            return None
+        return (self.agent_length / 2.0, self.footprint_width / 2.0)
 
     @property
     def r1_size(self) -> float:
@@ -117,6 +118,9 @@ class KGMTConfig:
     def replace(self, **kw: Any) -> "KGMTConfig":
         return dataclasses.replace(self, **kw)
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
     @classmethod
     def from_dict(cls, d: dict) -> "KGMTConfig":
         fields = {f.name for f in dataclasses.fields(cls)}
@@ -124,16 +128,117 @@ class KGMTConfig:
 
     @classmethod
     def from_file(cls, path: str) -> "KGMTConfig":
-        """Load from YAML (pyyaml, imported only here) or JSON."""
+        """Load from a flat YAML file (``read_flat_yaml``) or JSON."""
         with open(path) as f:
             text = f.read()
         if path.endswith((".yaml", ".yml")):
-            import yaml
-
-            data = yaml.safe_load(text) or {}
+            data = read_flat_yaml(text, path)
         else:
             data = json.loads(text)
         return cls.from_dict(data)
+
+    def to_file(self, path: str) -> None:
+        """Write YAML (one ``key: value`` line per field, readable by
+        ``from_file`` and by pyyaml alike) or JSON."""
+        if path.endswith((".yaml", ".yml")):
+            text = "".join(f"{k}: {_yaml_scalar(v)}\n"
+                           for k, v in self.to_dict().items())
+        else:
+            text = json.dumps(self.to_dict(), indent=2)
+        with open(path, "w") as f:
+            f.write(text)
+
+
+# YAML 1.1 plain scalars as pyyaml's safe loader resolves them; the int and
+# float forms beyond these (octal, hex, binary, base 60) raise.
+_YAML_NULL = re.compile(r"~|null|Null|NULL|")
+_YAML_TRUE = re.compile(r"yes|Yes|YES|true|True|TRUE|on|On|ON")
+_YAML_FALSE = re.compile(r"no|No|NO|false|False|FALSE|off|Off|OFF")
+_YAML_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
+_YAML_FLOAT = re.compile(r"[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                         r"|\.[0-9_]+(?:[eE][-+][0-9]+)?")
+_YAML_INF = re.compile(r"([-+]?)\.(?:inf|Inf|INF)")
+_YAML_NAN = re.compile(r"\.(?:nan|NaN|NAN)")
+_YAML_OTHER_NUMBER = re.compile(r"[-+]?(?:0b[0-1_]+|0[0-7_]+|0x[0-9a-fA-F_]+"
+                                r"|[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?)")
+_YAML_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_]*):(?:\s+(.*))?")
+
+
+def read_flat_yaml(text: str, name: str = "<yaml>") -> dict:
+    """Parse a flat YAML mapping of scalars: ``key: value`` lines, comments
+    and blank lines, as the repo's ``systems/*.yaml`` are written. Values
+    resolve as pyyaml's safe loader resolves them (null, bool, decimal int,
+    float, quoted or plain string). Anything else (nesting, lists, flow
+    collections, anchors, tags, block scalars, several documents, repeated
+    keys) raises ``ValueError``."""
+    out: dict[str, Any] = {}
+    for n, line in enumerate(text.splitlines(), 1):
+        stripped = line.strip()
+        if not stripped or stripped.startswith("#"):
+            continue
+        m = _YAML_KEY.fullmatch(line.rstrip())
+        if m is None:
+            raise ValueError(f"{name}:{n}: not a flat 'key: value' line: {line!r}")
+        key, value = m.group(1), _yaml_value(m.group(2) or "", f"{name}:{n}")
+        if key in out:
+            raise ValueError(f"{name}:{n}: key {key!r} repeated")
+        out[key] = value
+    return out
+
+
+def _yaml_value(raw: str, where: str) -> Any:
+    if raw[:1] in ("'", '"'):
+        if raw[0] == '"':  # YAML's double-quoted escapes are JSON's
+            value, end = json.JSONDecoder().raw_decode(raw)
+        else:  # '' is one quote inside '...'
+            m = re.match(r"'((?:[^']|'')*)'", raw)
+            if m is None:
+                raise ValueError(f"{where}: unterminated string {raw!r}")
+            value, end = m.group(1).replace("''", "'"), m.end()
+        rest = raw[end:].strip()
+        if rest and not rest.startswith("#"):
+            raise ValueError(f"{where}: text after a quoted string: {raw!r}")
+        return value
+    m = re.search(r"\s#", raw)
+    value = (raw[:m.start()] if m else raw).strip()
+    if value[:1] in tuple("[]{}&*!|>%@`,?") or value[:2] in ("- ", ":") or (
+            value == "-") or ": " in value:
+        raise ValueError(f"{where}: only flat scalars are read: {value!r}")
+    if _YAML_NULL.fullmatch(value):
+        return None
+    if _YAML_TRUE.fullmatch(value):
+        return True
+    if _YAML_FALSE.fullmatch(value):
+        return False
+    if _YAML_INT.fullmatch(value):
+        return int(value.replace("_", ""))
+    if _YAML_FLOAT.fullmatch(value):
+        return float(value.replace("_", ""))
+    m = _YAML_INF.fullmatch(value)
+    if m:
+        return float(m.group(1) + "inf")
+    if _YAML_NAN.fullmatch(value):
+        return float("nan")
+    if _YAML_OTHER_NUMBER.fullmatch(value):
+        raise ValueError(f"{where}: number form not read here: {value!r}")
+    return value
+
+
+def _yaml_scalar(v: Any) -> str:
+    """A field value as a YAML 1.1 scalar that reads back to itself."""
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        # YAML 1.1 needs a dot in a float ('1e-07' would read as a string)
+        return r.replace("e", ".0e") if "." not in r else r
+    return json.dumps(str(v))
 
 
 @dataclasses.dataclass
@@ -161,6 +266,31 @@ class Scenario:
         goal = np.zeros(SAMPLE_DIM, np.float32)
         goal[0], goal[1] = 2.0, 18.0
         return cls(init=init, goal=goal, obstacles=default_obstacles())
+
+    @classmethod
+    def dense(cls, num_obstacles: int = 24, seed: int = 0) -> "Scenario":
+        """The dense-obstacle workload of the JAX package (BASELINE.json
+        config 3): a jittered side x side grid of boxes over [2, 18]^2 with
+        about one unit of corridor between neighbours, start (1, 1), goal
+        (19, 19). The same boxes as cudasbmp_tpu's for the same seed."""
+        rng = np.random.default_rng(seed)
+        side = int(np.ceil(np.sqrt(num_obstacles)))
+        boxes = []
+        pitch = 16.0 / side
+        for i in range(side):
+            for j in range(side):
+                if len(boxes) >= num_obstacles:
+                    break
+                cx = 2.0 + (i + 0.5) * pitch + rng.uniform(-0.15, 0.15) * pitch
+                cy = 2.0 + (j + 0.5) * pitch + rng.uniform(-0.15, 0.15) * pitch
+                w = rng.uniform(0.35, 0.6) * pitch
+                h = rng.uniform(0.35, 0.6) * pitch
+                boxes.append([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2])
+        init = np.zeros(SAMPLE_DIM, np.float32)
+        init[0], init[1] = 1.0, 1.0
+        goal = np.zeros(SAMPLE_DIM, np.float32)
+        goal[0], goal[1] = 19.0, 19.0
+        return cls(init=init, goal=goal, obstacles=np.asarray(boxes, np.float32))
 
     def padded_obstacles(self, max_obstacles: int,
                          pad_to: int | None = None) -> tuple[np.ndarray, np.ndarray]:

@@ -3,7 +3,7 @@
 ``state_to_numpy`` turns a port ``KGMTState``/``PathlessState`` into a dict of
 numpy arrays keyed by field name, with the key as its two uint32 words (what
 ``jax.random.key_data`` gives). ``state_from_numpy`` builds a port state from
-such a dict on a given device. A JAX state goes in as
+such a dict on a given device, of either kind. A JAX state goes in as
 ``{**state._asdict(), "key": jax.random.key_data(state.key)}`` after
 ``jax.device_get``, and comes back with ``jax.random.wrap_key_data``. This
 module imports no JAX: the caller does the JAX side.
@@ -22,10 +22,14 @@ from cudasbmp_torch.planners.kgmt import KGMTState, PathlessState
 _HOST_INTS = ("frontier_lo", "tree_size", "itr", "n_frontier")
 
 
-def state_from_numpy(cls: type, d: Mapping[str, np.ndarray],
+def state_from_numpy(cls: type | None, d: Mapping[str, np.ndarray],
                      device: torch.device | str) -> KGMTState | PathlessState:
-    """Port state of type ``cls`` from numpy field arrays. A missing
+    """Port state of type ``cls`` from numpy field arrays; ``cls=None``
+    takes ``PathlessState`` for a dict with ``f_rows``, else ``KGMTState``.
+    The fields are the same for every system and planner option. A missing
     ``m_dropped`` (the JAX PathlessState has none) starts at zeros."""
+    if cls is None:
+        cls = PathlessState if "f_rows" in d else KGMTState
     out = {}
     for f in dataclasses.fields(cls):
         name = f.name

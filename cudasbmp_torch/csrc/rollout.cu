@@ -1,33 +1,38 @@
-// Fused propagate-and-check rollout kernels for the kinematic bicycle, for
-// Hopper (sm_90a).
+// Fused propagate-and-check rollout kernels for Hopper (sm_90a), generic
+// over the package's five dynamical systems.
 //
 // Replaces cudasbmp_tpu/ops/rollout_pallas.py::rollout_pallas (kernel B1,
 // rollout_kernel) and ::sample_and_rollout_pallas (kernel B2,
-// sample_and_rollout_kernel). Both integrate num_disc explicit-Euler steps
-// of the bicycle and test every step against the workspace bounds and the
-// step's swept AABB against every obstacle; a rollout freezes at the
+// sample_and_rollout_kernel), with both options of their one-pass body
+// _integrate: the oriented-footprint narrow phase (B3, template flag
+// kFootprint) and the chained-rotation fast math (B4, template flag kFast).
+// Both kernels integrate num_disc explicit-Euler steps and test every step
+// against the workspace bounds, the step's swept AABB against every
+// obstacle and, with a footprint, the agent's oriented rectangle at the new
+// pose against every obstacle (separating axes); a rollout freezes at the
 // candidate state of its first failing step (the reference's break).
 //
-// What bounds it on this card: transcendental throughput, not bytes. A
-// 10-step rollout reads 28 B (a float4 state and three controls) and writes
-// 20 B (a float4 state and a valid byte), but computes 2 trig functions per
-// step and one tan per rollout, through the accurate (non-intrinsic) cosf,
-// sinf and tanf. The design therefore keeps the whole step loop in
-// registers, one thread per rollout, with the obstacle set (K <= 32 boxes)
-// in shared memory, so device memory is touched once on the way in and
-// once on the way out.
+// What bounds it on this card: transcendental and ALU throughput, not
+// bytes. A 10-step rollout reads 28 B (a float4 state and three controls)
+// and writes 17 B (a float4 state and a valid byte), but computes up to 2
+// trig functions per step (4 with a footprint on the exact path) and a
+// 4-axis test per step and obstacle. The design keeps the whole step loop in
+// registers, one thread per rollout, with the obstacle set in dynamic shared
+// memory (16 B per box, loaded once per block), so device memory is touched
+// once on the way in and once on the way out. Shared memory caps K at what
+// one block can hold (cudaDevAttrMaxSharedMemoryPerBlockOptin / 16: 14,528
+// boxes at 227 KB on an H100).
 //
-// Floating point: every add, multiply and divide of the step is an explicit
-// round-to-nearest intrinsic (__fadd_rn, __fmul_rn, __fdiv_rn), which nvcc
-// never contracts into an FMA. nvcc would otherwise fuse x + v*c*dt into one
-// FMA, rounding once where the plain PyTorch version (one kernel per
-// operator) rounds twice. The build keeps nvcc's default --fmad=true and no
-// --use_fast_math, so cosf/sinf/tanf are the accurate CUDA math-library
-// functions compiled as PyTorch's own cos/sin/tan kernels are. The op order
-// is the plain version's:
-//   dt = dur / num_disc (true division); tan_s = tanf(steering), unscaled;
-//   x += (v*cos(th))*dt; y += (v*sin(th))*dt; th += ((v/L)*tan_s)*dt;
-//   v += a*dt.
+// Floating point: every add, subtract, multiply and divide of the step, of
+// the rotation recurrence and of the footprint test is an explicit
+// round-to-nearest intrinsic (__fadd_rn, __fsub_rn, __fmul_rn, __fdiv_rn),
+// which nvcc never contracts into an FMA, in the plain PyTorch version's op
+// order (cudasbmp_torch/systems/*.py, geometry/footprint.py), so kernel and
+// plain version agree to the bit. The build keeps nvcc's default
+// --fmad=true and no --use_fast_math: cosf/sinf/tanf are the accurate CUDA
+// math-library functions, compiled as PyTorch's own cos/sin/tan kernels are.
+// dt = dur / num_disc is a true division.
+//
 // B2 draws its controls from Philox-4x32-10 (Random123): key = the two
 // words of the wave's threefry control key, counter = (lane, 0, 0, 0),
 // word j -> u = (bits >> 8) * 2^-24 -> lo_j + u * (hi_j - lo_j).
@@ -37,73 +42,239 @@
 
 namespace {
 
-constexpr int kMaxObstacles = 32;
 constexpr int kThreads = 256;
+constexpr int kStaticSmemLimit = 48 * 1024;
 
-__device__ __forceinline__ bool integrate(float& x, float& y, float& th,
-                                          float& v, float a, float steering,
-                                          float dur, const float* obs, int K,
-                                          int num_disc, float width,
-                                          float height, float L) {
-  const float dt = __fdiv_rn(dur, static_cast<float>(num_disc));
-  const float tan_s = tanf(steering);
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+
+// x + (v * c) * dt, the position update every system shares
+__device__ __forceinline__ float advance(float x, float v, float c, float dt) {
+  return add(x, mul(mul(v, c), dt));
+}
+
+// (c, s) rotated by (dc, ds): (c*dc - s*ds, s*dc + c*ds)
+__device__ __forceinline__ void rotate(float& c, float& s, float dc, float ds) {
+  const float nc = sub(mul(c, dc), mul(s, ds));
+  const float ns = add(mul(s, dc), mul(c, ds));
+  c = nc;
+  s = ns;
+}
+
+// ---- systems: state (x, y, z, w) in a float4, controls (c0, c1) + dur ----
+// kHeading: z is the heading (footprint narrow phase); kFast: the system has
+// the fast-math hooks. Each struct is the device form of
+// cudasbmp_torch/systems/<name>.py, op for op.
+
+struct Bicycle {  // (x, y, theta, v); controls (a, steering)
+  static constexpr bool kHeading = true, kFast = true;
+  float L;
+  struct Aux { float a, tan_s; };
+  struct Carry { float ct, st, dct, dst, dth; };
+  struct FastAux { float a, cc2, sc2, c2; };
+  __device__ Aux prepare(float a, float steering) const {
+    return {a, tanf(steering)};
+  }
+  __device__ float4 step(float4 s, Aux q, float dt) const {
+    return make_float4(advance(s.x, s.w, cosf(s.z), dt),
+                       advance(s.y, s.w, sinf(s.z), dt),
+                       add(s.z, mul(mul(__fdiv_rn(s.w, L), q.tan_s), dt)),
+                       add(s.w, mul(q.a, dt)));
+  }
+  __device__ void prepare_fast(float4 s, float a, float steering, float dt,
+                               Carry& k, FastAux& q) const {
+    const float tan_s = tanf(steering);
+    const float d0 = mul(mul(__fdiv_rn(s.w, L), tan_s), dt);
+    const float c2 = mul(mul(__fdiv_rn(mul(a, dt), L), tan_s), dt);
+    k = {cosf(s.z), sinf(s.z), cosf(d0), sinf(d0), d0};
+    q = {a, cosf(c2), sinf(c2), c2};
+  }
+  // the new state from the pre-step carry; the carry then moves to the new
+  // state (the rollout reads k.ct/k.st as the new pose's heading)
+  __device__ float4 step_fast(float4 s, Carry& k, FastAux q, float dt) const {
+    const float4 n = make_float4(advance(s.x, s.w, k.ct, dt),
+                                 advance(s.y, s.w, k.st, dt), add(s.z, k.dth),
+                                 add(s.w, mul(q.a, dt)));
+    rotate(k.ct, k.st, k.dct, k.dst);
+    rotate(k.dct, k.dst, q.cc2, q.sc2);
+    k.dth = add(k.dth, q.c2);
+    return n;
+  }
+};
+
+struct Point2D {  // (x, y, 0, 0); controls (vx, vy)
+  static constexpr bool kHeading = false, kFast = false;
+  struct Aux { float vx, vy; };
+  __device__ Aux prepare(float vx, float vy) const { return {vx, vy}; }
+  __device__ float4 step(float4 s, Aux q, float dt) const {
+    return make_float4(add(s.x, mul(q.vx, dt)), add(s.y, mul(q.vy, dt)), 0.0f,
+                       0.0f);
+  }
+};
+
+struct DoubleIntegrator {  // (x, y, vx, vy); controls (ax, ay)
+  static constexpr bool kHeading = false, kFast = false;
+  struct Aux { float ax, ay; };
+  __device__ Aux prepare(float ax, float ay) const { return {ax, ay}; }
+  __device__ float4 step(float4 s, Aux q, float dt) const {
+    return make_float4(add(s.x, mul(s.z, dt)), add(s.y, mul(s.w, dt)),
+                       add(s.z, mul(q.ax, dt)), add(s.w, mul(q.ay, dt)));
+  }
+};
+
+// Unicycle (omega) and Dubins (v * kappa): a constant heading rate per
+// rollout, so fast math is one rotation per step.
+template <bool kCurvature>
+struct ConstantTurn {  // (x, y, theta, 0); controls (v, omega | kappa)
+  static constexpr bool kHeading = true, kFast = true;
+  struct Aux { float v, turn; };
+  struct Carry { float ct, st; };
+  struct FastAux { float v, turn, dct, dst; };
+  __device__ Aux prepare(float v, float turn) const { return {v, turn}; }
+  __device__ float dtheta(float v, float turn, float dt) const {
+    return kCurvature ? mul(mul(v, turn), dt) : mul(turn, dt);
+  }
+  __device__ float4 step(float4 s, Aux q, float dt) const {
+    return make_float4(advance(s.x, q.v, cosf(s.z), dt),
+                       advance(s.y, q.v, sinf(s.z), dt),
+                       add(s.z, dtheta(q.v, q.turn, dt)), 0.0f);
+  }
+  __device__ void prepare_fast(float4 s, float v, float turn, float dt,
+                               Carry& k, FastAux& q) const {
+    const float d0 = dtheta(v, turn, dt);
+    k = {cosf(s.z), sinf(s.z)};
+    q = {v, turn, cosf(d0), sinf(d0)};
+  }
+  __device__ float4 step_fast(float4 s, Carry& k, FastAux q, float dt) const {
+    const float4 n = make_float4(advance(s.x, q.v, k.ct, dt),
+                                 advance(s.y, q.v, k.st, dt),
+                                 add(s.z, dtheta(q.v, q.turn, dt)), 0.0f);
+    rotate(k.ct, k.st, q.dct, q.dst);
+    return n;
+  }
+};
+using Unicycle = ConstantTurn<false>;
+using Dubins = ConstantTurn<true>;
+
+// System ids of the C entry points (ops/rollout_cuda.py::SYSTEM_IDS).
+enum SystemId { kBicycle = 0, kPoint2D = 1, kDoubleIntegrator = 2,
+                kUnicycle = 3, kDubins = 4 };
+enum Flags { kFlagFootprint = 1, kFlagFast = 2 };
+
+struct Params {
+  const float* obstacles;  // [K, 4] xmin, ymin, xmax, ymax
+  int K, B, num_disc;
+  float width, height;
+  float hl, hw;  // footprint half length / half width
+};
+
+// One step's tests: exclusive workspace bounds, the swept AABB of (x, y) ->
+// (nx, ny) against every box, and with kFootprint the body centred hl
+// ahead of (nx, ny) along (ct, st) against every box. Padding boxes
+// (min 1, max 0) are separated on every axis of the broad phase and fail
+// valid_box in the narrow phase.
+template <bool kFootprint>
+__device__ __forceinline__ bool step_clear(float x, float y, float nx,
+                                           float ny, float ct, float st,
+                                           const float* obs, const Params& p) {
+  bool clear = (nx > 0.0f) & (nx < p.width) & (ny > 0.0f) & (ny < p.height);
+  const float bminx = fminf(x, nx), bmaxx = fmaxf(x, nx);
+  const float bminy = fminf(y, ny), bmaxy = fmaxf(y, ny);
+  float fcx = 0.0f, fcy = 0.0f, act = 0.0f, ast = 0.0f;
+  if constexpr (kFootprint) {
+    fcx = add(nx, mul(p.hl, ct));
+    fcy = add(ny, mul(p.hl, st));
+    act = fabsf(ct);
+    ast = fabsf(st);
+  }
+  for (int o = 0; o < p.K; ++o) {
+    const float b0 = obs[4 * o], b1 = obs[4 * o + 1];
+    const float b2 = obs[4 * o + 2], b3 = obs[4 * o + 3];
+    clear &= (bmaxx <= b0) | (b2 <= bminx) | (bmaxy <= b1) | (b3 <= bminy);
+    if constexpr (kFootprint) {
+      const float bcx = mul(add(b0, b2), 0.5f), bcy = mul(add(b1, b3), 0.5f);
+      const float bhx = mul(sub(b2, b0), 0.5f), bhy = mul(sub(b3, b1), 0.5f);
+      const bool valid_box = (bhx >= 0.0f) & (bhy >= 0.0f);
+      const float dx = sub(fcx, bcx), dy = sub(fcy, bcy);
+      const bool sep_x =
+          fabsf(dx) >= add(add(bhx, mul(p.hl, act)), mul(p.hw, ast));
+      const bool sep_y =
+          fabsf(dy) >= add(add(bhy, mul(p.hl, ast)), mul(p.hw, act));
+      const bool sep_u = fabsf(add(mul(dx, ct), mul(dy, st))) >=
+                         add(add(p.hl, mul(bhx, act)), mul(bhy, ast));
+      const bool sep_v = fabsf(sub(mul(dy, ct), mul(dx, st))) >=
+                         add(add(p.hw, mul(bhx, ast)), mul(bhy, act));
+      clear &= !(valid_box & !(sep_x | sep_y | sep_u | sep_v));
+    }
+  }
+  return clear;
+}
+
+template <class Sys, bool kFootprint, bool kFast>
+__device__ __forceinline__ bool integrate(const Sys& sys, float4& s, float c0,
+                                          float c1, float dur,
+                                          const float* obs, const Params& p) {
+  const float dt = __fdiv_rn(dur, static_cast<float>(p.num_disc));
   bool alive = true;
-  for (int k = 0; k < num_disc; ++k) {
-    const float nx = __fadd_rn(x, __fmul_rn(__fmul_rn(v, cosf(th)), dt));
-    const float ny = __fadd_rn(y, __fmul_rn(__fmul_rn(v, sinf(th)), dt));
-    const float nth =
-        __fadd_rn(th, __fmul_rn(__fmul_rn(__fdiv_rn(v, L), tan_s), dt));
-    const float nv = __fadd_rn(v, __fmul_rn(a, dt));
-    // exclusive workspace bounds
-    bool clear = (nx > 0.0f) & (nx < width) & (ny > 0.0f) & (ny < height);
-    const float bminx = fminf(x, nx), bmaxx = fmaxf(x, nx);
-    const float bminy = fminf(y, ny), bmaxy = fmaxf(y, ny);
-    for (int o = 0; o < K; ++o) {
-      const float* b = obs + 4 * o;
-      // separated on some axis; degenerate padding boxes always are
-      clear &= (bmaxx <= b[0]) | (b[2] <= bminx) | (bmaxy <= b[1]) |
-               (b[3] <= bminy);
+  if constexpr (kFast) {
+    static_assert(Sys::kFast && Sys::kHeading, "fast math needs the hooks");
+    typename Sys::Carry k;
+    typename Sys::FastAux q;
+    sys.prepare_fast(s, c0, c1, dt, k, q);
+    for (int i = 0; i < p.num_disc; ++i) {
+      // dead lanes' carry keeps rotating: harmless, their state is frozen
+      const float4 n = sys.step_fast(s, k, q, dt);
+      const bool clear =
+          step_clear<kFootprint>(s.x, s.y, n.x, n.y, k.ct, k.st, obs, p);
+      if (alive) s = n;
+      alive &= clear;
     }
-    if (alive) {
-      x = nx;
-      y = ny;
-      th = nth;
-      v = nv;
+  } else {
+    const typename Sys::Aux q = sys.prepare(c0, c1);
+    for (int i = 0; i < p.num_disc; ++i) {
+      const float4 n = sys.step(s, q, dt);
+      float ct = 1.0f, st = 0.0f;  // no heading: an axis-aligned body
+      if constexpr (kFootprint && Sys::kHeading) {
+        ct = cosf(n.z);
+        st = sinf(n.z);
+      }
+      const bool clear =
+          step_clear<kFootprint>(s.x, s.y, n.x, n.y, ct, st, obs, p);
+      if (alive) s = n;
+      alive &= clear;
     }
-    alive &= clear;
   }
   return alive;
 }
 
-__device__ __forceinline__ void load_obstacles(float* obs,
-                                               const float* obstacles, int K) {
-  for (int j = threadIdx.x; j < 4 * K; j += blockDim.x) obs[j] = obstacles[j];
+__device__ __forceinline__ void load_obstacles(float* obs, const Params& p) {
+  for (int j = threadIdx.x; j < 4 * p.K; j += blockDim.x) obs[j] = p.obstacles[j];
   __syncthreads();
 }
 
+template <class Sys, bool kFootprint, bool kFast>
 __global__ void __launch_bounds__(kThreads)
-    rollout_kernel(const float4* __restrict__ x0,
+    rollout_kernel(Sys sys, Params p, const float4* __restrict__ x0,
                    const float* __restrict__ controls,
-                   const float* __restrict__ obstacles, int K,
-                   float4* __restrict__ x1, uint8_t* __restrict__ valid, int B,
-                   int num_disc, float width, float height, float L) {
-  __shared__ float obs[4 * kMaxObstacles];
-  load_obstacles(obs, obstacles, K);
+                   float4* __restrict__ x1, uint8_t* __restrict__ valid) {
+  extern __shared__ float obs[];
+  load_obstacles(obs, p);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
+  if (i >= p.B) return;
   float4 s = x0[i];
   const float* c = controls + 3 * i;
-  const bool alive = integrate(s.x, s.y, s.z, s.w, c[0], c[1], c[2], obs, K,
-                               num_disc, width, height, L);
+  const bool alive =
+      integrate<Sys, kFootprint, kFast>(sys, s, c[0], c[1], c[2], obs, p);
   x1[i] = s;
   valid[i] = alive;
 }
 
 __device__ __forceinline__ uint32_t mulhilo(uint32_t a, uint32_t b,
                                             uint32_t* hi) {
-  const uint64_t p = static_cast<uint64_t>(a) * b;
-  *hi = static_cast<uint32_t>(p >> 32);
-  return static_cast<uint32_t>(p);
+  const uint64_t prod = static_cast<uint64_t>(a) * b;
+  *hi = static_cast<uint32_t>(prod >> 32);
+  return static_cast<uint32_t>(prod);
 }
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
@@ -124,83 +295,184 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
 
 __device__ __forceinline__ float draw(uint32_t bits, float lo, float hi) {
   const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
-  return __fadd_rn(lo, __fmul_rn(u, __fsub_rn(hi, lo)));
+  return add(lo, mul(u, sub(hi, lo)));
 }
 
+struct Bounds { float lo0, lo1, lo2, hi0, hi1, hi2; };
+
+template <class Sys, bool kFootprint, bool kFast>
 __global__ void __launch_bounds__(kThreads)
-    sample_and_rollout_kernel(const int64_t* __restrict__ key,
+    sample_and_rollout_kernel(Sys sys, Params p, Bounds bounds,
+                              const int64_t* __restrict__ key,
                               const float4* __restrict__ x0,
-                              const float* __restrict__ obstacles, int K,
                               float4* __restrict__ x1,
                               float* __restrict__ controls,
-                              uint8_t* __restrict__ valid, int B, int num_disc,
-                              float width, float height, float L, float lo0,
-                              float lo1, float lo2, float hi0, float hi1,
-                              float hi2) {
-  __shared__ float obs[4 * kMaxObstacles];
-  load_obstacles(obs, obstacles, K);
+                              uint8_t* __restrict__ valid) {
+  extern __shared__ float obs[];
+  load_obstacles(obs, p);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
+  if (i >= p.B) return;
   const uint4 bits =
       philox4x32_10(make_uint4(static_cast<uint32_t>(i), 0u, 0u, 0u),
                     static_cast<uint32_t>(key[0]),
                     static_cast<uint32_t>(key[1]));
-  const float a = draw(bits.x, lo0, hi0);
-  const float steering = draw(bits.y, lo1, hi1);
-  const float dur = draw(bits.z, lo2, hi2);
+  const float c0 = draw(bits.x, bounds.lo0, bounds.hi0);
+  const float c1 = draw(bits.y, bounds.lo1, bounds.hi1);
+  const float dur = draw(bits.z, bounds.lo2, bounds.hi2);
   float* c = controls + 3 * i;
-  c[0] = a;
-  c[1] = steering;
+  c[0] = c0;
+  c[1] = c1;
   c[2] = dur;
   float4 s = x0[i];
-  const bool alive = integrate(s.x, s.y, s.z, s.w, a, steering, dur, obs, K,
-                               num_disc, width, height, L);
+  const bool alive =
+      integrate<Sys, kFootprint, kFast>(sys, s, c0, c1, dur, obs, p);
   x1[i] = s;
   valid[i] = alive;
 }
 
-int check_args(int device, int B, int K, int num_disc) {
-  if (B < 0 || K < 0 || K > kMaxObstacles || num_disc < 1)
+// Launch arguments other than the system, the template flags and Params.
+struct Buffers {
+  const void* x0;
+  const void* controls;  // B1: input
+  void* x1;
+  void* controls_out;  // B2: output
+  void* valid;
+  const void* key;  // B2
+  Bounds bounds;    // B2
+  cudaStream_t stream;
+};
+
+template <bool kSample, class Sys, bool kFootprint, bool kFast>
+int launch(const Sys& sys, const Params& p, const Buffers& b) {
+  const size_t smem = 16 * static_cast<size_t>(p.K);
+  const int grid = (p.B + kThreads - 1) / kThreads;
+  if constexpr (kSample) {
+    auto kernel = sample_and_rollout_kernel<Sys, kFootprint, kFast>;
+    if (smem > kStaticSmemLimit) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<grid, kThreads, smem, b.stream>>>(
+        sys, p, b.bounds, static_cast<const int64_t*>(b.key),
+        static_cast<const float4*>(b.x0), static_cast<float4*>(b.x1),
+        static_cast<float*>(b.controls_out), static_cast<uint8_t*>(b.valid));
+  } else {
+    auto kernel = rollout_kernel<Sys, kFootprint, kFast>;
+    if (smem > kStaticSmemLimit) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<grid, kThreads, smem, b.stream>>>(
+        sys, p, static_cast<const float4*>(b.x0),
+        static_cast<const float*>(b.controls), static_cast<float4*>(b.x1),
+        static_cast<uint8_t*>(b.valid));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Fast math on a system without the hooks is the exact path, as in the JAX
+// kernel (use_fast = fast_math and hasattr(system, "soa_step_fast")).
+template <bool kSample, class Sys>
+int launch_flags(const Sys& sys, int flags, const Params& p,
+                 const Buffers& b) {
+  const bool fast = Sys::kFast && (flags & kFlagFast);
+  if (flags & kFlagFootprint) {
+    if constexpr (Sys::kFast) {
+      if (fast) return launch<kSample, Sys, true, true>(sys, p, b);
+    }
+    return launch<kSample, Sys, true, false>(sys, p, b);
+  }
+  if constexpr (Sys::kFast) {
+    if (fast) return launch<kSample, Sys, false, true>(sys, p, b);
+  }
+  return launch<kSample, Sys, false, false>(sys, p, b);
+}
+
+template <bool kSample>
+int launch_system(int system, float param, int flags, const Params& p,
+                  const Buffers& b) {
+  switch (system) {
+    case kBicycle: return launch_flags<kSample>(Bicycle{param}, flags, p, b);
+    case kPoint2D: return launch_flags<kSample>(Point2D{}, flags, p, b);
+    case kDoubleIntegrator:
+      return launch_flags<kSample>(DoubleIntegrator{}, flags, p, b);
+    case kUnicycle: return launch_flags<kSample>(Unicycle{}, flags, p, b);
+    case kDubins: return launch_flags<kSample>(Dubins{}, flags, p, b);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int max_obstacles(int device) {
+  int bytes = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(
+      &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return e == cudaSuccess ? bytes / 16 : -static_cast<int>(e);
+}
+
+int check_args(int device, int B, int K, int num_disc, int flags) {
+  if (B < 0 || K < 0 || num_disc < 1 || (flags & ~3))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaSetDevice(device));
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (K > max_obstacles(device)) return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Pointers are device pointers of
 // contiguous tensors: x0/x1 f32 [B, 4], controls f32 [B, 3], obstacles f32
-// [K, 4], valid bool [B], key int64 [2]. Each launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 on success).
+// [K, 4], valid bool [B], key int64 [2]. `system` is a SystemId, `param`
+// the bicycle's wheelbase L (unused by the other systems), `flags` ORs
+// 1 = footprint (half extents hl, hw) and 2 = fast math. Each launches on
+// `stream` without synchronising and returns 0 or a cudaError_t.
 
-extern "C" int cudasbmp_rollout(int device, const void* x0,
-                                const void* controls, const void* obstacles,
-                                int K, void* x1, void* valid, int B,
-                                int num_disc, float width, float height,
-                                float L, void* stream) {
-  const int err = check_args(device, B, K, num_disc);
+extern "C" int cudasbmp_max_obstacles(int device) {
+  return max_obstacles(device);
+}
+
+extern "C" int cudasbmp_rollout(int device, int system, int flags,
+                                const void* x0, const void* controls,
+                                const void* obstacles, int K, void* x1,
+                                void* valid, int B, int num_disc, float width,
+                                float height, float param, float hl, float hw,
+                                void* stream) {
+  const int err = check_args(device, B, K, num_disc, flags);
   if (err) return err;
   if (B == 0) return 0;
-  rollout_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(x0), static_cast<const float*>(controls),
-      static_cast<const float*>(obstacles), K, static_cast<float4*>(x1),
-      static_cast<uint8_t*>(valid), B, num_disc, width, height, L);
-  return static_cast<int>(cudaGetLastError());
+  const Params p{static_cast<const float*>(obstacles), K, B, num_disc,
+                 width, height, hl, hw};
+  Buffers b{};
+  b.x0 = x0;
+  b.controls = controls;
+  b.x1 = x1;
+  b.valid = valid;
+  b.stream = static_cast<cudaStream_t>(stream);
+  return launch_system<false>(system, param, flags, p, b);
 }
 
 extern "C" int cudasbmp_sample_and_rollout(
-    int device, const void* key, const void* x0, const void* obstacles, int K,
-    void* x1, void* controls, void* valid, int B, int num_disc, float width,
-    float height, float L, float lo0, float lo1, float lo2, float hi0,
-    float hi1, float hi2, void* stream) {
-  const int err = check_args(device, B, K, num_disc);
+    int device, int system, int flags, const void* key, const void* x0,
+    const void* obstacles, int K, void* x1, void* controls, void* valid,
+    int B, int num_disc, float width, float height, float param, float hl,
+    float hw, float lo0, float lo1, float lo2, float hi0, float hi1,
+    float hi2, void* stream) {
+  const int err = check_args(device, B, K, num_disc, flags);
   if (err) return err;
   if (B == 0) return 0;
-  sample_and_rollout_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(key), static_cast<const float4*>(x0),
-      static_cast<const float*>(obstacles), K, static_cast<float4*>(x1),
-      static_cast<float*>(controls), static_cast<uint8_t*>(valid), B,
-      num_disc, width, height, L, lo0, lo1, lo2, hi0, hi1, hi2);
-  return static_cast<int>(cudaGetLastError());
+  const Params p{static_cast<const float*>(obstacles), K, B, num_disc,
+                 width, height, hl, hw};
+  Buffers b{};
+  b.x0 = x0;
+  b.x1 = x1;
+  b.controls_out = controls;
+  b.valid = valid;
+  b.key = key;
+  b.bounds = Bounds{lo0, lo1, lo2, hi0, hi1, hi2};
+  b.stream = static_cast<cudaStream_t>(stream);
+  return launch_system<true>(system, param, flags, p, b);
 }

@@ -1,0 +1,10 @@
+from cudasbmp_torch.io.csv import (
+    load_scenario,
+    read_obstacles_csv,
+    read_sample_csv,
+    write_artifacts,
+    write_csv,
+)
+
+__all__ = ["load_scenario", "read_obstacles_csv", "read_sample_csv",
+           "write_artifacts", "write_csv"]

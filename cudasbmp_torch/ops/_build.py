@@ -2,7 +2,8 @@
 
 ``csrc/*.cu`` compile at first use into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), under
-``cudasbmp_torch/_build/``, which git ignores. The library's file name
+``cudasbmp_torch/_build/``, which git ignores, with the compiler's output
+beside it (``.log``). The library's file name
 carries a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded as it is.
 
@@ -41,13 +42,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # device, x0, controls, obstacles, K, x1, valid, B, num_disc, width,
-    # height, L, stream
-    "cudasbmp_rollout": (_I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _F, _F, _P),
-    # device, key, x0, obstacles, K, x1, controls, valid, B, num_disc, width,
-    # height, L, lo0, lo1, lo2, hi0, hi1, hi2, stream
-    "cudasbmp_sample_and_rollout": (_I, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                                    _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    # device
+    "cudasbmp_max_obstacles": (_I,),
+    # device, system, flags, x0, controls, obstacles, K, x1, valid, B,
+    # num_disc, width, height, param, hl, hw, stream
+    "cudasbmp_rollout": (_I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _F,
+                         _F, _F, _F, _P),
+    # device, system, flags, key, x0, obstacles, K, x1, controls, valid, B,
+    # num_disc, width, height, param, hl, hw, lo0, lo1, lo2, hi0, hi1, hi2,
+    # stream
+    "cudasbmp_sample_and_rollout": (_I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
+                                    _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                                    _F, _F, _F, _P),
 }
 
 
@@ -70,14 +76,17 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float, str]:
     """Compile the sources unless this exact build exists. Returns (library
-    path, build seconds (0.0 when cached), compiler output)."""
+    path, build seconds (0.0 when cached), compiler output, which is kept
+    beside the library and read back when cached)."""
     target = library_path()
+    log = target.with_suffix(".log")
     if target.exists():
-        return target, 0.0, ""
+        return target, 0.0, log.read_text() if log.exists() else ""
+    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
            *(str(CSRC_DIR / s) for s in SOURCES)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -86,6 +95,7 @@ def build() -> tuple[Path, float, str]:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
+    log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, target)
     return target, seconds, proc.stdout + proc.stderr
 

@@ -1,12 +1,14 @@
 """Batched propagate-and-check in plain PyTorch: the plain version of the
-rollout kernel (counterpart of cudasbmp_tpu/ops/rollout.py::rollout_batch).
+rollout kernel's exact path (counterpart of
+cudasbmp_tpu/ops/rollout.py::rollout_batch).
 
 B rollouts advance in lockstep for ``num_disc`` Euler steps with an
 ``alive`` mask in place of the reference's ``break``: a rollout freezes at
 the candidate state of its first failing step (out of the exclusive
-workspace bounds, or its step's swept AABB hits an obstacle), so valid
-rollouts match the reference and invalid ones expose the position of the
-failing step. The op order is the JAX function's, operator by operator.
+workspace bounds, its step's swept AABB hits an obstacle or, with a
+footprint, the body at the new pose does), so valid rollouts match the
+reference and invalid ones expose the position of the failing step. The op
+order is the JAX function's, operator by operator.
 """
 
 from __future__ import annotations
@@ -15,16 +17,21 @@ import torch
 
 from cudasbmp_torch._math import div
 from cudasbmp_torch.geometry.aabb import segment_aabb, segment_clear
+from cudasbmp_torch.geometry.footprint import footprint_clear
 
 
 def rollout_batch(system, x0: torch.Tensor, controls: torch.Tensor,
                   num_disc: int, obstacles: torch.Tensor, width: float,
-                  height: float) -> tuple[torch.Tensor, torch.Tensor]:
+                  height: float, footprint: tuple[float, float] | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """x0 [B, state_dim], controls [B, control_dim] (duration last),
-    obstacles [K, 4] -> (x1 [B, state_dim], valid bool [B])."""
+    obstacles [K, 4] -> (x1 [B, state_dim], valid bool [B]).
+    ``footprint=(half_len, half_wid)`` adds the oriented-body test at every
+    post-step pose, heading from ``system.heading_index`` (0 without one)."""
     duration = controls[:, -1]
     ctrl = controls[:, :-1]
     dt = div(duration, num_disc)
+    heading_index = getattr(system, "heading_index", None)
     state = x0
     alive = torch.ones(x0.shape[0], dtype=torch.bool, device=x0.device)
     for _ in range(num_disc):
@@ -32,7 +39,12 @@ def rollout_batch(system, x0: torch.Tensor, controls: torch.Tensor,
         x, y = cand[:, 0], cand[:, 1]
         in_bounds = (x > 0.0) & (x < width) & (y > 0.0) & (y < height)
         bb_min, bb_max = segment_aabb(state[:, 0:2], cand[:, 0:2])
-        clear = segment_clear(bb_min, bb_max, obstacles)
+        step_ok = in_bounds & segment_clear(bb_min, bb_max, obstacles)
+        if footprint is not None:
+            theta = (cand[:, heading_index] if heading_index is not None
+                     else torch.zeros_like(x))
+            step_ok = step_ok & footprint_clear(x, y, theta, footprint[0],
+                                                footprint[1], obstacles)
         state = torch.where(alive[:, None], cand, state)
-        alive = alive & in_bounds & clear
+        alive = alive & step_ok
     return state, alive

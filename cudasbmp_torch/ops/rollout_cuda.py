@@ -1,5 +1,5 @@
 """Wrappers of the CUDA rollout kernels (csrc/rollout.cu), which replace the
-TPU kernels of cudasbmp_tpu/ops/rollout_pallas.py:
+TPU kernels of cudasbmp_tpu/ops/rollout_pallas.py, and their plain twin:
 
 - ``rollout_cuda`` (kernel B1, ``rollout_kernel``) replaces
   ``rollout_pallas``: controls supplied by the caller;
@@ -7,32 +7,101 @@ TPU kernels of cudasbmp_tpu/ops/rollout_pallas.py:
   replaces ``sample_and_rollout_pallas``: controls drawn inside the kernel,
   here from Philox-4x32-10 keyed by the wave's threefry control key (the
   TPU's hardware stream has no counterpart, so ``cuda_rng`` is a backend of
-  its own, as ``pallas_rng`` is in the JAX planner).
+  its own, as ``pallas_rng`` is in the JAX planner);
+- both take the footprint narrow phase (B3) and fast math (B4) as options,
+  for every system of the registry;
+- ``rollout_soa`` is their plain PyTorch twin: the JAX kernel body
+  ``_integrate`` (rollout_pallas.py:66-140) on per-component tensors,
+  through the systems' SoA hooks. Without fast math it rounds exactly as
+  ``rollout_batch`` does.
 
-One rule for both: tensors on the CPU go through the plain PyTorch version
-(``rollout_batch``; ``sample_and_rollout_torch``, the same Philox stream);
+One rule for both wrappers: tensors on the CPU go through the plain twin
+(``rollout_soa``; ``sample_and_rollout_torch``, the same Philox stream);
 CUDA tensors launch the kernel or raise. Nothing falls back from the card to
 the CPU or from the kernel to the plain version.
 
-Each wrapper counts its launches in ``<wrapper>.launches``, incremented only
-where the kernel is launched.
+Each wrapper counts its launches in ``<wrapper>.launches``, and per
+instantiation in ``<wrapper>.instantiations[(system name, footprint,
+fast)]`` (fast: the fast-math body ran, i.e. fast math on a system with the
+hooks), both incremented only where the kernel is launched.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
+
 import torch
 
 from cudasbmp_torch import rng
+from cudasbmp_torch._math import div
+from cudasbmp_torch.geometry.aabb import segment_aabb, segment_clear
+from cudasbmp_torch.geometry.footprint import footprint_clear_cs
 from cudasbmp_torch.ops import _build
-from cudasbmp_torch.ops.rollout import rollout_batch
 from cudasbmp_torch.systems.bicycle import KinematicBicycle
+from cudasbmp_torch.systems.double_integrator import DoubleIntegrator2D
+from cudasbmp_torch.systems.dubins import DubinsCar
+from cudasbmp_torch.systems.point2d import Point2D
+from cudasbmp_torch.systems.unicycle import Unicycle
 
-MAX_OBSTACLES = 32
+# the kernel's SystemId of each system class (csrc/rollout.cu)
+SYSTEM_IDS = {KinematicBicycle: 0, Point2D: 1, DoubleIntegrator2D: 2,
+              Unicycle: 3, DubinsCar: 4}
+FLAG_FOOTPRINT, FLAG_FAST = 1, 2
 
 
 def supports_system(system) -> bool:
-    """The kernels integrate the kinematic bicycle."""
-    return isinstance(system, KinematicBicycle)
+    """A system joins the fused path by providing the SoA step hooks."""
+    return hasattr(system, "soa_prepare") and hasattr(system, "soa_step")
+
+
+def rollout_soa(system, x0: torch.Tensor, controls: torch.Tensor,
+                obstacles: torch.Tensor, *, num_disc: int, width: float,
+                height: float, footprint: tuple[float, float] | None = None,
+                fast_math: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of kernels B1-B4: (x1 [B, 4], valid bool [B]). Each step
+    tests the exclusive bounds, the swept AABB and, with ``footprint``, the
+    body at the new pose (heading: cos/sin of the new theta, the fast carry's
+    rotated cos/sin with ``fast_math``, or an axis-aligned body for systems
+    without a heading). Fast math applies only to systems with the fast
+    hooks; elsewhere it is the exact path."""
+    if not supports_system(system):
+        raise NotImplementedError(f"system {system.name!r} has no SoA hooks")
+    comps = list(x0.unbind(-1))
+    ctrl = list(controls[:, :-1].unbind(-1))
+    dt = div(controls[:, -1], num_disc)
+    use_fast = fast_math and hasattr(system, "soa_step_fast")
+    if use_fast:
+        carry, aux = system.soa_prepare_fast(comps, ctrl, dt)
+    else:
+        aux = system.soa_prepare(ctrl)
+    heading_index = getattr(system, "heading_index", None)
+    alive = torch.ones(x0.shape[0], dtype=torch.bool, device=x0.device)
+    for _ in range(num_disc):
+        if use_fast:
+            new, new_carry = system.soa_step_fast(comps, carry, aux, dt)
+        else:
+            new = system.soa_step(comps, aux, dt)
+        nx, ny = new[0], new[1]
+        clear = (nx > 0.0) & (nx < width) & (ny > 0.0) & (ny < height)
+        bb_min, bb_max = segment_aabb(torch.stack(comps[:2], -1),
+                                      torch.stack([nx, ny], -1))
+        clear = clear & segment_clear(bb_min, bb_max, obstacles)
+        if footprint is not None:
+            if use_fast:  # every system with fast hooks has a heading
+                ct, st = new_carry[0], new_carry[1]
+            elif heading_index is not None:
+                ct = torch.cos(new[heading_index])
+                st = torch.sin(new[heading_index])
+            else:
+                ct, st = torch.ones_like(nx), torch.zeros_like(nx)
+            clear = clear & footprint_clear_cs(nx, ny, ct, st, footprint[0],
+                                               footprint[1], obstacles)
+        comps = [torch.where(alive, n, c) for n, c in zip(new, comps)]
+        if use_fast:
+            carry = new_carry  # dead lanes keep rotating; their state is frozen
+        alive = alive & clear
+    return torch.stack(comps, -1), alive
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:
@@ -53,9 +122,26 @@ def _check(name: str, t: torch.Tensor, shape: tuple[int, ...],
                          f"{'' if t.is_contiguous() else ' non-contiguous'}")
 
 
-def _check_kernel_inputs(system, x0: torch.Tensor,
-                         obstacles: torch.Tensor) -> tuple[int, int]:
-    if not supports_system(system):
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+@functools.cache
+def max_kernel_obstacles(device_index: int) -> int:
+    """The most boxes one block's shared memory holds on this card (16 B
+    each): 14,528 at 227 KB on an H100."""
+    n = _build.load().cudasbmp_max_obstacles(device_index)
+    if n < 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed: cudaError {-n}")
+    return n
+
+
+def _kernel_args(system, x0: torch.Tensor, obstacles: torch.Tensor,
+                 footprint, fast_math: bool) -> tuple:
+    """Check the inputs; return (device index, system id, flags, B, K,
+    param, hl, hw), the arguments the C entry points share."""
+    sid = SYSTEM_IDS.get(type(system))
+    if sid is None:
         raise NotImplementedError(
             f"no CUDA rollout kernel for system {system.name!r}")
     B, K = x0.shape[0], obstacles.shape[0]
@@ -63,9 +149,22 @@ def _check_kernel_inputs(system, x0: torch.Tensor,
     if x0.data_ptr() % 16:
         raise ValueError("x0: rows are read as float4, need 16-byte alignment")
     _check("obstacles", obstacles, (K, 4), torch.float32)
-    if K > MAX_OBSTACLES:
-        raise ValueError(f"{K} obstacles > {MAX_OBSTACLES} (kernel shared memory)")
-    return B, K
+    dev = _index(x0.device)
+    limit = max_kernel_obstacles(dev)
+    if K > limit:
+        raise ValueError(f"{K} obstacles > {limit}, the most one block's "
+                         "shared memory holds on this card")
+    flags = (FLAG_FOOTPRINT if footprint is not None else 0) | (
+        FLAG_FAST if fast_math else 0)
+    hl, hw = footprint if footprint is not None else (0.0, 0.0)
+    param = system.agent_length if isinstance(system, KinematicBicycle) else 0.0
+    return dev, sid, flags, B, K, param, hl, hw
+
+
+def _instantiation(system, flags: int) -> tuple[str, bool, bool]:
+    """(system name, footprint, fast) of the template the launch ran."""
+    return (system.name, bool(flags & FLAG_FOOTPRINT),
+            bool(flags & FLAG_FAST) and hasattr(system, "soa_step_fast"))
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -75,52 +174,62 @@ def _raise_on(rc: int, name: str) -> None:
 
 def rollout_cuda(system, x0: torch.Tensor, controls: torch.Tensor,
                  obstacles: torch.Tensor, *, num_disc: int, width: float,
-                 height: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B1: (x1 [B, 4], valid bool [B]) for x0 [B, 4], controls [B, 3]
-    (duration last), obstacles [K, 4]; the contract of ``rollout_batch``."""
+                 height: float, footprint: tuple[float, float] | None = None,
+                 fast_math: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B1 (with B3/B4 as options): (x1 [B, 4], valid bool [B]) for
+    x0 [B, 4], controls [B, 3] (duration last), obstacles [K, 4]; the
+    contract of ``rollout_soa``."""
     device = _device_of(x0, controls, obstacles)
     if device.type == "cpu":
-        return rollout_batch(system, x0, controls, num_disc, obstacles,
-                             width, height)
-    B, K = _check_kernel_inputs(system, x0, obstacles)
+        return rollout_soa(system, x0, controls, obstacles, num_disc=num_disc,
+                           width=width, height=height, footprint=footprint,
+                           fast_math=fast_math)
+    dev, sid, flags, B, K, param, hl, hw = _kernel_args(
+        system, x0, obstacles, footprint, fast_math)
     _check("controls", controls, (B, system.control_spec.dim), torch.float32)
     x1 = torch.empty_like(x0)
     valid = torch.empty(B, dtype=torch.bool, device=device)
     if B == 0:
         return x1, valid
-    lib = _build.load()
-    rc = lib.cudasbmp_rollout(
-        device.index if device.index is not None else torch.cuda.current_device(),
-        x0.data_ptr(), controls.data_ptr(), obstacles.data_ptr(), K,
-        x1.data_ptr(), valid.data_ptr(), B, num_disc, width, height,
-        system.agent_length, torch.cuda.current_stream(device).cuda_stream)
+    rc = _build.load().cudasbmp_rollout(
+        dev, sid, flags, x0.data_ptr(), controls.data_ptr(),
+        obstacles.data_ptr(), K, x1.data_ptr(), valid.data_ptr(), B, num_disc,
+        width, height, param, hl, hw,
+        torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, "rollout_kernel")
     rollout_cuda.launches += 1
+    rollout_cuda.instantiations[_instantiation(system, flags)] += 1
     return x1, valid
 
 
 rollout_cuda.launches = 0
+rollout_cuda.instantiations = collections.Counter()
 
 
 def sample_and_rollout_torch(system, key: torch.Tensor, x0: torch.Tensor,
                              obstacles: torch.Tensor, *, num_disc: int,
-                             width: float, height: float
+                             width: float, height: float,
+                             footprint: tuple[float, float] | None = None,
+                             fast_math: bool = False
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of kernel B2: the same Philox controls, then
-    ``rollout_batch``. Returns (x1, controls, valid)."""
+    ``rollout_soa``. Returns (x1, controls, valid)."""
     spec = system.control_spec
     lo = torch.tensor(spec.lo, dtype=torch.float32, device=x0.device)
     hi = torch.tensor(spec.hi, dtype=torch.float32, device=x0.device)
     u = rng.philox_uniform_lanes(key, x0.shape[0], spec.dim)
     controls = lo + u * (hi - lo)
-    x1, valid = rollout_batch(system, x0, controls, num_disc, obstacles,
-                              width, height)
+    x1, valid = rollout_soa(system, x0, controls, obstacles, num_disc=num_disc,
+                            width=width, height=height, footprint=footprint,
+                            fast_math=fast_math)
     return x1, controls, valid
 
 
 def sample_and_rollout_cuda(system, key: torch.Tensor, x0: torch.Tensor,
                             obstacles: torch.Tensor, *, num_disc: int,
-                            width: float, height: float
+                            width: float, height: float,
+                            footprint: tuple[float, float] | None = None,
+                            fast_math: bool = False
                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel B2: draw each lane's controls from Philox-4x32-10 under the
     threefry key data ``key`` (int64 [2]) at counter (lane, 0, 0, 0), then
@@ -129,8 +238,10 @@ def sample_and_rollout_cuda(system, key: torch.Tensor, x0: torch.Tensor,
     if device.type == "cpu":
         return sample_and_rollout_torch(system, key, x0, obstacles,
                                         num_disc=num_disc, width=width,
-                                        height=height)
-    B, K = _check_kernel_inputs(system, x0, obstacles)
+                                        height=height, footprint=footprint,
+                                        fast_math=fast_math)
+    dev, sid, flags, B, K, param, hl, hw = _kernel_args(
+        system, x0, obstacles, footprint, fast_math)
     _check("key", key, (2,), torch.int64)
     spec = system.control_spec
     x1 = torch.empty_like(x0)
@@ -138,21 +249,22 @@ def sample_and_rollout_cuda(system, key: torch.Tensor, x0: torch.Tensor,
     valid = torch.empty(B, dtype=torch.bool, device=device)
     if B == 0:
         return x1, controls, valid
-    lib = _build.load()
-    rc = lib.cudasbmp_sample_and_rollout(
-        device.index if device.index is not None else torch.cuda.current_device(),
-        key.data_ptr(), x0.data_ptr(), obstacles.data_ptr(), K,
-        x1.data_ptr(), controls.data_ptr(), valid.data_ptr(), B, num_disc,
-        width, height, system.agent_length, *spec.lo, *spec.hi,
+    rc = _build.load().cudasbmp_sample_and_rollout(
+        dev, sid, flags, key.data_ptr(), x0.data_ptr(), obstacles.data_ptr(),
+        K, x1.data_ptr(), controls.data_ptr(), valid.data_ptr(), B, num_disc,
+        width, height, param, hl, hw, *spec.lo, *spec.hi,
         torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, "sample_and_rollout_kernel")
     sample_and_rollout_cuda.launches += 1
+    sample_and_rollout_cuda.instantiations[_instantiation(system, flags)] += 1
     return x1, controls, valid
 
 
 sample_and_rollout_cuda.launches = 0
+sample_and_rollout_cuda.instantiations = collections.Counter()
 
 
 def reset_launch_counts() -> None:
-    rollout_cuda.launches = 0
-    sample_and_rollout_cuda.launches = 0
+    for wrapper in (rollout_cuda, sample_and_rollout_cuda):
+        wrapper.launches = 0
+        wrapper.instantiations.clear()

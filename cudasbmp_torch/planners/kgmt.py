@@ -13,8 +13,11 @@ and the device holds every tensor.
 Per wave, as in the JAX package:
 
 - (c) expand: ``rollouts_per_iter`` slots mapped round-robin onto the
-  frontier range, controls from the wave's threefry key (bitwise the JAX
-  stream, cudasbmp_torch.rng), one rollout kernel launch;
+  frontier range (with ``goal_bias``, the first ``round(goal_bias * R)``
+  slots cycle over the ``goal_bias_k`` frontier nodes nearest the goal
+  instead), controls from the wave's threefry key (bitwise the JAX stream,
+  cudasbmp_torch.rng), one rollout kernel launch (with the footprint and
+  fast-math options of the config);
 - region statistics: exact integer ``index_add_`` counts on r1 and r2 (the
   JAX package's one-hot MXU contraction is a TPU workaround computing the
   same integers); score and seen looked up by direct indexing;
@@ -25,9 +28,8 @@ Per wave, as in the JAX package:
   are written, so nothing lands at index M;
 - (e) goal: the cheapest child inside the goal radius, first lane on ties.
 
-Not in this package yet (each raises ``NotImplementedError`` when set):
-goal bias, footprint, fast_math, the sharded exchange pool, resume and
-recorded mode.
+Not in this package yet: the sharded exchange pool (``expansion_wave``
+raises when given one), resume and recorded mode.
 """
 
 from __future__ import annotations
@@ -201,13 +203,15 @@ def init_pathless_state(cfg: KGMTConfig, grid: RegionGrid, init: Tensor,
 def _dispatch_rollout(cfg: KGMTConfig, system, x0: Tensor, controls: Tensor,
                       obstacles: Tensor) -> tuple[Tensor, Tensor]:
     """``auto``/``cuda``: the B1 wrapper (the CUDA kernel on a CUDA tensor,
-    its plain version on a CPU tensor); ``torch``: the plain version on any
-    device."""
+    its plain twin on a CPU tensor), with the config's footprint and fast
+    math; ``torch``: the plain exact rollout on any device (fast math, as in
+    the JAX package, changes only the kernel backends)."""
     if cfg.rollout_backend == "torch":
         return rollout_batch(system, x0, controls, cfg.num_disc, obstacles,
-                             cfg.width, cfg.height)
+                             cfg.width, cfg.height, footprint=cfg.footprint)
     return rollout_cuda(system, x0, controls, obstacles, num_disc=cfg.num_disc,
-                        width=cfg.width, height=cfg.height)
+                        width=cfg.width, height=cfg.height,
+                        footprint=cfg.footprint, fast_math=cfg.fast_math)
 
 
 def _expand_rollout(cfg: KGMTConfig, system, key: Tensor, x0: Tensor,
@@ -219,7 +223,9 @@ def _expand_rollout(cfg: KGMTConfig, system, key: Tensor, x0: Tensor,
     if cfg.rollout_backend == "cuda_rng":
         return sample_and_rollout_cuda(system, key, x0, obstacles,
                                        num_disc=cfg.num_disc, width=cfg.width,
-                                       height=cfg.height)
+                                       height=cfg.height,
+                                       footprint=cfg.footprint,
+                                       fast_math=cfg.fast_math)
     controls = system.control_spec.sample(key, (x0.shape[0],))
     x1, valid = _dispatch_rollout(cfg, system, x0, controls, obstacles)
     return x1, controls, valid
@@ -258,18 +264,47 @@ def update_region_scores(cfg: KGMTConfig, s: KGMTState | PathlessState
     return r1_score, r1_threshold
 
 
+def _goal_biased(cfg: KGMTConfig, frontier: Tensor, goal: Tensor,
+                 parent_idx: Tensor, offset: int) -> Tensor:
+    """Goal-biased parent pick (cudasbmp_tpu/planners/kgmt.py:333-353 and
+    :930-956): the first ``n_biased = round(goal_bias * R)`` slots cycle, with
+    modulus ``min(goal_bias_k, M)``, over the ``goal_bias_k`` frontier rows
+    nearest the goal; a slot whose cycle entry lies past the frontier's size
+    keeps its round-robin parent. ``frontier`` [F, >=2] holds the frontier
+    rows, which start at index ``offset`` of the parent space.
+
+    JAX takes ``lax.top_k`` of ``-d2`` over the whole tree (tree mode) or the
+    R-row buffer (pathless mode), with ``inf`` outside the frontier. Those
+    padding entries are exactly the ones past min(goal_bias_k, F), so both
+    modes reduce to this one rule over the F frontier rows. ``top_k`` puts
+    the lower index first on ties; a stable ascending sort of ``d2`` gives
+    the same order (``torch.topk`` promises none)."""
+    n_biased = int(round(cfg.goal_bias * cfg.rollouts_per_iter))
+    kk = min(cfg.goal_bias_k, frontier.shape[0])
+    if n_biased == 0 or kk == 0:
+        return parent_idx
+    dx = frontier[:, 0] - goal[0]
+    dy = frontier[:, 1] - goal[1]
+    near = torch.sort(dx * dx + dy * dy, stable=True).indices[:kk]
+    j = torch.arange(n_biased, device=parent_idx.device) % min(
+        cfg.goal_bias_k, cfg.max_tree_size)
+    biased = offset + near[j.clamp(max=kk - 1)]
+    out = parent_idx.clone()
+    out[:n_biased] = torch.where(j < kk, biased, parent_idx[:n_biased])
+    return out
+
+
 def expansion_wave(cfg: KGMTConfig, system, obstacles: Tensor, goal: Tensor,
                    s: KGMTState, wave: int = 0, frontier_lo: int | None = None,
                    frontier_size: int | None = None,
                    n_target: int | None = None, pool=None, gid_base: int = 0):
     """Sub-wave ``wave`` of iteration ``s.itr``: slot ``wave*R + i`` maps
-    round-robin onto the frontier range; slots at or past ``n_target`` are
-    inactive. Returns (slot_active, parent_idx, parent_cost, x1, controls,
-    valid, samples1, k_accept)."""
+    round-robin onto the frontier range (goal-biased slots first, see
+    ``_goal_biased``); slots at or past ``n_target`` are inactive. Returns
+    (slot_active, parent_idx, parent_cost, x1, controls, valid, samples1,
+    k_accept)."""
     if pool is not None or gid_base:
         raise NotImplementedError("the sharded exchange pool is not yet ported")
-    if cfg.goal_bias > 0.0:
-        raise NotImplementedError("goal_bias is not yet ported")
     M, R = cfg.max_tree_size, cfg.rollouts_per_iter
     dev = s.tree_samples.device
     if frontier_lo is None:
@@ -281,6 +316,10 @@ def expansion_wave(cfg: KGMTConfig, system, obstacles: Tensor, goal: Tensor,
     gslot = wave * R + torch.arange(R, dtype=torch.int64, device=dev)
     slot_active = gslot < n_target
     parent_idx = frontier_lo + gslot % max(frontier_size, 1)
+    if cfg.goal_bias > 0.0:
+        parent_idx = _goal_biased(
+            cfg, s.tree_samples[frontier_lo:frontier_lo + frontier_size], goal,
+            parent_idx, frontier_lo)
     parent_rows = s.tree_samples[parent_idx]
     parent_cost = s.costs[parent_idx]
     x0 = parent_rows[:, :system.state_dim].contiguous()
@@ -493,7 +532,11 @@ def kgmt_run_pathless(cfg: KGMTConfig, system, grid: RegionGrid, goal: Tensor,
 
         gslot = w * R + slot
         slot_active = gslot < n_tgt
-        parent_rows = s.f_rows[gslot % max(n_frontier, 1)]
+        parent_idx = gslot % max(n_frontier, 1)
+        if cfg.goal_bias > 0.0:
+            parent_idx = _goal_biased(cfg, s.f_rows[:n_frontier], goal,
+                                      parent_idx, 0)
+        parent_rows = s.f_rows[parent_idx]
         parent_cost = parent_rows[:, SAMPLE_DIM]
         x0 = parent_rows[:, :system.state_dim].contiguous()
         k_ctrl, k_accept = _wave_keys(s.key, it, w)
@@ -575,10 +618,6 @@ class KGMT:
     def __init__(self, config: KGMTConfig | None = None, system=None,
                  device: torch.device | str = "cpu"):
         self.config = config or KGMTConfig()
-        unsupported = self.config.unsupported_options()
-        if unsupported:
-            raise NotImplementedError(
-                f"not yet ported to cudasbmp_torch: {', '.join(unsupported)}")
         self.system = system or get_system(
             self.config.system,
             **({"agent_length": self.config.agent_length}

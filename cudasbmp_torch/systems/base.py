@@ -48,3 +48,31 @@ class System(Protocol):
         """One Euler step. state [..., state_dim], control [..., dim-1]
         (duration excluded), dt broadcastable."""
         ...
+
+
+class SoAStepMixin(Protocol):
+    """Per-component step hooks: the layout of the fused rollout kernel
+    (csrc/rollout.cu) and of its plain twin (ops/rollout_cuda.py::
+    rollout_soa); counterpart of cudasbmp_tpu/systems/base.py:68-103.
+
+    ``soa_prepare`` runs once per rollout (loop-invariant work such as the
+    bicycle's tan(steering)), ``soa_step`` once per Euler step on lists of
+    [B] tensors. Components [0], [1] are workspace x, y. ``soa_step`` rounds
+    exactly as ``step`` does, operator by operator.
+
+    Optional fast-math hooks (``KGMTConfig.fast_math``): where the heading
+    increment per step is affine in the step index, cos/sin of the heading
+    update by chained 2-D rotations instead of per-step trig. When the
+    system has a heading, carry[0] and carry[1] are cos and sin of the
+    CURRENT state's heading, so the footprint test reuses them:
+
+        soa_prepare_fast(comps, ctrl, dt) -> (carry, aux)
+        soa_step_fast(comps, carry, aux, dt) -> (new_comps, new_carry)
+    """
+
+    def soa_prepare(self, ctrl: list[torch.Tensor]) -> tuple[torch.Tensor, ...]:
+        ...
+
+    def soa_step(self, comps: list[torch.Tensor], aux: tuple[torch.Tensor, ...],
+                 dt: torch.Tensor) -> list[torch.Tensor]:
+        ...

@@ -60,3 +60,31 @@ class KinematicBicycle:
                 y + v * torch.sin(th) * dt,
                 th + div(v, self.agent_length) * tan_s * dt,
                 v + a * dt]
+
+    # Fast-math hooks: dtheta_k = (v_k/L)*tan(s)*dt with v_k = v0 + a*dt*k is
+    # affine in k, so cos/sin of theta and of dtheta each update by one 2-D
+    # rotation per step (cudasbmp_tpu/systems/bicycle.py:75-98). Both
+    # divisions by L go through div: CUDA would otherwise multiply by 1/L.
+    def soa_prepare_fast(self, comps, ctrl, dt):
+        a, steering = ctrl
+        tan_s = torch.tan(steering)
+        _, _, th, v = comps
+        d0 = div(v, self.agent_length) * tan_s * dt  # dtheta at step 0
+        c2 = div(a * dt, self.agent_length) * tan_s * dt  # per-step increment
+        carry = (torch.cos(th), torch.sin(th), torch.cos(d0), torch.sin(d0), d0)
+        aux = (a, torch.cos(c2), torch.sin(c2), c2)
+        return carry, aux
+
+    def soa_step_fast(self, comps, carry, aux, dt):
+        x, y, th, v = comps
+        ct, st, dct, dst, dth = carry
+        a, cc2, sc2, c2 = aux
+        new = [x + v * ct * dt,
+               y + v * st * dt,
+               th + dth,
+               v + a * dt]
+        nct = ct * dct - st * dst
+        nst = st * dct + ct * dst
+        ndct = dct * cc2 - dst * sc2
+        ndst = dst * cc2 + dct * sc2
+        return new, (nct, nst, ndct, ndst, dth + c2)

@@ -54,6 +54,14 @@ def test_scenario_demo_and_padding_match_jax():
         t.padded_obstacles(4)
 
 
+def test_scenario_dense_matches_jax():
+    for n, seed in ((24, 0), (40, 3)):
+        j, t = jconfig.Scenario.dense(n, seed), tconfig.Scenario.dense(n, seed)
+        for k in ("init", "goal", "obstacles"):
+            np.testing.assert_array_equal(getattr(t, k), getattr(j, k))
+        assert t.obstacles.shape == (n, 4)
+
+
 def test_from_file_matches_jax():
     path = str(REPO / "systems" / "car.yaml")
     assert (dataclasses.asdict(jconfig.KGMTConfig.from_file(path))
@@ -61,15 +69,28 @@ def test_from_file_matches_jax():
 
 
 def test_unsupported_options_raise():
-    from cudasbmp_torch import KGMT
+    """goal_bias, footprint_width and fast_math plan now, on every system of
+    the registry; what the port still lacks raises: the sharded exchange
+    pool, and a system name no registry knows."""
+    import torch as _torch
 
-    for kw in ({"goal_bias": 0.25}, {"footprint_width": 0.5},
-               {"fast_math": True}):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            KGMT(tconfig.KGMTConfig(**kw))
-    for name in ("point2d", "double_integrator", "unicycle", "dubins"):
-        with pytest.raises(KeyError, match="not yet ported"):
-            KGMT(tconfig.KGMTConfig(system=name))
+    from cudasbmp_torch import KGMT
+    from cudasbmp_torch.planners import kgmt as tk
+
+    for name in ("bicycle", "point2d", "double_integrator", "unicycle", "dubins"):
+        cfg = tconfig.KGMTConfig(system=name, num_iterations=2, max_tree_size=256,
+                                 rollouts_per_iter=64, goal_bias=0.25,
+                                 footprint_width=0.5, fast_math=True)
+        r = KGMT(cfg).plan(tconfig.Scenario.demo())
+        assert r.iterations == 2 and r.tree_size > 1, name
+    planner = KGMT(cfg)
+    sc = tconfig.Scenario.demo()
+    s = tk.init_state(cfg, planner.grid, _torch.tensor(sc.init), tk.rng.key(0))
+    with pytest.raises(NotImplementedError, match="pool"):
+        tk.expansion_wave(cfg, planner.system, _torch.tensor(sc.obstacles),
+                          _torch.tensor(sc.goal), s, pool=(None, None, None))
+    with pytest.raises(KeyError, match="unknown system"):
+        KGMT(tconfig.KGMTConfig(system="quadrotor"))
 
 
 def test_package_source_never_mentions_jax_imports():
