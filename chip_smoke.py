@@ -1,7 +1,8 @@
 """Drive the cudasbmp_torch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # phases 1-12, one GPU, no network
-    python3 chip_smoke.py --profile  # also: torch.profiler over one demo solve
+    python3 chip_smoke.py            # phases 1-17, one GPU, no network
+    python3 chip_smoke.py --profile  # also: torch.profiler over a demo solve,
+                                     # an arena solve and a streaming sweep
 
 Run from the root of a checkout. The CUDA kernels build from
 cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
@@ -15,9 +16,11 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
    N=16/n=8) in tree mode, 'auto' backend, seeds 0-3: solved, path replays,
    and the launch counters prove every wave went through B1;
 6. the same with 'cuda_rng' (every wave through B2) and need_path=False;
-7. throughput: ms per launch of B1, B2 and their plain versions at B=4096
+7. throughput: ms per call of B1, B2 and their plain versions at B=4096
    (the main path's shape; the JSON line's times) and valid 10-step
-   rollouts/s at B=2^17, CUDA events over 20 launches after warm-up;
+   rollouts/s at B=2^17: device time under torch.profiler over 20 calls
+   after warm-up (``ms``), and CUDA events over 20 calls (``launch_ms``,
+   which the host's launch rate sets where it is slower than the card);
 8. every instantiation of B1 and B2 (5 systems x {broad phase, footprint
    B3} x {exact, fast math B4}) bitwise against its plain twin at B=4096,
    and kernel/plain ms at B=2^17 for bicycle+footprint+fast and
@@ -32,11 +35,35 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     waves, as the JAX package's dubins test runs it), point2d and
     double_integrator at default widths, seeds 0-3;
 12. the CLI as subprocesses: demo with every option and plan of
-    configurations/ with systems/car.yaml, on the card.
+    configurations/ with systems/car.yaml, on the card;
+13. B6 (rollout_kernel and sample_and_rollout_kernel with one box set and
+    key per problem), every instantiation of both forms bitwise against its
+    plain twin at B=8 problems x R=512 lanes and at the sweeps' B=1024 x
+    R=128, with a distinct box set per problem, and at 70,000 problems x 2
+    lanes (past a grid's y extent); a wall in
+    problem 1 changes only problem 1; a key gives the same rows at B=4 and
+    at B=8 in another slot; ms of B6, its twin, and B1 on the same lanes
+    with one shared set, at the sweeps' shape B=1024 x R=128 x K=8;
+14. the batched arena at BASELINE config 4's width (256 demo pairs, goal
+    jitter 1.0, R=128, 150 windows, auto capacity, one extension; the
+    bench.py settings) under 'auto' (every wave through B1) and 'cuda_rng'
+    (B2): solve rate, cost quantiles, solves/s, launches equal to the waves
+    run, solved paths replaying within 1e-4 with cost = sum of durations;
+15. the Monte-Carlo sweep at config 5's per-chip width (1024 random
+    scenarios, 8 boxes, two extensions), every wave through B6;
+16. the streaming sweep (4096 scenarios, pool 1024, R=128, 150 waves per
+    scenario) under 'auto' (B6) and 'cuda_rng' (B6's Philox form); then at
+    256 scenarios two id_lo partitions and pool sizes 32 and 64 reproduce
+    the pool of 64 bit for bit, under both;
+17. the CLI as subprocesses: multi --impl arena --batch 256 and sweep
+    --impl stream, on the card.
 
-Then a JSON line of the kernels and, last, {"ok": true, "device": {...}}.
-Any failed check raises: the script exits non-zero and prints no result.
-The full record also goes to chiprun_out/chip_smoke.json.
+Then the card's name and power limit, a JSON line of the kernels and,
+last, {"ok": true, "device": {...}}. Each kernel entry has its device
+time, its plain twin's, both also by CUDA events, and its bound: the larger of the bytes it must move over
+3.35 TB/s and its f32 operations over 67 TFLOP/s (ops_per_lane). Any failed
+check raises: the script exits non-zero and prints no result. The full
+record also goes to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -63,6 +90,16 @@ RTOL = 1e-5  # (theta grows large where tan(steering) does: ulps scale with it)
 MISMATCH_FRACTION = 1e-4  # valid-mask disagreements allowed, all near an edge
 EDGE = 1e-4  # how near an edge a disagreeing lane must pass
 ROOT = pathlib.Path(__file__).resolve().parent
+# the arena and sweep settings of bench.py:317-320, 412-413 and 454-455
+SWEEP = dict(rollouts_per_iter=128, num_iterations=150, adaptive_waves=False)
+ARENA_B = 256  # BASELINE config 4
+MC_N = 1024  # BASELINE config 5 per chip
+STREAM_N, STREAM_POOL = 4096, 1024  # bench.py's streaming sweep
+CHECK_N, CHECK_POOL = 256, 64  # the invariance checks
+SWEEP_SHAPE = (1024, 128, 8)  # B6's timing shape: problems, lanes, boxes
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_F32_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+IRREGULAR_WINDOWS: list = []  # device_ms windows with counts not a multiple of n
 
 
 def fail(msg: str) -> None:
@@ -151,6 +188,44 @@ def time_ms(fn, n: int = TIMED) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_ms(fn, n: int = TIMED, tries: int = 5) -> float:
+    """Device time per call of ``fn`` under torch.profiler, over ``n``
+    calls after a warm-up call: for each kernel or copy, its mean device
+    time per launch times its launches per call (its count over ``n``,
+    rounded, so a record the profiler drops or carries over from earlier
+    work does not count). Where the host launches slower than the card
+    runs, ``time_ms`` measures the launch rate; this does not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total_us, odd = 0.0, []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            if us > 0:
+                total_us += us / e.count * round(e.count / n)
+                if e.count % n:
+                    odd.append((e.key[:60], e.count))
+        if odd:
+            IRREGULAR_WINDOWS.append(odd[:3])
+        if total_us > 0:
+            return total_us / 1e3
+    fail(f"torch.profiler recorded no device time in {tries} windows of {n} calls")
+
+
+def timed(out: dict, name: str, fn) -> None:
+    """out[name_ms]: device ms per call of ``fn``; out[name_launch_ms]:
+    CUDA-event ms per call, which the host's launch rate may set."""
+    out[f"{name}_ms"] = device_ms(fn)
+    out[f"{name}_launch_ms"] = time_ms(fn)
 
 
 def expected_waves(cfg, metrics) -> int:
@@ -287,11 +362,11 @@ def check_instantiations(dev, obstacles, kw) -> dict:
                             ("dubins/footprint/exact", "dubins", False)):
         system, x0, c = system_batch(name, B_CHECK, 60, dev)
         opts = dict(kw, footprint=FOOTPRINT, fast_math=fast)
-        out["times"][tag] = {
-            "ms": time_ms(lambda: rc.rollout_cuda(system, x0, c, obstacles, **opts)),
-            "plain_ms": time_ms(lambda: rc.rollout_soa(system, x0, c, obstacles, **opts)),
-            "valid_fraction": float(rc.rollout_cuda(system, x0, c, obstacles,
-                                                    **opts)[1].float().mean())}
+        t = out["times"][tag] = {}
+        timed(t, "kernel", lambda: rc.rollout_cuda(system, x0, c, obstacles, **opts))
+        timed(t, "plain", lambda: rc.rollout_soa(system, x0, c, obstacles, **opts))
+        t["valid_fraction"] = float(rc.rollout_cuda(system, x0, c, obstacles,
+                                                    **opts)[1].float().mean())
     return out
 
 
@@ -417,6 +492,370 @@ def run_cli(out_dir: pathlib.Path) -> dict:
                     "summary": summary}
     n_csv = len(list((out_dir / "artifacts").glob("*.csv")))
     check(n_csv == 13, f"cli plan: {n_csv} artifact CSVs")
+    return out
+
+
+def ops_per_lane(system: str, footprint: bool, fast: bool, K: int, num_disc: int,
+                 sample: bool) -> int:
+    """f32 operations one lane of the rollout kernels does, counted from
+    csrc/rollout.cu: each add, sub, mul, div, compare, min, max and abs is
+    one, each cosf/sinf/tanf one (the accurate library functions take tens
+    of instructions, so the count, and the bound it gives, is a lower
+    bound), and Philox-4x32-10's integer work in the sampling forms (10
+    rounds of two wide multiplies, four xors and two key adds, about 80)
+    counts at the f32 rate with the 5 operations of each of 3 draws. The
+    loops run every step and every box whatever the data (a dead lane
+    keeps computing), so the count depends on the shapes only."""
+    heading = system in ("bicycle", "unicycle", "dubins")
+    turn = {"unicycle": 1, "dubins": 2}.get(system, 0)
+    if fast and heading:
+        prepare = 14 if system == "bicycle" else 4 + turn
+        step = 22 if system == "bicycle" else 13 + turn
+    else:
+        prepare = 1 if system == "bicycle" else 0  # tanf(steering)
+        step = {"bicycle": 14, "point2d": 4, "double_integrator": 8}.get(system, 9 + turn)
+    per_step = step + 8  # bounds (4 compares) and the swept box (4 min/max)
+    per_box = 4  # the separating-axis test
+    if footprint:
+        per_step += 6 + (2 if heading and not fast else 0)  # centre, |cos|, |sin|; trig
+        per_box += 42  # box centre and half extents, four axes
+    return 1 + prepare + num_disc * (per_step + K * per_box) + (95 if sample else 0)
+
+
+def bound_ms(lanes: int, ops: int, boxes: int, keys: int = 0) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes moved
+    (per lane a float4 state and 3 controls in or out, a float4 state and a
+    valid byte out: 45 B; 16 B per box and per key read once) over the
+    memory rate, and the operations over the f32 rate. Returns (ms, what
+    bounds it)."""
+    t_bytes = (45 * lanes + 16 * (boxes + keys)) / PEAK_BYTES_PER_S
+    t_ops = lanes * ops / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def problem_batch(name: str, B: int, R: int, K: int, seed: int, dev):
+    """(system, x0 [B, R, 4], controls [B, R, 3], obstacles [B, K, 4]): a
+    distinct random box field per problem, two padding rows each."""
+    system, x0, c = system_batch(name, B * R, seed, dev)
+    r = np.random.default_rng(seed + 1000)
+    lo = r.uniform(0.0, 17.0, (B, K, 2))
+    boxes = np.concatenate([lo, lo + r.uniform(0.5, 3.0, (B, K, 2))], -1)
+    boxes[:, -2:] = (1.0, 1.0, 0.0, 0.0)
+    return (system, x0.reshape(B, R, 4), c.reshape(B, R, -1),
+            torch.tensor(boxes.astype(np.float32), device=dev))
+
+
+def check_b6(dev, kw) -> dict:
+    """Phase 13: both forms of B6 in every instantiation against their
+    plain twins (bitwise) at B=8 x R=512 and at the sweeps' launch shape
+    (SWEEP_SHAPE, one block per problem), then at 70,000 problems (more
+    than a grid's y extent); the isolation and key checks; times at the
+    sweeps' shape."""
+    from cudasbmp_torch import rng
+    from cudasbmp_torch.ops import rollout_cuda as rc
+
+    out = {"checks": {}, "times": {}}
+    errs = []
+
+    def against_twins(tag, system, x0, c, obs, keys, opts) -> None:
+        x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **opts)
+        px1, pvalid = rc.rollout_soa(system, x0, c, obs, **opts)
+        y1, c2, v2 = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs, **opts)
+        ty1, tc2, tv2 = rc.sample_and_rollout_torch(system, keys, x0, obs, **opts)
+        torch.cuda.synchronize()
+        check(torch.equal(valid, pvalid) and bitwise(x1, px1),
+              f"B6 {tag}: {int((valid != pvalid).sum())} mask mismatches")
+        check(bitwise(c2, tc2) and torch.equal(v2, tv2) and bitwise(y1, ty1),
+              f"B6 Philox {tag}: differs from its twin")
+        check(bool(torch.isfinite(x1).all()), f"B6 {tag}: non-finite x1")
+        err = max(float((x1 - px1).abs().max()), float((y1 - ty1).abs().max()))
+        errs.append(err)
+        out["checks"][tag] = {"max_abs_err": err,
+                              "valid_fraction": float(valid.float().mean())}
+
+    for nb, nr, nk in ((8, 512, 8), SWEEP_SHAPE):
+        for i, name in enumerate(SYSTEMS):
+            system, x0, c, obs = problem_batch(name, nb, nr, nk, 80 + i, dev)
+            keys = rng.split(rng.key(90 + i, dev), nb)
+            for fp in (None, FOOTPRINT):
+                for fast in (False, True):
+                    tag = (f"{nb}x{nr}/{name}/{'footprint' if fp else 'broad'}/"
+                           f"{'fast' if fast else 'exact'}")
+                    against_twins(tag, system, x0, c, obs, keys,
+                                  dict(kw, footprint=fp, fast_math=fast))
+    system, x0, c, obs = problem_batch("bicycle", 70_000, 2, 4, 97, dev)
+    against_twins("70000x2/bicycle/broad/exact", system, x0, c, obs,
+                  rng.split(rng.key(96, dev), 70_000), kw)
+    # isolation: a wall in problem 1 changes problem 1's lanes only
+    system, x0, c, obs = problem_batch("bicycle", 8, 512, 8, 99, dev)
+    x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **kw)
+    walled = obs.clone()
+    walled[1, -1] = torch.tensor([0.0, 9.0, 20.0, 11.0], device=dev)
+    wx1, wvalid = rc.rollout_batched_cuda(system, x0, c, walled, **kw)
+    others = [b for b in range(8) if b != 1]
+    check(torch.equal(wvalid[others], valid[others]) and bitwise(wx1[others], x1[others])
+          and bool((wvalid[1] != valid[1]).any()), "B6: the wall leaked across problems")
+    # keys: the same key gives the same rows at B=4 and at B=8 in another slot
+    keys = rng.split(rng.key(7, dev), 8)
+    _, c8, v8 = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs, **kw)
+    perm = [5, 1, 7, 2]
+    _, c4, v4 = rc.sample_and_rollout_batched_cuda(system, keys[perm].contiguous(),
+                                                   x0[perm].contiguous(),
+                                                   obs[perm].contiguous(), **kw)
+    check(bitwise(c4, c8[perm]) and torch.equal(v4, v8[perm]),
+          "B6 Philox: a problem's draws depend on its slot or on B")
+    out["isolation"] = {"lanes_changed_in_problem_1": int((wvalid[1] != valid[1]).sum())}
+    # times at the sweeps' shape: B=1024 problems x R=128 lanes x K=8 boxes
+    nb, nr, nk = SWEEP_SHAPE
+    system, x0, c, obs = problem_batch("bicycle", nb, nr, nk, 98, dev)
+    keys = rng.split(rng.key(8, dev), nb)
+    flat_x0, flat_c = x0.reshape(-1, 4), c.reshape(-1, 3)
+    t = out["times"]
+    timed(t, "b6", lambda: rc.rollout_batched_cuda(system, x0, c, obs, **kw))
+    timed(t, "plain", lambda: rc.rollout_soa(system, x0, c, obs, **kw))
+    timed(t, "b6_rng", lambda: rc.sample_and_rollout_batched_cuda(system, keys, x0, obs,
+                                                                  **kw))
+    timed(t, "rng_plain", lambda: rc.sample_and_rollout_torch(system, keys, x0, obs, **kw))
+    timed(t, "b1_same_lanes_shared_boxes",
+          lambda: rc.rollout_cuda(system, flat_x0, flat_c, obs[0], **kw))
+    t["valid_fraction"] = float(rc.rollout_batched_cuda(system, x0, c, obs, **kw)[1]
+                                .float().mean())
+    out["max_abs_err"] = max(errs)
+    return out
+
+
+def counting(module, name: str, attr: str):
+    """Wrap module.name so that every call appends the ``attr`` of what it
+    returns to a list (the iterations a solve ran); returns (list, undo)."""
+    orig = getattr(module, name)
+    seen: list[int] = []
+
+    def wrapped(*a, **k):
+        out = orig(*a, **k)
+        seen.append(getattr(out, attr))
+        return out
+
+    setattr(module, name, wrapped)
+    return seen, lambda: setattr(module, name, orig)
+
+
+def quantiles(costs: np.ndarray) -> list[float]:
+    costs = costs[np.isfinite(costs)]
+    return (np.quantile(costs, [0.1, 0.5, 0.9]).tolist() if costs.size
+            else [math.nan] * 3)
+
+
+def arena_config4(dev, backend: str) -> dict:
+    """Phase 14: BASELINE config 4 through the batched arena, as bench.py
+    measures it (warm-up seed 7, measured seed 8 with one extension)."""
+    from cudasbmp_torch import KGMTConfig, Scenario
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.ops.rollout import rollout_batch
+    from cudasbmp_torch.parallel import ArenaMultiQueryPlanner
+    from cudasbmp_torch.parallel import batch_kgmt as bk
+
+    cfg = KGMTConfig(**SWEEP, rollout_backend=backend)
+    B, base = ARENA_B, Scenario.demo()
+    r = np.random.default_rng(cfg.seed)  # the CLI's multi goal jitter
+    inits = np.tile(base.init, (B, 1)).astype(np.float32)
+    goals = np.tile(base.goal, (B, 1)).astype(np.float32)
+    goals[:, :2] += r.uniform(-1.0, 1.0, (B, 2)).astype(np.float32)
+    obstacles, _ = base.padded_obstacles(cfg.max_obstacles)
+    planner = ArenaMultiQueryPlanner(cfg, auto_capacity=True, device=dev)
+    planner.plan_batch(inits, goals, obstacles, seed=7)  # warm-up
+    waves, undo = counting(bk, "arena_solve", "it")
+    rc.reset_launch_counts()
+    try:
+        res = planner.plan_batch(inits, goals, obstacles, seed=8, max_extensions=1)
+    finally:
+        undo()
+    kernel = rc.sample_and_rollout_cuda if backend == "cuda_rng" else rc.rollout_cuda
+    launches = {w.__name__: w.launches for w in rc.WRAPPERS}
+    check(launches.pop(kernel.__name__) == sum(waves) and set(launches.values()) == {0},
+          f"arena {backend}: launches {dict(launches)} {kernel.launches} for waves {waves}")
+    system = planner.system
+    obs_t = torch.tensor(obstacles, device=dev)
+    worst = 0.0
+    for b in np.flatnonzero(res.solved):
+        path = torch.tensor(res.paths[b, :res.path_lengths[b]], device=dev)
+        check(path.shape[0] >= 2 and bool(torch.isfinite(path).all()),
+              f"arena {backend}: problem {b} path {tuple(path.shape)}")
+        x1, valid = rollout_batch(system, path[:-1, :4].contiguous(),
+                                  path[1:, 4:].contiguous(), cfg.num_disc, obs_t,
+                                  cfg.width, cfg.height)
+        err = float((x1 - path[1:, :4]).abs().max())
+        worst = max(worst, err)
+        check(bool(valid.all()) and err < 1e-4,
+              f"arena {backend}: problem {b} replays with error {err}")
+        check(math.isclose(res.costs[b], float(path[1:, 6].sum()), rel_tol=1e-5),
+              f"arena {backend}: problem {b} cost {res.costs[b]} != sum of durations")
+        end = res.paths[b, res.path_lengths[b] - 1]
+        check(math.hypot(end[0] - goals[b, 0], end[1] - goals[b, 1]) < cfg.goal_threshold,
+              f"arena {backend}: problem {b} ends off its goal")
+    rate = float(res.solved.mean())
+    check(rate >= 0.5, f"arena {backend}: solve rate {rate}")
+    return {"batch": B, "solve_rate": rate, "cost_p10_p50_p90": quantiles(res.costs),
+            "iterations_p50": float(np.median(res.iterations)),
+            "iterations_max": int(res.iterations.max()),
+            "solves_per_sec": res.solves_per_sec, "wall_time_s": res.wall_time_s,
+            "waves": waves, "launches": kernel.launches,
+            "budget_exhausted": int(res.budget_exhausted.sum()),
+            "replay_max_err": worst}
+
+
+def mc_sweep(dev) -> dict:
+    """Phase 15: BASELINE config 5 per chip, as bench.py measures it (1024
+    random scenarios, 8 boxes, two extensions), every wave through B6."""
+    from cudasbmp_torch import KGMTConfig
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.parallel import MonteCarloPlanner
+    from cudasbmp_torch.parallel import batch_kgmt as bk
+
+    mc = MonteCarloPlanner(KGMTConfig(**SWEEP), impl="arena", auto_capacity=True,
+                           device=dev)
+    mc.run(64, seed=0, num_obstacles=8)  # warm-up
+    waves, undo = counting(bk, "arena_solve", "it")
+    rc.reset_launch_counts()
+    try:
+        s = mc.run(MC_N, seed=1, num_obstacles=8, max_extensions=2)
+    finally:
+        undo()
+    launches = {w.__name__: w.launches for w in rc.WRAPPERS}
+    check(launches.pop("rollout_batched_cuda") == sum(waves)
+          and set(launches.values()) == {0},
+          f"Monte-Carlo sweep: launches {launches} for waves {waves}")
+    check(s.solve_rate >= 0.5 and bool(np.isfinite(s.costs[s.solved]).all())
+          and bool((s.costs[s.solved] > 0).all()),
+          f"Monte-Carlo sweep: solve rate {s.solve_rate}")
+    return {"scenarios": MC_N, "solve_rate": s.solve_rate,
+            "cost_p10_p50_p90": quantiles(s.costs), "solves_per_sec": s.solves_per_sec,
+            "wall_time_s": s.wall_time_s, "mean_tree_size": s.mean_tree_size,
+            "budget_exhausted": s.num_budget_exhausted, "waves": waves,
+            "launches": rc.rollout_batched_cuda.launches}
+
+
+def stream_sweep(dev) -> dict:
+    """Phase 16: the streaming sweep at bench.py's width under 'auto' (B6)
+    and 'cuda_rng' (B6's Philox form), then the partition and pool-size
+    invariances at 256 scenarios."""
+    from cudasbmp_torch import KGMTConfig
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.parallel import StreamingMonteCarloPlanner
+    from cudasbmp_torch.parallel import streaming_mc as sm
+
+    out = {}
+    for backend, kernel in (("auto", rc.rollout_batched_cuda),
+                            ("cuda_rng", rc.sample_and_rollout_batched_cuda)):
+        cfg = KGMTConfig(**SWEEP, rollout_backend=backend)
+        StreamingMonteCarloPlanner(cfg, pool=64, device=dev).run(64, seed=0)  # warm-up
+        iters, undo = counting(sm, "stream_solve", "it")
+        rc.reset_launch_counts()
+        try:
+            s = StreamingMonteCarloPlanner(cfg, pool=STREAM_POOL, device=dev).run(
+                STREAM_N, seed=1, num_obstacles=8)
+        finally:
+            undo()
+        launches = {w.__name__: w.launches for w in rc.WRAPPERS}
+        main_launches = launches.pop(kernel.__name__)
+        check(main_launches == sum(iters) and set(launches.values()) == {0},
+              f"streaming {backend}: launches {launches} for {iters} iterations")
+        check(s.solve_rate >= 0.5, f"streaming {backend}: solve rate {s.solve_rate}")
+        check(bool(((np.isfinite(s.costs)) | (s.iters >= cfg.num_iterations)).all()),
+              f"streaming {backend}: a scenario neither solved nor exhausted")
+        inv = {}
+        single = StreamingMonteCarloPlanner(cfg, pool=CHECK_POOL, device=dev).run(
+            CHECK_N, seed=3)
+        half = CHECK_N // 2
+        parts = [StreamingMonteCarloPlanner(cfg, pool=CHECK_POOL, device=dev).run(
+            half, seed=3, id_lo=lo) for lo in (0, half)]
+        narrow = StreamingMonteCarloPlanner(cfg, pool=CHECK_POOL // 2, device=dev).run(
+            CHECK_N, seed=3)
+        for tag, costs, its in (
+                ("id_lo partitions", np.concatenate([p.costs for p in parts]),
+                 np.concatenate([p.iters for p in parts])),
+                (f"pool {CHECK_POOL // 2}", narrow.costs, narrow.iters)):
+            check(np.array_equal(costs.view(np.uint32), single.costs.view(np.uint32))
+                  and np.array_equal(its, single.iters),
+                  f"streaming {backend}: {tag} differ from the pool of {CHECK_POOL}")
+            inv[tag] = "bitwise equal"
+        out[backend] = {"scenarios": STREAM_N, "pool": STREAM_POOL, "solve_rate": s.solve_rate,
+                        "cost_quantiles": s.cost_quantiles,
+                        "solves_per_sec": s.solves_per_sec, "wall_time_s": s.wall_time_s,
+                        "mean_iters": s.mean_iters, "iterations": iters,
+                        "launches": main_launches, "invariance_256": inv,
+                        "solve_rate_256": single.solve_rate}
+    return out
+
+
+def run_batch_cli() -> dict:
+    """Phase 17: the batch subcommands as a user starts them, on the card."""
+    sweep_flags = ["--rollouts-per-iter", "128", "--num-iterations", "150",
+                   "--no-adaptive-waves"]
+    runs = {
+        "multi": ["multi", "--impl", "arena", "--batch", "256", "--device", "cuda",
+                  "--max-tree-size", str(128 * 151), *sweep_flags],
+        "sweep_stream": ["sweep", "--impl", "stream", "--scenarios", "1024", "--pool",
+                         "256", "--device", "cuda", *sweep_flags],
+    }
+    out = {}
+    for tag, args in runs.items():
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "cudasbmp_torch.cli", *args],
+                           cwd=ROOT, capture_output=True, text=True, timeout=300)
+        check(p.returncode == 0, f"cli {tag}: exit {p.returncode}\n{p.stdout[-2000:]}"
+              f"\n{p.stderr[-2000:]}")
+        summary = json.loads(p.stdout[p.stdout.index("{"):p.stdout.rindex("}") + 1])
+        check(summary["solve_rate"] > 0.5, f"cli {tag}: {summary}")
+        out[tag] = {"seconds": time.perf_counter() - t0, "summary": summary}
+    return out
+
+
+def profile_batched(dev, out_dir: pathlib.Path) -> dict:
+    """torch.profiler over one arena solve at config 4's width ('auto', no
+    extension) and one streaming sweep of 1024 scenarios in a pool of 1024:
+    device busy time against the wall, and kernel launches per wave."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudasbmp_torch import KGMTConfig, Scenario
+    from cudasbmp_torch.parallel import ArenaMultiQueryPlanner, StreamingMonteCarloPlanner
+    from cudasbmp_torch.parallel import batch_kgmt as bk
+    from cudasbmp_torch.parallel import streaming_mc as sm
+
+    cfg = KGMTConfig(**SWEEP)
+    base = Scenario.demo()
+    inits = np.tile(base.init, (ARENA_B, 1)).astype(np.float32)
+    goals = np.tile(base.goal, (ARENA_B, 1)).astype(np.float32)
+    goals[:, :2] += np.random.default_rng(0).uniform(-1.0, 1.0, (ARENA_B, 2)).astype(
+        np.float32)
+    obstacles = base.padded_obstacles(cfg.max_obstacles)[0]
+    arena = ArenaMultiQueryPlanner(cfg, auto_capacity=True, device=dev)
+    stream = StreamingMonteCarloPlanner(cfg, pool=STREAM_POOL, device=dev)
+    arena.plan_batch(inits, goals, obstacles, seed=7)
+    stream.run(256, seed=0)
+    runs = {"arena": (bk, "arena_solve", lambda: arena.plan_batch(inits, goals, obstacles,
+                                                                  seed=8)),
+            "streaming": (sm, "stream_solve", lambda: stream.run(1024, seed=1))}
+    out = {}
+    for tag, (module, fn, run) in runs.items():
+        waves, undo = counting(module, fn, "it")
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            undo()
+        events = prof.key_averages()
+        (out_dir / f"profile_{tag}.txt").write_text(
+            events.table(sort_by="cuda_time_total", row_limit=25))
+        dev_us = [getattr(e, "self_device_time_total", None) for e in events]
+        if None in dev_us:
+            dev_us = [e.self_cuda_time_total for e in events]
+        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+        busy = sum(dev_us) / 1e6
+        out[tag] = {"wall_s": wall, "device_busy_s": busy, "idle_share": 1 - busy / wall,
+                    "waves": sum(waves), "launches_per_wave": launches / max(sum(waves), 1)}
     return out
 
 
@@ -580,24 +1019,28 @@ def main() -> int:
         x0, ctrl = demo_batch(B, 1, dev)
         _, valid = rc.rollout_cuda(system, x0, ctrl, obstacles, **kw)
         t = {"valid": int(valid.sum())}
-        t["b1_ms"] = time_ms(lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **kw))
-        t["plain_ms"] = time_ms(lambda: rollout_batch(system, x0, ctrl, cfg.num_disc,
-                                                      obstacles, cfg.width, cfg.height))
-        t["b2_ms"] = time_ms(lambda: rc.sample_and_rollout_cuda(system, key, x0,
-                                                                obstacles, **kw))
-        t["twin_ms"] = time_ms(lambda: rc.sample_and_rollout_torch(system, key, x0,
-                                                                   obstacles, **kw))
+        timed(t, "b1", lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **kw))
+        timed(t, "plain", lambda: rollout_batch(system, x0, ctrl, cfg.num_disc,
+                                                obstacles, cfg.width, cfg.height))
+        timed(t, "b2", lambda: rc.sample_and_rollout_cuda(system, key, x0, obstacles,
+                                                          **kw))
+        timed(t, "twin", lambda: rc.sample_and_rollout_torch(system, key, x0,
+                                                             obstacles, **kw))
         t["b1_valid_rollouts_per_s"] = t["valid"] / (t["b1_ms"] / 1e3)
         t["plain_valid_rollouts_per_s"] = t["valid"] / (t["plain_ms"] / 1e3)
         times[B] = t
     record["throughput"] = {str(B): t for B, t in times.items()}
     main, big = times[cfg.rollouts_per_iter], times[B_CHECK]
-    print(f"[7 throughput] B={cfg.rollouts_per_iter}: B1 {main['b1_ms']:.4f} ms plain "
-          f"{main['plain_ms']:.4f} ms B2 {main['b2_ms']:.4f} ms twin "
-          f"{main['twin_ms']:.4f} ms | B={B_CHECK}: B1 {big['b1_ms']:.4f} ms "
-          f"({big['b1_valid_rollouts_per_s']:.4g} valid rollouts/s) plain "
-          f"{big['plain_ms']:.4f} ms ({big['plain_valid_rollouts_per_s']:.4g}/s) B2 "
-          f"{big['b2_ms']:.4f} ms twin {big['twin_ms']:.4f} ms", flush=True)
+    print(f"[7 throughput] device ms (CUDA-event ms) | B={cfg.rollouts_per_iter}: B1 "
+          f"{main['b1_ms']:.4f} ({main['b1_launch_ms']:.4f}) plain {main['plain_ms']:.4f} "
+          f"({main['plain_launch_ms']:.4f}) B2 {main['b2_ms']:.4f} "
+          f"({main['b2_launch_ms']:.4f}) twin {main['twin_ms']:.4f} "
+          f"({main['twin_launch_ms']:.4f}) | B={B_CHECK}: B1 {big['b1_ms']:.4f} "
+          f"({big['b1_launch_ms']:.4f}; {big['b1_valid_rollouts_per_s']:.4g} valid "
+          f"rollouts/s) plain {big['plain_ms']:.4f} ({big['plain_launch_ms']:.4f}; "
+          f"{big['plain_valid_rollouts_per_s']:.4g}/s) B2 {big['b2_ms']:.4f} "
+          f"({big['b2_launch_ms']:.4f}) twin {big['twin_ms']:.4f} "
+          f"({big['twin_launch_ms']:.4f})", flush=True)
 
     # 8. every instantiation of B1/B2 (B3, B4) against its twin; times
     t0 = time.perf_counter()
@@ -605,9 +1048,12 @@ def main() -> int:
     record["instantiations"] = inst
     fast_t, fp_t = inst["times"]["bicycle/footprint/fast"], inst["times"]["dubins/footprint/exact"]
     print(f"[8 instantiations] {len(inst['checks'])} x (B1, B2) bitwise equal to their "
-          f"twins at B=4096 | B={B_CHECK}: bicycle+footprint+fast {fast_t['ms']:.4f} ms "
-          f"plain {fast_t['plain_ms']:.4f} ms; dubins+footprint {fp_t['ms']:.4f} ms "
-          f"plain {fp_t['plain_ms']:.4f} ms ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"twins at B=4096 | B={B_CHECK}, device ms (CUDA-event ms): bicycle+footprint+"
+          f"fast {fast_t['kernel_ms']:.4f} ({fast_t['kernel_launch_ms']:.4f}) plain "
+          f"{fast_t['plain_ms']:.4f} ({fast_t['plain_launch_ms']:.4f}); dubins+footprint "
+          f"{fp_t['kernel_ms']:.4f} ({fp_t['kernel_launch_ms']:.4f}) plain "
+          f"{fp_t['plain_ms']:.4f} ({fp_t['plain_launch_ms']:.4f}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # 9. 40 boxes
     t0 = time.perf_counter()
@@ -649,41 +1095,144 @@ def main() -> int:
         f"{k}: {v['lines'][2]} solved cost {v['summary']['cost']:.4f} ({v['seconds']:.1f} s)"
         for k, v in clis.items()), flush=True)
 
+    # 13. B6 against its twins; times at the sweeps' shape
+    t0 = time.perf_counter()
+    b6 = check_b6(dev, kw)
+    record["b6"] = b6
+    bt = b6["times"]
+    print(f"[13 B6] {len(b6['checks'])} x (B6, B6 Philox) bitwise equal to their twins at "
+          f"B=8 x R=512, B=1024 x R=128 and B=70000 x R=2; wall in problem 1 changed {b6['isolation']['lanes_changed_in_problem_1']}"
+          f" of its lanes and none elsewhere; keys slot- and B-independent | B=1024 x R=128 x "
+          f"K=8, device ms (CUDA-event ms): B6 {bt['b6_ms']:.4f} ({bt['b6_launch_ms']:.4f}) "
+          f"plain {bt['plain_ms']:.4f} ({bt['plain_launch_ms']:.4f}), Philox "
+          f"{bt['b6_rng_ms']:.4f} ({bt['b6_rng_launch_ms']:.4f}) plain "
+          f"{bt['rng_plain_ms']:.4f} ({bt['rng_plain_launch_ms']:.4f}), B1 on the same "
+          f"lanes (shared boxes) {bt['b1_same_lanes_shared_boxes_ms']:.4f} "
+          f"({bt['b1_same_lanes_shared_boxes_launch_ms']:.4f}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 14. the batched arena at config 4's width, auto (B1) and cuda_rng (B2)
+    t0 = time.perf_counter()
+    arena = {b: arena_config4(dev, b) for b in ("auto", "cuda_rng")}
+    record["arena_config4"] = arena
+    print("[14 arena B=256] " + " | ".join(
+        f"{b}: rate {v['solve_rate']:.4f} cost p10/p50/p90 "
+        f"{'/'.join(f'{q:.3f}' for q in v['cost_p10_p50_p90'])} iterations p50 "
+        f"{v['iterations_p50']:.0f} max {v['iterations_max']} solves/s "
+        f"{v['solves_per_sec']:.1f} waves {sum(v['waves'])} launches {v['launches']}"
+        for b, v in arena.items()) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 15. the Monte-Carlo sweep at config 5's per-chip width, through B6
+    t0 = time.perf_counter()
+    mc = mc_sweep(dev)
+    record["monte_carlo"] = mc
+    print(f"[15 Monte-Carlo 1024] rate {mc['solve_rate']:.4f} cost p10/p50/p90 "
+          f"{'/'.join(f'{q:.3f}' for q in mc['cost_p10_p50_p90'])} solves/s "
+          f"{mc['solves_per_sec']:.1f} exhausted {mc['budget_exhausted']} waves "
+          f"{mc['waves']} B6 launches {mc['launches']} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    # 16. the streaming sweep, B6 and its Philox form; invariances
+    t0 = time.perf_counter()
+    stream = stream_sweep(dev)
+    record["streaming"] = stream
+    print("[16 streaming 4096/1024] " + " | ".join(
+        f"{b}: rate {v['solve_rate']:.4f} cost p10/p50/p90 "
+        f"{v['cost_quantiles']['p10']}/{v['cost_quantiles']['p50']}/"
+        f"{v['cost_quantiles']['p90']} solves/s {v['solves_per_sec']:.1f} iterations "
+        f"{sum(v['iterations'])} launches {v['launches']}; 256: partitions and pool 32 "
+        f"bitwise equal" for b, v in stream.items())
+        + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 17. the batch subcommands of the CLI
+    t0 = time.perf_counter()
+    bcli = run_batch_cli()
+    record["batch_cli"] = bcli
+    print("[17 cli] " + " | ".join(
+        f"{k}: rate {v['summary']['solve_rate']:.4f} solves/s "
+        f"{v['summary']['solves_per_sec']:.1f} ({v['seconds']:.1f} s)"
+        for k, v in bcli.items()) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
     if "--profile" in sys.argv[1:]:
         out_dir.mkdir(exist_ok=True)
         record["profile_tree_auto"] = profile_solve(cfg, dev, out_dir)
         print(f"[profile] {record['profile_tree_auto']}", flush=True)
+        record["profile_batched"] = profile_batched(dev, out_dir)
+        print(f"[profile batched] {record['profile_batched']}", flush=True)
 
     inst_err = max(v["max_abs_err"] for v in inst["checks"].values())
+    K = obstacles.shape[0]
+    R = cfg.rollouts_per_iter
+    nd = cfg.num_disc
+    nb, nr, nk = SWEEP_SHAPE
+
+    def bounds(lanes, ops, boxes, keys=0):
+        ms, by = bound_ms(lanes, ops, boxes, keys)
+        return {"bound_ms": ms, "bound_by": by, "library_ms": None}
+
     kernels = [
         {"name": "rollout_kernel", "route": "cuda",
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/ops/rollout_pallas.py:432",
          "systems": list(SYSTEMS),
          "launches": b1_launches, "max_abs_err": max(b1["max_abs_err"], inst_err),
-         "ms": main["b1_ms"], "plain_ms": main["plain_ms"]},
+         "ms": main["b1_ms"], "plain_ms": main["plain_ms"],
+         "launch_ms": main["b1_launch_ms"], "plain_launch_ms": main["plain_launch_ms"],
+         **bounds(R, ops_per_lane("bicycle", False, False, K, nd, False), K)},
         {"name": "sample_and_rollout_kernel", "route": "cuda",
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/ops/rollout_pallas.py:593",
          "systems": list(SYSTEMS),
          "launches": b2_main, "max_abs_err": max(b2["max_abs_err"], inst_err),
-         "ms": main["b2_ms"], "plain_ms": main["twin_ms"]},
+         "ms": main["b2_ms"], "plain_ms": main["twin_ms"],
+         "launch_ms": main["b2_launch_ms"], "plain_launch_ms": main["twin_launch_ms"],
+         **bounds(R, ops_per_lane("bicycle", False, False, K, nd, True), K, 1)},
         {"name": "rollout_kernel<footprint> (B3)", "route": "cuda",
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/ops/rollout_pallas.py:104",
          "systems": list(SYSTEMS),
          "launches": option_launches, "max_abs_err": inst_err,
-         "ms": fp_t["ms"], "plain_ms": fp_t["plain_ms"]},
+         "ms": fp_t["kernel_ms"], "plain_ms": fp_t["plain_ms"],
+         "launch_ms": fp_t["kernel_launch_ms"], "plain_launch_ms": fp_t["plain_launch_ms"],
+         **bounds(B_CHECK, ops_per_lane("dubins", True, False, K, nd, False), K)},
         {"name": "rollout_kernel<fast_math> (B4)", "route": "cuda",
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/ops/rollout_pallas.py:81",
          "systems": ["bicycle", "unicycle", "dubins"],
          "launches": option_launches, "max_abs_err": inst_err,
-         "ms": fast_t["ms"], "plain_ms": fast_t["plain_ms"]},
+         "ms": fast_t["kernel_ms"], "plain_ms": fast_t["plain_ms"],
+         "launch_ms": fast_t["kernel_launch_ms"],
+         "plain_launch_ms": fast_t["plain_launch_ms"],
+         **bounds(B_CHECK, ops_per_lane("bicycle", True, True, K, nd, False), K)},
+        {"name": "rollout_kernel, per-problem boxes (B6)", "route": "cuda",
+         "source": "cudasbmp_torch/csrc/rollout.cu",
+         "replaces": "cudasbmp_tpu/parallel/batch_kgmt.py:227",
+         "systems": list(SYSTEMS),
+         "launches": mc["launches"] + stream["auto"]["launches"],
+         "max_abs_err": b6["max_abs_err"], "ms": bt["b6_ms"], "plain_ms": bt["plain_ms"],
+         "launch_ms": bt["b6_launch_ms"], "plain_launch_ms": bt["plain_launch_ms"],
+         **bounds(nb * nr, ops_per_lane("bicycle", False, False, nk, nd, False), nb * nk)},
+        {"name": "sample_and_rollout_kernel, per-problem boxes and keys (B6)",
+         "route": "cuda",
+         "source": "cudasbmp_torch/csrc/rollout.cu",
+         "replaces": "cudasbmp_tpu/parallel/batch_kgmt.py:208",
+         "systems": list(SYSTEMS),
+         "launches": stream["cuda_rng"]["launches"],
+         "max_abs_err": b6["max_abs_err"], "ms": bt["b6_rng_ms"],
+         "plain_ms": bt["rng_plain_ms"], "launch_ms": bt["b6_rng_launch_ms"],
+         "plain_launch_ms": bt["rng_plain_launch_ms"],
+         **bounds(nb * nr, ops_per_lane("bicycle", False, False, nk, nd, True), nb * nk,
+                  nb)},
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     record["kernels"] = kernels
+    record["profiler_irregular_windows"] = IRREGULAR_WINDOWS
+    print(f"[times] device_ms windows whose records were not a multiple of the calls: "
+          f"{len(IRREGULAR_WINDOWS)} {IRREGULAR_WINDOWS[:3]}", flush=True)
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

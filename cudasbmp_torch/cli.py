@@ -2,6 +2,8 @@
 
     python -m cudasbmp_torch.cli demo [--device cuda|cpu] [config flags]
     python -m cudasbmp_torch.cli plan --configurations DIR [--device ...] [...]
+    python -m cudasbmp_torch.cli multi --impl arena [--batch B] [...]
+    python -m cudasbmp_torch.cli sweep --impl arena|stream [--scenarios N] [...]
 
 ``demo`` plans the reference demo scenario, ``plan`` a ``configurations/``
 directory (its numR1/numR2 files set the grid unless a flag does). Config
@@ -12,14 +14,22 @@ size ...``), then a JSON summary; ``--verbose`` adds the per-iteration
 table, ``--out-dir`` the 13 artifact CSVs. Exit code 0 when solved, 1 when
 not, 2 on a usage error.
 
+``multi --impl arena`` plans ``--batch`` copies of the demo with the goal
+jittered per problem in one batched arena; ``sweep --impl arena`` plans
+``--scenarios`` random scenarios in one batched arena, ``sweep --impl
+stream`` streams them through a pool of ``--pool`` slots. Each prints the
+JAX CLI's JSON summary and exits 0. ``--impl vmap``, the JAX CLI's default,
+is not yet ported (exit 2), nor is ``--no-need-path`` meaningful there
+(exit 2, as in the JAX CLI).
+
 ``--device`` is explicit and defaults to ``cuda``, where the rollouts run
 through the hand-written CUDA kernels; without a CUDA device the CLI stops
 with an error instead of moving to the CPU. ``--device cpu`` runs the plain
 PyTorch versions.
 
-Not yet ported (exit 2): ``--shortcut``, ``--refine``, ``--plot`` and the
-subcommands ``probe``, ``viz``, ``record``, ``profile``, ``multi``,
-``sweep`` and ``sharded``.
+Not yet ported (exit 2): ``--shortcut``, ``--refine``, ``--plot``,
+``--impl vmap`` and the subcommands ``probe``, ``viz``, ``record``,
+``profile`` and ``sharded``.
 """
 
 from __future__ import annotations
@@ -29,8 +39,7 @@ import dataclasses
 import json
 import sys
 
-NOT_PORTED_COMMANDS = ("probe", "viz", "record", "profile", "multi", "sweep",
-                       "sharded")
+NOT_PORTED_COMMANDS = ("probe", "viz", "record", "profile", "sharded")
 NOT_PORTED_FLAGS = ("shortcut", "refine", "plot")
 
 
@@ -93,6 +102,10 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device of the solve (default cuda; cpu runs "
                    "the plain PyTorch versions)")
+
+
+def _add_plan_args(p: argparse.ArgumentParser) -> None:
+    """The single-query subcommands' output flags."""
     p.add_argument("--out-dir", help="dump the artifact CSVs here")
     p.add_argument("--verbose", action="store_true")
     for flag in NOT_PORTED_FLAGS:
@@ -125,9 +138,18 @@ def _error(msg: str) -> int:
     return 2
 
 
-def _run_plan(args: argparse.Namespace, scenario) -> int:
+def _device_error(args: argparse.Namespace) -> int:
+    """2 with a message when --device names CUDA on a host without it."""
     import torch
 
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        return _error(f"--device {args.device}: torch.cuda.is_available() is "
+                      "false; pass --device cpu to run the plain PyTorch "
+                      "versions on the CPU")
+    return 0
+
+
+def _run_plan(args: argparse.Namespace, scenario) -> int:
     from cudasbmp_torch.io.csv import write_artifacts
     from cudasbmp_torch.planners.kgmt import KGMT
     from cudasbmp_torch.utils.metrics import (
@@ -138,11 +160,9 @@ def _run_plan(args: argparse.Namespace, scenario) -> int:
     wants = [f"--{f}" for f in NOT_PORTED_FLAGS if getattr(args, f)]
     if wants:
         return _error(f"{', '.join(wants)}: not yet ported to cudasbmp_torch")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        return _error(f"--device {args.device}: torch.cuda.is_available() is "
-                      "false; pass --device cpu to run the plain PyTorch "
-                      "versions on the CPU")
+    if rc := _device_error(args):
+        return rc
+    device = args.device
     cfg = _config_from_args(args)
     if not cfg.need_path and args.out_dir:
         return _error("--no-need-path keeps no tree; incompatible with --out-dir")
@@ -160,6 +180,88 @@ def _run_plan(args: argparse.Namespace, scenario) -> int:
     return 0 if result.solved else 1
 
 
+def _batch_usage_error(args: argparse.Namespace) -> int:
+    """The checks ``multi`` and ``sweep`` make before any work."""
+    if args.impl == "vmap":
+        return _error("--impl vmap: the vmapped multi-query planner is not yet "
+                      "ported to cudasbmp_torch (ROADMAP item 22); use "
+                      "--impl arena")
+    if args.need_path is False:
+        return _error("--no-need-path applies to the single-query planner "
+                      "(demo/plan); the streaming sweep (sweep --impl "
+                      "stream) is already pathless by design")
+    return _device_error(args)
+
+
+def _run_multi(args: argparse.Namespace) -> int:
+    import numpy as np
+
+    from cudasbmp_torch.config import Scenario
+    from cudasbmp_torch.parallel import ArenaMultiQueryPlanner
+
+    if rc := _batch_usage_error(args):
+        return rc
+    cfg = _config_from_args(args)
+    base = Scenario.demo()
+    B = args.batch
+    rng = np.random.default_rng(cfg.seed)
+    inits = np.tile(base.init, (B, 1)).astype(np.float32)
+    goals = np.tile(base.goal, (B, 1)).astype(np.float32)
+    goals[:, :2] += rng.uniform(-args.goal_jitter, args.goal_jitter,
+                                (B, 2)).astype(np.float32)
+    obstacles, _ = base.padded_obstacles(cfg.max_obstacles)
+    planner = ArenaMultiQueryPlanner(cfg, device=args.device)
+    res = planner.plan_batch(inits, goals, obstacles, seed=cfg.seed)
+    print(json.dumps({
+        "batch": B,
+        "solved": int(res.solved.sum()),
+        "solve_rate": float(res.solved.mean()),
+        "mean_cost": float(res.costs[res.solved].mean())
+        if res.solved.any() else None,
+        "wall_time_s": res.wall_time_s,
+        "solves_per_sec": res.solves_per_sec,
+    }, indent=2))
+    return 0
+
+
+def _run_sweep(args: argparse.Namespace) -> int:
+    if rc := _batch_usage_error(args):
+        return rc
+    cfg = _config_from_args(args)
+    if args.impl == "stream":
+        from cudasbmp_torch.parallel import StreamingMonteCarloPlanner
+
+        mc = StreamingMonteCarloPlanner(cfg, pool=min(args.pool, args.scenarios),
+                                        device=args.device)
+        s = mc.run(num_scenarios=args.scenarios, seed=cfg.seed,
+                   num_obstacles=args.obstacles)
+        print(json.dumps({
+            "scenarios": s.num_scenarios,
+            "solve_rate": s.solve_rate,
+            "mean_cost_solved": s.mean_cost_solved,
+            "cost_quantiles": s.cost_quantiles,
+            "num_budget_exhausted": s.num_budget_exhausted,
+            "wall_time_s": s.wall_time_s,
+            "solves_per_sec": s.solves_per_sec,
+        }, indent=2))
+        return 0
+    from cudasbmp_torch.parallel import MonteCarloPlanner
+
+    mc = MonteCarloPlanner(cfg, impl=args.impl, device=args.device)
+    s = mc.run(num_scenarios=args.scenarios, seed=cfg.seed,
+               num_obstacles=args.obstacles)
+    print(json.dumps({
+        "scenarios": s.num_scenarios,
+        "solve_rate": s.solve_rate,
+        "mean_cost_solved": s.mean_cost_solved,
+        "mean_tree_size": s.mean_tree_size,
+        "wall_time_s": s.wall_time_s,
+        "solves_per_sec": s.solves_per_sec,
+        "num_budget_exhausted": s.num_budget_exhausted,
+    }, indent=2))
+    return 0
+
+
 def _first_command(argv: list[str]) -> str | None:
     return next((a for a in argv if not a.startswith("-")), None)
 
@@ -175,15 +277,44 @@ def main(argv: list[str] | None = None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
     p_demo = sub.add_parser("demo", help="plan the reference demo scenario")
     _add_config_args(p_demo)
+    _add_plan_args(p_demo)
     p_plan = sub.add_parser("plan", help="plan a configurations/ scenario")
     _add_config_args(p_plan)
+    _add_plan_args(p_plan)
     p_plan.add_argument("--configurations", required=True,
                         help="directory in the reference configurations/ "
                         "layout")
+    p_multi = sub.add_parser("multi", help="multi-query batch: B init/goal "
+                             "pairs planned together in one batched arena")
+    _add_config_args(p_multi)
+    p_multi.add_argument("--batch", type=int, default=64)
+    p_multi.add_argument("--goal-jitter", type=float, default=1.0,
+                         help="uniform jitter applied to the demo goal per "
+                         "problem")
+    p_multi.add_argument("--impl", choices=["vmap", "arena"], default="vmap",
+                         help="'arena' = the batched arena (fixed wave "
+                         "width); 'vmap' is not yet ported (exits 2)")
+    p_sweep = sub.add_parser("sweep", help="Monte-Carlo sweep over random "
+                             "obstacle scenarios")
+    _add_config_args(p_sweep)
+    p_sweep.add_argument("--scenarios", type=int, default=64)
+    p_sweep.add_argument("--obstacles", type=int, default=8)
+    p_sweep.add_argument("--impl", choices=["vmap", "arena", "stream"],
+                         default="vmap",
+                         help="'arena' = one batched arena over every "
+                         "scenario; 'stream' = slot-refilling streaming sweep "
+                         "(per-scenario results, no tree storage); 'vmap' is "
+                         "not yet ported (exits 2)")
+    p_sweep.add_argument("--pool", type=int, default=1024,
+                         help="resident slot count for --impl stream")
     for name in NOT_PORTED_COMMANDS:
         sub.add_parser(name, help="not yet ported (exits 2)")
     args = parser.parse_args(argv)
 
+    if args.cmd == "multi":
+        return _run_multi(args)
+    if args.cmd == "sweep":
+        return _run_sweep(args)
     if args.cmd == "demo":
         from cudasbmp_torch.config import Scenario
 

@@ -1,12 +1,13 @@
 """Carry planner state between the JAX package and this one, through numpy.
 
-``state_to_numpy`` turns a port ``KGMTState``/``PathlessState`` into a dict of
-numpy arrays keyed by field name, with the key as its two uint32 words (what
-``jax.random.key_data`` gives). ``state_from_numpy`` builds a port state from
-such a dict on a given device, of either kind. A JAX state goes in as
-``{**state._asdict(), "key": jax.random.key_data(state.key)}`` after
-``jax.device_get``, and comes back with ``jax.random.wrap_key_data``. This
-module imports no JAX: the caller does the JAX side.
+``state_to_numpy`` turns a port state (``KGMTState``, ``PathlessState``, the
+batched arena's ``ArenaState`` or the streaming sweep's ``StreamState``)
+into a dict of numpy arrays keyed by field name, with the key as its two
+uint32 words (what ``jax.random.key_data`` gives). ``state_from_numpy``
+builds a port state from such a dict on a given device, of any kind. A JAX
+state goes in as ``{**state._asdict(), "key": jax.random.key_data(state.key)}``
+after ``jax.device_get``, and comes back with ``jax.random.wrap_key_data``.
+This module imports no JAX: the caller does the JAX side.
 """
 
 from __future__ import annotations
@@ -17,19 +18,31 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from cudasbmp_torch.parallel.batch_kgmt import ArenaState
+from cudasbmp_torch.parallel.streaming_mc import StreamState
 from cudasbmp_torch.planners.kgmt import KGMTState, PathlessState
 
-_HOST_INTS = ("frontier_lo", "tree_size", "itr", "n_frontier")
+_HOST_INTS = ("frontier_lo", "tree_size", "itr", "n_frontier", "it")
+State = KGMTState | PathlessState | ArenaState | StreamState
+
+
+def state_kind(d: Mapping[str, np.ndarray]) -> type:
+    """The state class a dict of field arrays belongs to."""
+    if "scn_id" in d:
+        return StreamState
+    if "tree_valid" in d:
+        return ArenaState
+    return PathlessState if "f_rows" in d else KGMTState
 
 
 def state_from_numpy(cls: type | None, d: Mapping[str, np.ndarray],
-                     device: torch.device | str) -> KGMTState | PathlessState:
+                     device: torch.device | str) -> State:
     """Port state of type ``cls`` from numpy field arrays; ``cls=None``
-    takes ``PathlessState`` for a dict with ``f_rows``, else ``KGMTState``.
-    The fields are the same for every system and planner option. A missing
-    ``m_dropped`` (the JAX PathlessState has none) starts at zeros."""
+    infers it from the fields (``state_kind``). The fields are the same for
+    every system and planner option. A missing ``m_dropped`` (the JAX
+    PathlessState has none) starts at zeros."""
     if cls is None:
-        cls = PathlessState if "f_rows" in d else KGMTState
+        cls = state_kind(d)
     out = {}
     for f in dataclasses.fields(cls):
         name = f.name
@@ -51,7 +64,7 @@ def state_from_numpy(cls: type | None, d: Mapping[str, np.ndarray],
     return cls(**out)
 
 
-def state_to_numpy(s: KGMTState | PathlessState) -> dict[str, np.ndarray]:
+def state_to_numpy(s: State) -> dict[str, np.ndarray]:
     """Numpy field arrays of a port state (int32 scalars for host ints,
     uint32 [2] key data)."""
     out = {}

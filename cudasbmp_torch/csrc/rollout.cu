@@ -36,7 +36,30 @@
 // B2 draws its controls from Philox-4x32-10 (Random123): key = the two
 // words of the wave's threefry control key, counter = (lane, 0, 0, 0),
 // word j -> u = (bits >> 8) * 2^-24 -> lo_j + u * (hi_j - lo_j).
+//
+// Kernel B6, the per-problem form of B1 and B2, replaces jax.vmap of
+// rollout_pallas / sample_and_rollout_pallas over per-problem obstacle sets
+// (cudasbmp_tpu/parallel/batch_kgmt.py:200-211, 226-230): the batched
+// arena's Monte-Carlo sweep and the streaming sweep, where every problem
+// has its own boxes. It is the same two kernels. A launch runs P problems
+// of R lanes each, one thread per lane in blocks of kThreads: block j
+// serves problem j / ceil(R / kThreads) and loads only that problem's
+// boxes, at obstacles + stride * problem, with a stride of 4*K floats for
+// B6 and 0 for B1/B2 (P = 1, one shared set). The Philox form keys
+// problem b with keys[b] (a key stride of 2, or 0 for B2's one key) and
+// draws lane r at counter (r, 0, 0, 0), so a problem's controls depend on
+// its key and lane only, not on P or on the slot it occupies (the
+// streaming sweep's partition invariance needs that). Problems lie on grid.x, so no grid
+// extent caps P; P * R lanes must fit an int. B6 is bounded as B1 is, by
+// the step loop's ALU and trig work, not by bytes (the boxes add 16*K bytes
+// per block, once). At the sweeps' wave width R = 128 (bench.py's arena
+// and sweep settings) half of each 256-thread block idles, and B6 ran as
+// fast as in 128-thread blocks, to 1% (time_kernels.py, device time under
+// torch.profiler), so one block size serves every launch. Lane indices stay
+// 32-bit: 64-bit ones made B1 and B2 4-13% slower on the card; with 32-bit
+// ones they run as fast as before B6 joined them, to 1-2%.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -163,8 +186,10 @@ enum SystemId { kBicycle = 0, kPoint2D = 1, kDoubleIntegrator = 2,
 enum Flags { kFlagFootprint = 1, kFlagFast = 2 };
 
 struct Params {
-  const float* obstacles;  // [K, 4] xmin, ymin, xmax, ymax
-  int K, B, num_disc;
+  const float* obstacles;  // [K, 4] xmin, ymin, xmax, ymax, or [P, K, 4]
+  size_t obstacle_stride;  // floats from one problem's set to the next: 4*K or 0
+  int K, R, num_disc;      // R lanes per problem
+  int blocks_per_problem;  // ceil(R / kThreads)
   float width, height;
   float hl, hw;  // footprint half length / half width
 };
@@ -248,9 +273,17 @@ __device__ __forceinline__ bool integrate(const Sys& sys, float4& s, float c0,
   return alive;
 }
 
-__device__ __forceinline__ void load_obstacles(float* obs, const Params& p) {
-  for (int j = threadIdx.x; j < 4 * p.K; j += blockDim.x) obs[j] = p.obstacles[j];
+// The block's problem b and this thread's lane r within it; copies the
+// problem's K boxes from device memory to the block's shared memory.
+// Returns false for a thread past the problem's last lane.
+__device__ __forceinline__ bool locate(const Params& p, float* obs, int& b,
+                                       int& r) {
+  b = p.obstacle_stride ? blockIdx.x / p.blocks_per_problem : 0;
+  const float* src = p.obstacles + p.obstacle_stride * b;
+  for (int j = threadIdx.x; j < 4 * p.K; j += blockDim.x) obs[j] = src[j];
   __syncthreads();
+  r = (blockIdx.x - b * p.blocks_per_problem) * blockDim.x + threadIdx.x;
+  return r < p.R;
 }
 
 template <class Sys, bool kFootprint, bool kFast>
@@ -259,9 +292,9 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ controls,
                    float4* __restrict__ x1, uint8_t* __restrict__ valid) {
   extern __shared__ float obs[];
-  load_obstacles(obs, p);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.B) return;
+  int b, r;
+  if (!locate(p, obs, b, r)) return;
+  const int i = b * p.R + r;
   float4 s = x0[i];
   const float* c = controls + 3 * i;
   const bool alive =
@@ -300,20 +333,23 @@ __device__ __forceinline__ float draw(uint32_t bits, float lo, float hi) {
 
 struct Bounds { float lo0, lo1, lo2, hi0, hi1, hi2; };
 
+// Lane r of problem b draws at counter (r, 0, 0, 0) under the key words
+// keys[key_stride * b].
 template <class Sys, bool kFootprint, bool kFast>
 __global__ void __launch_bounds__(kThreads)
     sample_and_rollout_kernel(Sys sys, Params p, Bounds bounds,
-                              const int64_t* __restrict__ key,
+                              const int64_t* __restrict__ keys, int key_stride,
                               const float4* __restrict__ x0,
                               float4* __restrict__ x1,
                               float* __restrict__ controls,
                               uint8_t* __restrict__ valid) {
   extern __shared__ float obs[];
-  load_obstacles(obs, p);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.B) return;
+  int b, r;
+  if (!locate(p, obs, b, r)) return;
+  const int i = b * p.R + r;
+  const int64_t* key = keys + static_cast<size_t>(key_stride) * b;
   const uint4 bits =
-      philox4x32_10(make_uint4(static_cast<uint32_t>(i), 0u, 0u, 0u),
+      philox4x32_10(make_uint4(static_cast<uint32_t>(r), 0u, 0u, 0u),
                     static_cast<uint32_t>(key[0]),
                     static_cast<uint32_t>(key[1]));
   const float c0 = draw(bits.x, bounds.lo0, bounds.hi0);
@@ -330,78 +366,82 @@ __global__ void __launch_bounds__(kThreads)
   valid[i] = alive;
 }
 
+// The two kernels: rollout (B1, B6) and sample-and-rollout (B2, B6 Philox).
+enum Form { kRollout = 0, kSample = 1 };
+
 // Launch arguments other than the system, the template flags and Params.
 struct Buffers {
   const void* x0;
-  const void* controls;  // B1: input
+  const void* controls;  // rollout: input
   void* x1;
-  void* controls_out;  // B2: output
+  void* controls_out;  // sample: output
   void* valid;
-  const void* key;  // B2
-  Bounds bounds;    // B2
+  const void* keys;    // sample: [2], or [P, 2] with key_stride 2
+  int key_stride;      // sample: 0 or 2
+  Bounds bounds;       // sample
+  int blocks;          // P * blocks_per_problem
   cudaStream_t stream;
 };
 
-template <bool kSample, class Sys, bool kFootprint, bool kFast>
+// Opt in to more than 48 KB of dynamic shared memory where K needs it.
+template <class Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= kStaticSmemLimit) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+template <int kForm, class Sys, bool kFootprint, bool kFast>
 int launch(const Sys& sys, const Params& p, const Buffers& b) {
   const size_t smem = 16 * static_cast<size_t>(p.K);
-  const int grid = (p.B + kThreads - 1) / kThreads;
-  if constexpr (kSample) {
+  const auto x0 = static_cast<const float4*>(b.x0);
+  const auto x1 = static_cast<float4*>(b.x1);
+  const auto valid = static_cast<uint8_t*>(b.valid);
+  int err = 0;
+  if constexpr (kForm == kSample) {
     auto kernel = sample_and_rollout_kernel<Sys, kFootprint, kFast>;
-    if (smem > kStaticSmemLimit) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    kernel<<<grid, kThreads, smem, b.stream>>>(
-        sys, p, b.bounds, static_cast<const int64_t*>(b.key),
-        static_cast<const float4*>(b.x0), static_cast<float4*>(b.x1),
-        static_cast<float*>(b.controls_out), static_cast<uint8_t*>(b.valid));
+    if ((err = allow_smem(kernel, smem))) return err;
+    kernel<<<b.blocks, kThreads, smem, b.stream>>>(
+        sys, p, b.bounds, static_cast<const int64_t*>(b.keys), b.key_stride,
+        x0, x1, static_cast<float*>(b.controls_out), valid);
   } else {
     auto kernel = rollout_kernel<Sys, kFootprint, kFast>;
-    if (smem > kStaticSmemLimit) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    kernel<<<grid, kThreads, smem, b.stream>>>(
-        sys, p, static_cast<const float4*>(b.x0),
-        static_cast<const float*>(b.controls), static_cast<float4*>(b.x1),
-        static_cast<uint8_t*>(b.valid));
+    if ((err = allow_smem(kernel, smem))) return err;
+    kernel<<<b.blocks, kThreads, smem, b.stream>>>(
+        sys, p, x0, static_cast<const float*>(b.controls), x1, valid);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Fast math on a system without the hooks is the exact path, as in the JAX
 // kernel (use_fast = fast_math and hasattr(system, "soa_step_fast")).
-template <bool kSample, class Sys>
+template <int kForm, class Sys>
 int launch_flags(const Sys& sys, int flags, const Params& p,
                  const Buffers& b) {
   const bool fast = Sys::kFast && (flags & kFlagFast);
   if (flags & kFlagFootprint) {
     if constexpr (Sys::kFast) {
-      if (fast) return launch<kSample, Sys, true, true>(sys, p, b);
+      if (fast) return launch<kForm, Sys, true, true>(sys, p, b);
     }
-    return launch<kSample, Sys, true, false>(sys, p, b);
+    return launch<kForm, Sys, true, false>(sys, p, b);
   }
   if constexpr (Sys::kFast) {
-    if (fast) return launch<kSample, Sys, false, true>(sys, p, b);
+    if (fast) return launch<kForm, Sys, false, true>(sys, p, b);
   }
-  return launch<kSample, Sys, false, false>(sys, p, b);
+  return launch<kForm, Sys, false, false>(sys, p, b);
 }
 
-template <bool kSample>
+template <int kForm>
 int launch_system(int system, float param, int flags, const Params& p,
                   const Buffers& b) {
   switch (system) {
-    case kBicycle: return launch_flags<kSample>(Bicycle{param}, flags, p, b);
-    case kPoint2D: return launch_flags<kSample>(Point2D{}, flags, p, b);
+    case kBicycle: return launch_flags<kForm>(Bicycle{param}, flags, p, b);
+    case kPoint2D: return launch_flags<kForm>(Point2D{}, flags, p, b);
     case kDoubleIntegrator:
-      return launch_flags<kSample>(DoubleIntegrator{}, flags, p, b);
-    case kUnicycle: return launch_flags<kSample>(Unicycle{}, flags, p, b);
-    case kDubins: return launch_flags<kSample>(Dubins{}, flags, p, b);
+      return launch_flags<kForm>(DoubleIntegrator{}, flags, p, b);
+    case kUnicycle: return launch_flags<kForm>(Unicycle{}, flags, p, b);
+    case kDubins: return launch_flags<kForm>(Dubins{}, flags, p, b);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -413,23 +453,38 @@ int max_obstacles(int device) {
   return e == cudaSuccess ? bytes / 16 : -static_cast<int>(e);
 }
 
-int check_args(int device, int B, int K, int num_disc, int flags) {
-  if (B < 0 || K < 0 || num_disc < 1 || (flags & ~3))
-    return static_cast<int>(cudaErrorInvalidValue);
+// Check a launch of P problems of R lanes and fill p and b's grid (no
+// blocks: nothing to launch). Returns 0 or a cudaError_t.
+int prepare(int device, int flags, const void* obstacles, int K,
+            int per_problem, int P, int R, int num_disc, float width,
+            float height, float hl, float hw, Params* p, Buffers* b) {
+  const cudaError_t invalid = cudaErrorInvalidValue;
+  if (P < 0 || R < 0 || K < 0 || num_disc < 1 || (flags & ~3) ||
+      (per_problem & ~1))
+    return static_cast<int>(invalid);
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (K > max_obstacles(device)) return static_cast<int>(cudaErrorInvalidValue);
+  if (K > max_obstacles(device)) return static_cast<int>(invalid);
+  const int per = (R + kThreads - 1) / kThreads;
+  if (static_cast<long long>(P) * R > INT_MAX) return static_cast<int>(invalid);
+  b->blocks = P * per;
+  *p = Params{static_cast<const float*>(obstacles),
+              per_problem ? 4 * static_cast<size_t>(K) : 0, K, R, num_disc,
+              per > 0 ? per : 1, width, height, hl, hw};
   return 0;
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Pointers are device pointers of
-// contiguous tensors: x0/x1 f32 [B, 4], controls f32 [B, 3], obstacles f32
-// [K, 4], valid bool [B], key int64 [2]. `system` is a SystemId, `param`
-// the bicycle's wheelbase L (unused by the other systems), `flags` ORs
-// 1 = footprint (half extents hl, hw) and 2 = fast math. Each launches on
-// `stream` without synchronising and returns 0 or a cudaError_t.
+// contiguous tensors holding P problems of R lanes: x0/x1 f32 [P, R, 4],
+// controls f32 [P, R, 3], valid bool [P, R]; obstacles f32 [K, 4] and key
+// int64 [2] shared by every problem (per_problem 0: B1, B2 with P = 1), or
+// obstacles f32 [P, K, 4] and keys int64 [P, 2] (per_problem 1: B6).
+// `system` is a SystemId, `param` the bicycle's wheelbase L (unused by the
+// other systems), `flags` ORs 1 = footprint (half extents hl, hw) and 2 =
+// fast math. Each launches on `stream` without synchronising and returns
+// 0 or a cudaError_t.
 
 extern "C" int cudasbmp_max_obstacles(int device) {
   return max_obstacles(device);
@@ -437,42 +492,42 @@ extern "C" int cudasbmp_max_obstacles(int device) {
 
 extern "C" int cudasbmp_rollout(int device, int system, int flags,
                                 const void* x0, const void* controls,
-                                const void* obstacles, int K, void* x1,
-                                void* valid, int B, int num_disc, float width,
-                                float height, float param, float hl, float hw,
+                                const void* obstacles, int K, int per_problem,
+                                void* x1, void* valid, int P, int R,
+                                int num_disc, float width, float height,
+                                float param, float hl, float hw,
                                 void* stream) {
-  const int err = check_args(device, B, K, num_disc, flags);
-  if (err) return err;
-  if (B == 0) return 0;
-  const Params p{static_cast<const float*>(obstacles), K, B, num_disc,
-                 width, height, hl, hw};
+  Params p;
   Buffers b{};
+  const int err = prepare(device, flags, obstacles, K, per_problem, P, R,
+                          num_disc, width, height, hl, hw, &p, &b);
+  if (err || b.blocks == 0) return err;
   b.x0 = x0;
   b.controls = controls;
   b.x1 = x1;
   b.valid = valid;
   b.stream = static_cast<cudaStream_t>(stream);
-  return launch_system<false>(system, param, flags, p, b);
+  return launch_system<kRollout>(system, param, flags, p, b);
 }
 
 extern "C" int cudasbmp_sample_and_rollout(
-    int device, int system, int flags, const void* key, const void* x0,
-    const void* obstacles, int K, void* x1, void* controls, void* valid,
-    int B, int num_disc, float width, float height, float param, float hl,
-    float hw, float lo0, float lo1, float lo2, float hi0, float hi1,
-    float hi2, void* stream) {
-  const int err = check_args(device, B, K, num_disc, flags);
-  if (err) return err;
-  if (B == 0) return 0;
-  const Params p{static_cast<const float*>(obstacles), K, B, num_disc,
-                 width, height, hl, hw};
+    int device, int system, int flags, const void* keys, const void* x0,
+    const void* obstacles, int K, int per_problem, void* x1, void* controls,
+    void* valid, int P, int R, int num_disc, float width, float height,
+    float param, float hl, float hw, float lo0, float lo1, float lo2,
+    float hi0, float hi1, float hi2, void* stream) {
+  Params p;
   Buffers b{};
+  const int err = prepare(device, flags, obstacles, K, per_problem, P, R,
+                          num_disc, width, height, hl, hw, &p, &b);
+  if (err || b.blocks == 0) return err;
   b.x0 = x0;
   b.x1 = x1;
   b.controls_out = controls;
   b.valid = valid;
-  b.key = key;
+  b.keys = keys;
+  b.key_stride = per_problem ? 2 : 0;
   b.bounds = Bounds{lo0, lo1, lo2, hi0, hi1, hi2};
   b.stream = static_cast<cudaStream_t>(stream);
-  return launch_system<true>(system, param, flags, p, b);
+  return launch_system<kSample>(system, param, flags, p, b);
 }

@@ -1,4 +1,5 @@
 from cudasbmp_torch.geometry.aabb import (
+    point_in_any_obstacle,
     segment_aabb,
     segment_clear,
     segments_clear_batch,
@@ -7,4 +8,4 @@ from cudasbmp_torch.geometry.footprint import footprint_clear, footprint_corners
 from cudasbmp_torch.geometry.grid import RegionGrid
 
 __all__ = ["RegionGrid", "footprint_clear", "footprint_corners",
-           "segment_aabb", "segment_clear", "segments_clear_batch"]
+           "point_in_any_obstacle", "segment_aabb", "segment_clear", "segments_clear_batch"]

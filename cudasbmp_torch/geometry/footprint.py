@@ -19,7 +19,8 @@ def footprint_clear(x: torch.Tensor, y: torch.Tensor, theta: torch.Tensor,
                     half_len: float, half_wid: float,
                     obstacles: torch.Tensor) -> torch.Tensor:
     """True iff the body at pose (x, y, theta) overlaps no obstacle. x, y,
-    theta [...] (broadcastable); obstacles [K, 4]; returns bool [...]."""
+    theta [...] (broadcastable); obstacles [K, 4] or broadcastable
+    [..., K, 4]; returns bool [...]."""
     return footprint_clear_cs(x, y, torch.cos(theta), torch.sin(theta),
                               half_len, half_wid, obstacles)
 
@@ -28,16 +29,18 @@ def footprint_clear_cs(x: torch.Tensor, y: torch.Tensor, ct: torch.Tensor,
                        st: torch.Tensor, half_len: float, half_wid: float,
                        obstacles: torch.Tensor) -> torch.Tensor:
     """``footprint_clear`` with the heading given as its cosine and sine (the
-    fast-math rollout carries them instead of theta)."""
+    fast-math rollout carries them instead of theta). Obstacles may carry
+    leading dimensions that broadcast against the poses' ([B, 1, K, 4]
+    against poses [B, R])."""
     hl, hw = half_len, half_wid
     cx = x + hl * ct  # body center
     cy = y + hl * st
     act, ast = torch.abs(ct), torch.abs(st)
 
-    bcx = (obstacles[:, 0] + obstacles[:, 2]) * 0.5  # [K]
-    bcy = (obstacles[:, 1] + obstacles[:, 3]) * 0.5
-    bhx = (obstacles[:, 2] - obstacles[:, 0]) * 0.5
-    bhy = (obstacles[:, 3] - obstacles[:, 1]) * 0.5
+    bcx = (obstacles[..., 0] + obstacles[..., 2]) * 0.5  # [..., K]
+    bcy = (obstacles[..., 1] + obstacles[..., 3]) * 0.5
+    bhx = (obstacles[..., 2] - obstacles[..., 0]) * 0.5
+    bhy = (obstacles[..., 3] - obstacles[..., 1]) * 0.5
     valid_box = (bhx >= 0) & (bhy >= 0)
 
     dx = cx[..., None] - bcx  # [..., K]

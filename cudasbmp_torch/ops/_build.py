@@ -44,16 +44,16 @@ _F = ctypes.c_float
 SIGNATURES = {
     # device
     "cudasbmp_max_obstacles": (_I,),
-    # device, system, flags, x0, controls, obstacles, K, x1, valid, B,
-    # num_disc, width, height, param, hl, hw, stream
-    "cudasbmp_rollout": (_I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F, _F,
-                         _F, _F, _F, _P),
-    # device, system, flags, key, x0, obstacles, K, x1, controls, valid, B,
-    # num_disc, width, height, param, hl, hw, lo0, lo1, lo2, hi0, hi1, hi2,
-    # stream
-    "cudasbmp_sample_and_rollout": (_I, _I, _I, _P, _P, _P, _I, _P, _P, _P,
-                                    _I, _I, _F, _F, _F, _F, _F, _F, _F, _F,
-                                    _F, _F, _F, _P),
+    # device, system, flags, x0, controls, obstacles, K, per_problem, x1,
+    # valid, P, R, num_disc, width, height, param, hl, hw, stream
+    "cudasbmp_rollout": (_I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _P),
+    # device, system, flags, keys, x0, obstacles, K, per_problem, x1,
+    # controls, valid, P, R, num_disc, width, height, param, hl, hw, lo0,
+    # lo1, lo2, hi0, hi1, hi2, stream
+    "cudasbmp_sample_and_rollout": (_I, _I, _I, _P, _P, _P, _I, _I, _P, _P,
+                                    _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                                    _F, _F, _F, _F, _F, _P),
 }
 
 

@@ -27,24 +27,26 @@ def rollout_batch(system, x0: torch.Tensor, controls: torch.Tensor,
     """x0 [B, state_dim], controls [B, control_dim] (duration last),
     obstacles [K, 4] -> (x1 [B, state_dim], valid bool [B]).
     ``footprint=(half_len, half_wid)`` adds the oriented-body test at every
-    post-step pose, heading from ``system.heading_index`` (0 without one)."""
-    duration = controls[:, -1]
-    ctrl = controls[:, :-1]
+    post-step pose, heading from ``system.heading_index`` (0 without one).
+    Lanes may carry more leading dimensions, [B, R, ...], with obstacles
+    [B, 1, K, 4] for one set per problem (the batched arena's plain path)."""
+    duration = controls[..., -1]
+    ctrl = controls[..., :-1]
     dt = div(duration, num_disc)
     heading_index = getattr(system, "heading_index", None)
     state = x0
-    alive = torch.ones(x0.shape[0], dtype=torch.bool, device=x0.device)
+    alive = torch.ones(x0.shape[:-1], dtype=torch.bool, device=x0.device)
     for _ in range(num_disc):
         cand = system.step(state, ctrl, dt)
-        x, y = cand[:, 0], cand[:, 1]
+        x, y = cand[..., 0], cand[..., 1]
         in_bounds = (x > 0.0) & (x < width) & (y > 0.0) & (y < height)
-        bb_min, bb_max = segment_aabb(state[:, 0:2], cand[:, 0:2])
+        bb_min, bb_max = segment_aabb(state[..., 0:2], cand[..., 0:2])
         step_ok = in_bounds & segment_clear(bb_min, bb_max, obstacles)
         if footprint is not None:
-            theta = (cand[:, heading_index] if heading_index is not None
+            theta = (cand[..., heading_index] if heading_index is not None
                      else torch.zeros_like(x))
             step_ok = step_ok & footprint_clear(x, y, theta, footprint[0],
                                                 footprint[1], obstacles)
-        state = torch.where(alive[:, None], cand, state)
+        state = torch.where(alive[..., None], cand, state)
         alive = alive & step_ok
     return state, alive

@@ -1,0 +1,13 @@
+from cudasbmp_torch.parallel.batch_kgmt import ArenaMultiQueryPlanner
+from cudasbmp_torch.parallel.monte_carlo import MonteCarloPlanner, random_scenarios
+from cudasbmp_torch.parallel.multi_query import MultiQueryResult, stack_scenarios
+from cudasbmp_torch.parallel.streaming_mc import StreamingMonteCarloPlanner
+
+__all__ = [
+    "ArenaMultiQueryPlanner",
+    "MonteCarloPlanner",
+    "MultiQueryResult",
+    "StreamingMonteCarloPlanner",
+    "random_scenarios",
+    "stack_scenarios",
+]

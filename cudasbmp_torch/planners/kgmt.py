@@ -612,11 +612,24 @@ def extract_path(cfg: KGMTConfig, s: KGMTState) -> tuple[Tensor, Tensor, Tensor]
     return nodes, samples, length
 
 
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The planners' device: the card unless the caller names the CPU. A
+    CUDA device on a host without one is an error, never a move to the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: torch.cuda.is_available() is false; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU")
+    return device
+
+
 class KGMT:
-    """Host-facing planner for one configuration on one explicit device."""
+    """Host-facing planner for one configuration on one explicit device
+    (``cuda`` unless the caller asks for ``cpu``)."""
 
     def __init__(self, config: KGMTConfig | None = None, system=None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.config = config or KGMTConfig()
         self.system = system or get_system(
             self.config.system,
@@ -626,7 +639,7 @@ class KGMT:
         self.grid = RegionGrid(width=self.config.width,
                                height=self.config.height,
                                N=self.config.N, n=self.config.n)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def plan(self, scenario: Scenario, seed: int | None = None) -> KGMTResult:
         cfg, dev = self.config, self.device

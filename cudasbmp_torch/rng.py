@@ -8,15 +8,18 @@ draws exactly the controls and acceptance numbers of the JAX planner:
 - ``fold_in(key, data)``  = jax.random.fold_in
 - ``split(key, num)``     = jax.random.split (the fold-like partitionable form)
 - ``random_bits``         = 32-bit jax.random.bits
-- ``uniform``             = jax.random.uniform (f32)
+- ``uniform``             = jax.random.uniform (f32, with its ``minval`` and
+  ``maxval``, as op-by-op JAX rounds them)
 
 and Philox-4x32-10 (Random123), the generator the ``cuda_rng`` rollout kernel
 draws its controls from; ``philox4x32`` here is that kernel's plain twin.
 
-A key is an int64 tensor of shape [2] holding the two uint32 words of the
-JAX key data. torch has no full uint32 arithmetic, so every word is carried
-in int64 and masked to 32 bits after each add, multiply or shift. Every
-function runs on the device of the key it is given.
+A key is an int64 tensor of shape [..., 2] holding the two uint32 words of
+the JAX key data; a batch of keys ([B, 2]) gives what ``jax.vmap`` of the
+same function over [B] keys gives, with the batch shape leading. torch has
+no full uint32 arithmetic, so every word is carried in int64 and masked to
+32 bits after each add, multiply or shift. Every function runs on the device
+of the key it is given.
 """
 
 from __future__ import annotations
@@ -57,37 +60,47 @@ def key(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
 
 
 def fold_in(k: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
-    """``jax.random.fold_in``: the hash of the counter (0, data mod 2^32)."""
+    """``jax.random.fold_in``: the hash of the counter (0, data mod 2^32).
+    ``data`` broadcasts against the key batch; returns [..., 2]."""
     d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & MASK32
-    a, b = threefry2x32(k[0], k[1], torch.zeros_like(d), d)
-    return torch.stack([a, b])
+    a, b = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
+    return torch.stack([a, b], dim=-1)
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: key i is the hash of the counter (0, i);
-    returns [num, 2]."""
+    returns [..., num, 2]."""
     i = torch.arange(num, dtype=torch.int64, device=k.device)
-    a, b = threefry2x32(k[0], k[1], torch.zeros_like(i), i)
+    a, b = threefry2x32(k[..., 0, None], k[..., 1, None], torch.zeros_like(i), i)
     return torch.stack([a, b], dim=-1)
 
 
 def random_bits(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """32-bit ``jax.random.bits``: element i (row-major) is the xor of the two
-    hash words of the counter (i >> 32, i mod 2^32)."""
+    hash words of the counter (i >> 32, i mod 2^32); returns
+    [..., *shape] for keys [..., 2]."""
     n = 1
     for s in shape:
         n *= s
     i = torch.arange(n, dtype=torch.int64, device=k.device)
-    a, b = threefry2x32(k[0], k[1], i >> 32, i & MASK32)
-    return (a ^ b).reshape(shape)
+    a, b = threefry2x32(k[..., 0, None], k[..., 1, None], i >> 32, i & MASK32)
+    return (a ^ b).reshape(*k.shape[:-1], *shape)
 
 
-def uniform(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """f32 ``jax.random.uniform`` on [0, 1): 23 random mantissa bits under
-    exponent 0 give [1, 2), minus 1. (JAX then scales by max - min = 1 and
-    adds min = 0, both exact.)"""
+def uniform(k: torch.Tensor, shape: tuple[int, ...],
+            minval: float | torch.Tensor = 0.0,
+            maxval: float | torch.Tensor = 1.0) -> torch.Tensor:
+    """f32 ``jax.random.uniform``: 23 random mantissa bits under exponent 0
+    give [1, 2), minus 1, then ``max(minval, u * (maxval - minval) +
+    minval)`` with each operation rounded once, as JAX computes it op by op
+    (jitted on XLA:CPU the multiply-add may become one FMA). ``minval`` and
+    ``maxval`` broadcast against ``shape`` from the right. At the defaults
+    the scaling is exact and the result is u. Returns [..., *shape]."""
     bits = (random_bits(k, shape) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.as_tensor(minval, dtype=torch.float32, device=k.device)
+    hi = torch.as_tensor(maxval, dtype=torch.float32, device=k.device)
+    return torch.maximum(lo, u * (hi - lo) + lo)
 
 
 # ---------------------------------------------------------------------------
@@ -126,13 +139,15 @@ def philox4x32(counter: tuple[torch.Tensor, ...],
 
 
 def philox_uniform_lanes(k: torch.Tensor, n: int, words: int) -> torch.Tensor:
-    """The ``cuda_rng`` kernel's stream: lane i hashes the counter
-    (i, 0, 0, 0) under key words (k[0], k[1]); word j becomes
-    u = (bits >> 8) * 2^-24 in [0, 1). Returns f32 [n, words], words <= 4."""
+    """The ``cuda_rng`` kernels' stream: lane i hashes the counter
+    (i, 0, 0, 0) under key words (k[..., 0], k[..., 1]); word j becomes
+    u = (bits >> 8) * 2^-24 in [0, 1). Returns f32 [..., n, words] for keys
+    [..., 2], words <= 4: a batch of keys gives each problem its own
+    stream, as the batched kernel draws it."""
     if not 1 <= words <= 4:
         raise ValueError("Philox-4x32 gives at most 4 words per lane")
     lane = torch.arange(n, dtype=torch.int64, device=k.device)
     zero = torch.zeros_like(lane)
-    out = philox4x32((lane, zero, zero, zero), k[0], k[1])
+    out = philox4x32((lane, zero, zero, zero), k[..., 0, None], k[..., 1, None])
     top24 = torch.stack(out[:words], dim=-1) >> 8
     return top24.to(torch.float32) * (1.0 / (1 << 24))

@@ -1,7 +1,9 @@
 """The port's CLI (python -m cudasbmp_torch.cli), in process with
 ``--device cpu`` at small sizes: the reference parity lines, a JSON summary
 equal to KGMT.plan's, the flag-over-file override rule of the JAX CLI, the
-artifact dump, and exit code 2 for what is not yet ported."""
+artifact dump, the batch subcommands ``multi`` and ``sweep`` (the JAX CLI's
+JSON keys, values equal to the library call's), and exit code 2 for what is
+not yet ported."""
 
 import argparse
 import json
@@ -52,7 +54,7 @@ def test_demo_with_every_option_prints_parity_lines_and_summary(capsys):
     assert "iter frontier    valid accepted tree_size accept_rate" in out
     cfg = ct.KGMTConfig(max_tree_size=8192, rollouts_per_iter=1024, seed=3,
                         goal_bias=0.25, footprint_width=0.5, fast_math=True)
-    want = summarize_result(ct.KGMT(cfg).plan(ct.Scenario.demo()))
+    want = summarize_result(ct.KGMT(cfg, device="cpu").plan(ct.Scenario.demo()))
     assert without_timing(got) == without_timing(want)
     assert rc == (0 if want["solved"] else 1) and want["solved"]
 
@@ -68,7 +70,7 @@ def test_plan_configurations_with_config_file_and_artifacts(capsys, tmp_path):
         num_iterations=4, max_tree_size=8192, rollouts_per_iter=1024, n=16)
     from cudasbmp_torch.io.csv import load_scenario
 
-    want = summarize_result(ct.KGMT(cfg).plan(load_scenario(CONFIGURATIONS)[0]))
+    want = summarize_result(ct.KGMT(cfg, device="cpu").plan(load_scenario(CONFIGURATIONS)[0]))
     assert without_timing(got) == without_timing(want)
     assert f"wrote 13 artifact CSVs to {tmp_path}" in out
     assert len(list(tmp_path.glob("*.csv"))) == 13
@@ -129,3 +131,74 @@ def test_help_renders(capsys, argv):
         cli.main(argv)
     assert e.value.code == 0
     assert ("--device" in capsys.readouterr().out) == (argv != ["--help"])
+
+
+BATCH_SMALL = ["--num-iterations", "30", "--rollouts-per-iter", "128",
+               "--max-tree-size", str(128 * 31), "--seed", "1"]
+BATCH_RUNS = {
+    "multi": ["multi", "--impl", "arena", "--batch", "8", "--goal-jitter", "1.0",
+              "--num-iterations", "4", "--rollouts-per-iter", "64",
+              "--max-tree-size", "320", "--seed", "1"],
+    "sweep_arena": ["sweep", "--impl", "arena", "--scenarios", "8", "--obstacles",
+                    "5", *BATCH_SMALL],
+    "sweep_stream": ["sweep", "--impl", "stream", "--scenarios", "10", "--pool", "4",
+                     "--obstacles", "5", *BATCH_SMALL],
+}
+
+
+def json_of(out: str) -> dict:
+    return json.loads(out[out.index("{"):out.rindex("}") + 1])
+
+
+@pytest.mark.parametrize("name", list(BATCH_RUNS))
+def test_batch_subcommands_print_the_jax_clis_summary(capsys, name):
+    argv = BATCH_RUNS[name]
+    rc, out, _ = run(capsys, *argv, "--device", "cpu")
+    assert rc == 0
+    got = json_of(out)
+    assert jcli.main(argv) == 0
+    assert list(got) == list(json_of(capsys.readouterr().out))
+    cfg = ct.KGMTConfig(num_iterations=int(argv[argv.index("--num-iterations") + 1]),
+                        rollouts_per_iter=int(argv[argv.index("--rollouts-per-iter") + 1]),
+                        max_tree_size=int(argv[argv.index("--max-tree-size") + 1]), seed=1)
+    from cudasbmp_torch import parallel
+
+    if name == "sweep_stream":
+        s = parallel.StreamingMonteCarloPlanner(cfg, pool=4, device="cpu").run(
+            10, seed=1, num_obstacles=5)
+        want = {"solve_rate": s.solve_rate, "cost_quantiles": s.cost_quantiles,
+                "num_budget_exhausted": s.num_budget_exhausted}
+    elif name == "sweep_arena":
+        s = parallel.MonteCarloPlanner(cfg, impl="arena", device="cpu").run(
+            8, seed=1, num_obstacles=5)
+        want = {"solve_rate": s.solve_rate, "mean_tree_size": s.mean_tree_size,
+                "num_budget_exhausted": s.num_budget_exhausted}
+    else:
+        want = {"batch": 8, "solved": got["solved"]}
+    assert {k: got[k] for k in want} == want
+    if name != "multi":
+        assert got["solve_rate"] > 0
+
+
+@pytest.mark.parametrize("argv", [
+    ["multi", "--impl", "vmap"], ["sweep", "--impl", "vmap", "--scenarios", "2"]])
+def test_batch_subcommands_refuse_vmap_naming_arena(capsys, argv):
+    rc, out, err = run(capsys, *argv, "--device", "cpu")
+    assert rc == 2 and "--impl arena" in err and "ROADMAP item 22" in err
+    assert out == ""
+
+
+@pytest.mark.parametrize("argv", [
+    ["multi", "--impl", "arena"], ["sweep", "--impl", "arena"],
+    ["sweep", "--impl", "stream"]])
+def test_batch_subcommands_reject_no_need_path(capsys, argv):
+    rc, out, err = run(capsys, *argv, "--no-need-path", "--device", "cpu")
+    assert rc == 2 and "--no-need-path" in err and out == ""
+
+
+def test_batch_subcommands_default_to_the_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for argv in (["multi", "--impl", "arena"], ["sweep", "--impl", "stream"]):
+        rc, out, err = run(capsys, *argv)
+        assert rc == 2 and "torch.cuda.is_available() is false" in err and out == ""

@@ -81,16 +81,16 @@ def test_unsupported_options_raise():
         cfg = tconfig.KGMTConfig(system=name, num_iterations=2, max_tree_size=256,
                                  rollouts_per_iter=64, goal_bias=0.25,
                                  footprint_width=0.5, fast_math=True)
-        r = KGMT(cfg).plan(tconfig.Scenario.demo())
+        r = KGMT(cfg, device="cpu").plan(tconfig.Scenario.demo())
         assert r.iterations == 2 and r.tree_size > 1, name
-    planner = KGMT(cfg)
+    planner = KGMT(cfg, device="cpu")
     sc = tconfig.Scenario.demo()
     s = tk.init_state(cfg, planner.grid, _torch.tensor(sc.init), tk.rng.key(0))
     with pytest.raises(NotImplementedError, match="pool"):
         tk.expansion_wave(cfg, planner.system, _torch.tensor(sc.obstacles),
                           _torch.tensor(sc.goal), s, pool=(None, None, None))
     with pytest.raises(KeyError, match="unknown system"):
-        KGMT(tconfig.KGMTConfig(system="quadrotor"))
+        KGMT(tconfig.KGMTConfig(system="quadrotor"), device="cpu")
 
 
 def test_package_source_never_mentions_jax_imports():
@@ -101,6 +101,9 @@ def test_package_source_never_mentions_jax_imports():
 
 
 def test_package_imports_and_solves_with_jax_blocked():
+    """Every module of the port, parallel/ included, imports with JAX and
+    the JAX package blocked, and the single query, the arena sweep and the
+    streaming sweep run."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -111,8 +114,15 @@ def test_package_imports_and_solves_with_jax_blocked():
         "import torch; torch.set_num_threads(1)\n"
         "cfg = cudasbmp_torch.KGMTConfig(num_iterations=2, max_tree_size=256,\n"
         "                                rollouts_per_iter=64)\n"
-        "r = cudasbmp_torch.KGMT(cfg).plan(cudasbmp_torch.Scenario.demo())\n"
+        "r = cudasbmp_torch.KGMT(cfg, device='cpu').plan(cudasbmp_torch.Scenario.demo())\n"
         "assert r.iterations == 2 and r.tree_size > 1, r\n"
+        "from cudasbmp_torch import parallel\n"
+        "s = parallel.MonteCarloPlanner(cfg, impl='arena', device='cpu').run(4, num_obstacles=5)\n"
+        "assert s.costs.shape == (4,), s\n"
+        "s = parallel.StreamingMonteCarloPlanner(cfg, pool=2, device='cpu').run(\n"
+        "    4, num_obstacles=5)\n"
+        "assert s.iters.shape == (4,), s\n"
+        "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -239,3 +239,109 @@ def test_all_options_solve_kernel_equals_twin_and_torch(dev, monkeypatch):
     assert exact_kernel == solve(cfg.replace(fast_math=False, rollout_backend="torch"))
     monkeypatch.setattr(tk, "rollout_cuda", rc.rollout_soa)
     assert solve(cfg) == kernel
+
+
+def problem_batch(name: str, B: int, R: int, K: int, seed: int, dev):
+    """(system, x0 [B, R, 4], controls [B, R, 3], obstacles [B, K, 4]): a
+    distinct random box field per problem, two padding rows each."""
+    system, x0, c = system_batch(name, B * R, seed, dev)
+    r = np.random.default_rng(seed + 1000)
+    lo = r.uniform(0.0, 17.0, (B, K, 2))
+    boxes = np.concatenate([lo, lo + r.uniform(0.5, 3.0, (B, K, 2))], -1)
+    boxes[:, -2:] = (1.0, 1.0, 0.0, 0.0)
+    return (system, x0.reshape(B, R, 4), c.reshape(B, R, -1),
+            torch.tensor(boxes.astype(np.float32), device=dev))
+
+
+@pytest.mark.parametrize("shape", [(8, 512), (1024, 128)], ids=["8x512", "1024x128"])
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("footprint", [None, FP], ids=["broad", "footprint"])
+@pytest.mark.parametrize("name", SYSTEMS)
+def test_batched_kernel_matches_its_plain_twin(dev, name, footprint, fast_math, shape):
+    """B6, both forms, with B3/B4 as set, against its plain twins on the same
+    card at B=8 problems x R=512 lanes and at the sweeps' launch shape,
+    B=1024 x R=128 (one block per problem): bitwise states, equal masks,
+    equal Philox controls."""
+    nb, nr = shape
+    system, x0, c, obs = problem_batch(name, nb, nr, 8, SYSTEMS.index(name), dev)
+    opts = dict(KW, footprint=footprint, fast_math=fast_math)
+    x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **opts)
+    px1, pvalid = rc.rollout_soa(system, x0, c, obs, **opts)
+    assert torch.equal(valid, pvalid) and _bitwise(x1, px1)
+    assert 0.05 < valid.float().mean() < 0.99
+    keys = rng.split(rng.key(31, dev), nb)
+    x1, c2, valid = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs, **opts)
+    tx1, tc2, tvalid = rc.sample_and_rollout_torch(system, keys, x0, obs, **opts)
+    assert _bitwise(c2, tc2) and torch.equal(valid, tvalid) and _bitwise(x1, tx1)
+
+
+def test_batched_kernel_takes_more_problems_than_a_grid_column(dev):
+    """70,000 problems of 2 lanes: more than the 65,535 blocks of a grid's
+    y extent, all on grid.x, each against its own boxes."""
+    system, x0, c, obs = problem_batch("bicycle", 70_000, 2, 4, 11, dev)
+    x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **KW)
+    px1, pvalid = rc.rollout_soa(system, x0, c, obs, **KW)
+    assert torch.equal(valid, pvalid) and _bitwise(x1, px1)
+    keys = rng.split(rng.key(32, dev), 70_000)
+    x1, c2, valid = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs, **KW)
+    tx1, tc2, tvalid = rc.sample_and_rollout_torch(system, keys, x0, obs, **KW)
+    assert _bitwise(c2, tc2) and torch.equal(valid, tvalid) and _bitwise(x1, tx1)
+
+
+def test_batched_kernel_isolates_problems_and_keys(dev):
+    """A wall added to problem 1 changes only problem 1's lanes; a key gives
+    the same rows at B=4 and at B=8 in another slot; a ragged R launches a
+    partial block."""
+    system, x0, c, obs = problem_batch("bicycle", 8, 300, 8, 7, dev)
+    x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **KW)
+    walled = obs.clone()
+    walled[1, -1] = torch.tensor([0.0, 9.0, 20.0, 11.0], device=dev)
+    wx1, wvalid = rc.rollout_batched_cuda(system, x0, c, walled, **KW)
+    others = [b for b in range(8) if b != 1]
+    assert torch.equal(wvalid[others], valid[others]) and _bitwise(wx1[others], x1[others])
+    assert (wvalid[1] != valid[1]).any()
+    keys = rng.split(rng.key(5, dev), 8)
+    _, c8, _ = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs, **KW)
+    perm = [6, 2, 0, 3]
+    _, c4, _ = rc.sample_and_rollout_batched_cuda(system, keys[perm].contiguous(),
+                                                  x0[perm].contiguous(),
+                                                  obs[perm].contiguous(), **KW)
+    assert _bitwise(c4, c8[perm])
+
+
+def test_batched_wrappers_reject_bad_inputs(dev):
+    system, x0, c, obs = problem_batch("bicycle", 4, 128, 8, 9, dev)
+    with pytest.raises(ValueError, match="obstacles"):
+        rc.rollout_batched_cuda(system, x0, c, obs[0], **KW)  # shared set
+    with pytest.raises(ValueError, match="x0"):
+        rc.rollout_batched_cuda(system, x0.reshape(-1, 4), c, obs, **KW)
+    with pytest.raises(ValueError, match="keys"):
+        rc.sample_and_rollout_batched_cuda(system, rng.key(1, dev), x0, obs, **KW)
+    rc.reset_launch_counts()
+    rc.rollout_batched_cuda(system, x0, c, obs, **KW)
+    rc.rollout_batched_cuda(system, x0.cpu(), c.cpu(), obs.cpu(), **KW)  # the twin
+    assert rc.rollout_batched_cuda.launches == 1
+    assert rc.rollout_batched_cuda.instantiations == {("bicycle", False, False): 1}
+
+
+@pytest.mark.parametrize("backend,kernel", [
+    ("auto", "rollout_batched_cuda"), ("cuda_rng", "sample_and_rollout_batched_cuda")])
+def test_sweeps_run_every_wave_through_b6(dev, backend, kernel):
+    """The Monte-Carlo sweep (one arena iteration per wave) and the
+    streaming sweep (one pool iteration per wave) launch B6 once a wave."""
+    from cudasbmp_torch.parallel import MonteCarloPlanner, StreamingMonteCarloPlanner
+
+    cfg = ctt.KGMTConfig(rollouts_per_iter=128, num_iterations=30,
+                         max_tree_size=128 * 31, rollout_backend=backend)
+    rc.reset_launch_counts()
+    s = MonteCarloPlanner(cfg, impl="arena", device=dev).run(16, seed=1, num_obstacles=5)
+    assert s.solve_rate >= 0.5
+    assert getattr(rc, kernel).launches > 0
+    assert rc.rollout_cuda.launches == rc.sample_and_rollout_cuda.launches == 0
+    rc.reset_launch_counts()
+    st = StreamingMonteCarloPlanner(cfg, pool=8, device=dev).run(24, seed=2, num_obstacles=5)
+    assert st.solve_rate >= 0.5 and getattr(rc, kernel).launches > 0
+    parts = [StreamingMonteCarloPlanner(cfg, pool=8, device=dev).run(
+        12, seed=2, num_obstacles=5, id_lo=lo) for lo in (0, 12)]
+    np.testing.assert_array_equal(np.concatenate([p.costs for p in parts]), st.costs)
+    np.testing.assert_array_equal(np.concatenate([p.iters for p in parts]), st.iters)

@@ -22,7 +22,7 @@ def test_pathless_goal_bias_k_above_R_matches_jax():
     cfg = dict(num_iterations=40, max_tree_size=8192, rollouts_per_iter=512,
                goal_bias=0.75, goal_bias_k=1024, need_path=False)
     want = jax_plan(cfg, 1)
-    got = ct.KGMT(ct.KGMTConfig(**cfg)).plan(ct.Scenario.demo(), seed=1)
+    got = ct.KGMT(ct.KGMTConfig(**cfg), device="cpu").plan(ct.Scenario.demo(), seed=1)
     assert want.solved
     assert_same_solve(got, want)
     assert want.metrics["frontier_size"][1] < 384

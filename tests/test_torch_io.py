@@ -131,7 +131,7 @@ def test_write_artifacts_values_match_jax(jax_state_with_options, tmp_path):
 def test_write_artifacts_of_a_port_solve(tmp_path):
     """The port's own state writes too (tensors on its device)."""
     cfg = ct.KGMTConfig(num_iterations=2, max_tree_size=512, rollouts_per_iter=64)
-    r = ct.KGMT(cfg).plan(ct.Scenario.demo(), seed=0)
+    r = ct.KGMT(cfg, device="cpu").plan(ct.Scenario.demo(), seed=0)
     written = tcsv.write_artifacts(r.state, cfg, tmp_path)
     assert len(written) == 13
     samples = np.loadtxt(tmp_path / "samples.csv", delimiter=",")

@@ -28,7 +28,7 @@ from cudasbmp_tpu.systems.bicycle import KinematicBicycle as JBike
 torch.set_num_threads(2)
 SMALL = dict(num_iterations=100, max_tree_size=16384, rollouts_per_iter=2048)
 JCFG, TCFG = JConfig(**SMALL), ct.KGMTConfig(**SMALL)
-JG, TG = JGrid(20.0, 20.0, 16, 8), ct.KGMT(TCFG).grid
+JG, TG = JGrid(20.0, 20.0, 16, 8), ct.KGMT(TCFG, device="cpu").grid
 
 
 @pytest.fixture(scope="module")
@@ -126,7 +126,7 @@ def test_one_wave_step_matches_jax(mid_solve):
                                      (jnp.int32(0), s, s.r2_avail))
     ps = _port_state(d)
     w, ps, tseen, solved = tk._wave_step(
-        TCFG, ct.KGMT(TCFG).system, TG, torch.tensor(np.asarray(obs)),
+        TCFG, ct.KGMT(TCFG, device="cpu").system, TG, torch.tensor(np.asarray(obs)),
         torch.tensor(np.asarray(goal)), fl0, ts0, n_tgt,
         torch.tensor(np.asarray(r1_score)), (0, ps, ps.r2_avail.clone()))
     assert w == 1 and solved == bool(np.isfinite(js.cost_to_goal))
@@ -146,7 +146,7 @@ def test_one_wave_step_matches_jax(mid_solve):
 
 @pytest.fixture(scope="module")
 def port_solved():
-    planner = ct.KGMT(TCFG)
+    planner = ct.KGMT(TCFG, device="cpu")
     return planner, planner.plan(ct.Scenario.demo(), seed=0)
 
 
@@ -177,8 +177,8 @@ def test_pathless_matches_tree_mode():
     the R-row frontier never overflows and the two modes agree exactly."""
     cfg = ct.KGMTConfig(num_iterations=80, max_tree_size=8192,
                         rollouts_per_iter=512, adaptive_waves=False)
-    tree = ct.KGMT(cfg).plan(ct.Scenario.demo(), seed=9)
-    pathless = ct.KGMT(cfg.replace(need_path=False)).plan(ct.Scenario.demo(), seed=9)
+    tree = ct.KGMT(cfg, device="cpu").plan(ct.Scenario.demo(), seed=9)
+    pathless = ct.KGMT(cfg.replace(need_path=False), device="cpu").plan(ct.Scenario.demo(), seed=9)
     assert tree.solved and pathless.solved
     assert (pathless.cost, pathless.iterations, pathless.tree_size) == (
         tree.cost, tree.iterations, tree.tree_size)
@@ -193,8 +193,8 @@ def test_pathless_counts_what_it_drops():
     pathless loop keeps the first R (as the JAX one does) and counts the
     rest in metrics['dropped']. Without drops it equals the tree mode."""
     for seed in range(4):
-        tree = ct.KGMT(TCFG).plan(ct.Scenario.demo(), seed=seed)
-        p = ct.KGMT(TCFG.replace(need_path=False)).plan(ct.Scenario.demo(), seed=seed)
+        tree = ct.KGMT(TCFG, device="cpu").plan(ct.Scenario.demo(), seed=seed)
+        p = ct.KGMT(TCFG.replace(need_path=False), device="cpu").plan(ct.Scenario.demo(), seed=seed)
         acc = p.metrics["accepted"]
         frontier_next = np.minimum(acc, TCFG.rollouts_per_iter)
         np.testing.assert_array_equal(p.metrics["dropped"], acc - frontier_next)
@@ -225,7 +225,7 @@ def test_default_backend_takes_the_kernel_wrapper(monkeypatch):
                          ("cuda_rng", "rng_wrapper"), ("torch", "plain")):
         for k in calls:
             calls[k] = 0
-        r = ct.KGMT(cfg.replace(rollout_backend=backend)).plan(ct.Scenario.demo())
+        r = ct.KGMT(cfg.replace(rollout_backend=backend), device="cpu").plan(ct.Scenario.demo())
         m = r.metrics
         ts_start = np.concatenate([[1], m["tree_size"][:-1]])
         n_tgt = np.minimum(cfg.fanout * m["frontier_size"],
@@ -238,7 +238,7 @@ def test_default_backend_takes_the_kernel_wrapper(monkeypatch):
 def test_off_grid_root_seeds_no_phantom_stats():
     cfg = ct.KGMTConfig(width=10.0, height=30.0, max_tree_size=64,
                         rollouts_per_iter=32)
-    grid = ct.KGMT(cfg).grid
+    grid = ct.KGMT(cfg, device="cpu").grid
     init = torch.tensor([5.0, 25.0, 0, 0, 0, 0, 0])
     s0 = tk.init_state(cfg, grid, init, rng.key(0))
     assert int(s0.r1_total.sum()) == int(s0.r1_avail.sum()) == 0
@@ -248,11 +248,11 @@ def test_off_grid_root_seeds_no_phantom_stats():
 
 def test_capacity_clamp_and_zero_budget():
     cfg = ct.KGMTConfig(num_iterations=30, max_tree_size=300, rollouts_per_iter=256)
-    r = ct.KGMT(cfg).plan(ct.Scenario.demo())
+    r = ct.KGMT(cfg, device="cpu").plan(ct.Scenario.demo())
     assert r.tree_size <= 300
     parents = r.state.tree_parent.numpy()
     assert (parents[1:r.tree_size] >= 0).all()
     assert (parents[1:r.tree_size] < np.arange(1, r.tree_size)).all()
-    z = ct.KGMT(dataclasses.replace(cfg, num_iterations=0)).plan(ct.Scenario.demo())
+    z = ct.KGMT(dataclasses.replace(cfg, num_iterations=0), device="cpu").plan(ct.Scenario.demo())
     assert not z.solved and z.tree_size == 1 and z.iterations == 0
     assert len(z.path) == 0

@@ -40,7 +40,7 @@ def _jax_plan(cfg, seed):
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_whole_solve_matches_jax(seed):
     want = _jax_plan(SMALL, seed)
-    got = ct.KGMT(ct.KGMTConfig(**SMALL)).plan(ct.Scenario.demo(), seed=seed)
+    got = ct.KGMT(ct.KGMTConfig(**SMALL), device="cpu").plan(ct.Scenario.demo(), seed=seed)
     why = _first_difference(want, got)
     assert got.solved == want.solved, why
     assert got.iterations == want.iterations, why
@@ -53,7 +53,7 @@ def test_whole_solve_matches_jax(seed):
 def test_pathless_solve_matches_jax():
     cfg = dict(SMALL, need_path=False)
     want = _jax_plan(cfg, 3)
-    got = ct.KGMT(ct.KGMTConfig(**cfg)).plan(ct.Scenario.demo(), seed=3)
+    got = ct.KGMT(ct.KGMTConfig(**cfg), device="cpu").plan(ct.Scenario.demo(), seed=3)
     why = _first_difference(want, got)
     assert (got.solved, got.iterations, got.tree_size) == (
         want.solved, want.iterations, want.tree_size), why

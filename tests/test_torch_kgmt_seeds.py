@@ -13,7 +13,7 @@ SMALL = dict(num_iterations=100, max_tree_size=16384, rollouts_per_iter=2048)
 
 def test_solve_rate_and_cost_band_over_32_seeds():
     jp = jt.KGMT(jt.KGMTConfig(**SMALL))
-    tp = ct.KGMT(ct.KGMTConfig(**SMALL))
+    tp = ct.KGMT(ct.KGMTConfig(**SMALL), device="cpu")
     j = [jp.plan(jt.Scenario.demo(), seed=s) for s in range(32)]
     t = [tp.plan(ct.Scenario.demo(), seed=s) for s in range(32)]
     j_solved = sum(r.solved for r in j)

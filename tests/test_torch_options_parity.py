@@ -33,7 +33,7 @@ def assert_same_solve(got, want):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_tree_solve_with_options_matches_jax(seed):
     want = jax_plan(OPTIONS, seed)
-    got = ct.KGMT(ct.KGMTConfig(**OPTIONS)).plan(ct.Scenario.demo(), seed=seed)
+    got = ct.KGMT(ct.KGMTConfig(**OPTIONS), device="cpu").plan(ct.Scenario.demo(), seed=seed)
     assert want.solved
     assert_same_solve(got, want)
     np.testing.assert_array_equal(got.path_nodes, want.path_nodes)
@@ -45,8 +45,8 @@ def test_anytime_mode_keeps_the_cheapest_goal_hit():
     and keeps the cheapest goal hit: never dearer than the first one, and
     its path ends in the goal region."""
     cfg = ct.KGMTConfig(**dict(OPTIONS, num_iterations=20))
-    first = ct.KGMT(cfg).plan(ct.Scenario.demo(), seed=0)
-    any_ = ct.KGMT(cfg.replace(stop_on_first_solution=False)).plan(
+    first = ct.KGMT(cfg, device="cpu").plan(ct.Scenario.demo(), seed=0)
+    any_ = ct.KGMT(cfg.replace(stop_on_first_solution=False), device="cpu").plan(
         ct.Scenario.demo(), seed=0)
     assert first.solved and any_.solved
     assert any_.iterations == 20 or any_.tree_size == cfg.max_tree_size

@@ -15,7 +15,7 @@ torch.set_num_threads(2)
 def test_pathless_solve_with_options_matches_jax(seed):
     cfg = dict(OPTIONS, need_path=False)
     want = jax_plan(cfg, seed)
-    got = ct.KGMT(ct.KGMTConfig(**cfg)).plan(ct.Scenario.demo(), seed=seed)
+    got = ct.KGMT(ct.KGMTConfig(**cfg), device="cpu").plan(ct.Scenario.demo(), seed=seed)
     assert want.solved
     assert_same_solve(got, want)
     acc = got.metrics["accepted"]  # past R rows both drop; the port counts
