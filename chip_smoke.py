@@ -1,6 +1,6 @@
 """Drive the cudasbmp_torch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # phases 1-17, one GPU, no network
+    python3 chip_smoke.py            # phases 1-21, one GPU, no network
     python3 chip_smoke.py --profile  # also: torch.profiler over a demo solve,
                                      # an arena solve and a streaming sweep
 
@@ -56,14 +56,30 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     256 scenarios two id_lo partitions and pool sizes 32 and 64 reproduce
     the pool of 64 bit for bit, under both;
 17. the CLI as subprocesses: multi --impl arena --batch 256 and sweep
-    --impl stream, on the card.
+    --impl stream, on the card;
+18. B5 (both kernels with cull=W, the culled broad phase) bitwise against
+    cull off in every instantiation at W in {1, 2, 4, 5}, on the dense-24
+    field and tests/test_pallas.py's 16-box field, at 2^17 lanes random and
+    Morton-grouped, at R=33 and 4,097 and at 100 boxes; against its plain
+    twin; device ms of B2 with cull off and at each W beside the twin's;
+19. the throughput probe (probes/throughput.py, bench.py's 2^17 lanes):
+    valid rollouts/s by device time and, labelled, by wall for cuda,
+    cuda_rng, fast math, dense-24 and torch; then the cull table of
+    tools/r4_cull_bench.py, B5's main path;
+20. the calibration chains P1a (FMA), P1b (cos, sin, tan) and P2 (gathers
+    at 8, 128 and 1,024 rows) against their plain twins, their rates from
+    device time (probes/roofline.py::calibrate), and B2's roofline shares,
+    exact, fast and dense-24;
+21. the CLI's probe, naive and costprop at 524,288 lanes, as subprocesses
+    on the card.
 
 Then the card's name and power limit, a JSON line of the kernels and,
 last, {"ok": true, "device": {...}}. Each kernel entry has its device
-time, its plain twin's, both also by CUDA events, and its bound: the larger of the bytes it must move over
-3.35 TB/s and its f32 operations over 67 TFLOP/s (ops_per_lane). Any failed
-check raises: the script exits non-zero and prints no result. The full
-record also goes to chiprun_out/chip_smoke.json.
+time, its plain twin's, both also by CUDA events, and its bound: the
+larger of the bytes it must move over 3.35 TB/s and its f32 operations
+over 67 TFLOP/s (probes/roofline.py). Any failed check raises: the script
+exits non-zero and prints no result. The full record also goes to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -82,7 +98,6 @@ import torch
 B_CHECK = 2 ** 17
 SEEDS = range(4)
 OPTION_SEEDS = range(8)
-TIMED = 20
 SYSTEMS = ("bicycle", "point2d", "double_integrator", "unicycle", "dubins")
 FOOTPRINT = (0.5, 0.25)  # half extents of a 1.0 x 0.5 body
 ATOL = 1e-3  # x1 allclose: |kernel - plain| <= ATOL + RTOL * |plain|
@@ -97,9 +112,8 @@ MC_N = 1024  # BASELINE config 5 per chip
 STREAM_N, STREAM_POOL = 4096, 1024  # bench.py's streaming sweep
 CHECK_N, CHECK_POOL = 256, 64  # the invariance checks
 SWEEP_SHAPE = (1024, 128, 8)  # B6's timing shape: problems, lanes, boxes
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_F32_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-IRREGULAR_WINDOWS: list = []  # device_ms windows with counts not a multiple of n
+WINDOWS = (1, 2, 4, 5)  # B5's step windows, as tools/r4_cull_bench.py
+PROBE_LANES = 524_288  # the CostProp probe's width (CostPropPlanner.cu:85-88)
 
 
 def fail(msg: str) -> None:
@@ -176,56 +190,15 @@ def compare(name, system, x0, ctrl, obstacles, cfg, x1, valid, px1, pvalid) -> d
     return out
 
 
-def time_ms(fn, n: int = TIMED) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
+def timed(out: dict, name: str, fn, n: int | None = None) -> None:
+    """out[name_ms]: device ms per call of ``fn`` over ``n`` calls (20 by
+    default); out[name_launch_ms]: CUDA-event ms per call, which the host's
+    launch rate may set."""
+    from cudasbmp_torch.probes import timing
 
-
-def device_ms(fn, n: int = TIMED, tries: int = 5) -> float:
-    """Device time per call of ``fn`` under torch.profiler, over ``n``
-    calls after a warm-up call: for each kernel or copy, its mean device
-    time per launch times its launches per call (its count over ``n``,
-    rounded, so a record the profiler drops or carries over from earlier
-    work does not count). Where the host launches slower than the card
-    runs, ``time_ms`` measures the launch rate; this does not."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        total_us, odd = 0.0, []
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            us = e.self_cuda_time_total if us is None else us
-            if us > 0:
-                total_us += us / e.count * round(e.count / n)
-                if e.count % n:
-                    odd.append((e.key[:60], e.count))
-        if odd:
-            IRREGULAR_WINDOWS.append(odd[:3])
-        if total_us > 0:
-            return total_us / 1e3
-    fail(f"torch.profiler recorded no device time in {tries} windows of {n} calls")
-
-
-def timed(out: dict, name: str, fn) -> None:
-    """out[name_ms]: device ms per call of ``fn``; out[name_launch_ms]:
-    CUDA-event ms per call, which the host's launch rate may set."""
-    out[f"{name}_ms"] = device_ms(fn)
-    out[f"{name}_launch_ms"] = time_ms(fn)
+    n = timing.TIMED if n is None else n
+    out[f"{name}_ms"] = timing.device_ms(fn, n)
+    out[f"{name}_launch_ms"] = timing.time_ms(fn, n)
 
 
 def expected_waves(cfg, metrics) -> int:
@@ -495,44 +468,6 @@ def run_cli(out_dir: pathlib.Path) -> dict:
     return out
 
 
-def ops_per_lane(system: str, footprint: bool, fast: bool, K: int, num_disc: int,
-                 sample: bool) -> int:
-    """f32 operations one lane of the rollout kernels does, counted from
-    csrc/rollout.cu: each add, sub, mul, div, compare, min, max and abs is
-    one, each cosf/sinf/tanf one (the accurate library functions take tens
-    of instructions, so the count, and the bound it gives, is a lower
-    bound), and Philox-4x32-10's integer work in the sampling forms (10
-    rounds of two wide multiplies, four xors and two key adds, about 80)
-    counts at the f32 rate with the 5 operations of each of 3 draws. The
-    loops run every step and every box whatever the data (a dead lane
-    keeps computing), so the count depends on the shapes only."""
-    heading = system in ("bicycle", "unicycle", "dubins")
-    turn = {"unicycle": 1, "dubins": 2}.get(system, 0)
-    if fast and heading:
-        prepare = 14 if system == "bicycle" else 4 + turn
-        step = 22 if system == "bicycle" else 13 + turn
-    else:
-        prepare = 1 if system == "bicycle" else 0  # tanf(steering)
-        step = {"bicycle": 14, "point2d": 4, "double_integrator": 8}.get(system, 9 + turn)
-    per_step = step + 8  # bounds (4 compares) and the swept box (4 min/max)
-    per_box = 4  # the separating-axis test
-    if footprint:
-        per_step += 6 + (2 if heading and not fast else 0)  # centre, |cos|, |sin|; trig
-        per_box += 42  # box centre and half extents, four axes
-    return 1 + prepare + num_disc * (per_step + K * per_box) + (95 if sample else 0)
-
-
-def bound_ms(lanes: int, ops: int, boxes: int, keys: int = 0) -> tuple[float, str]:
-    """The least time the card could take: the larger of the bytes moved
-    (per lane a float4 state and 3 controls in or out, a float4 state and a
-    valid byte out: 45 B; 16 B per box and per key read once) over the
-    memory rate, and the operations over the f32 rate. Returns (ms, what
-    bounds it)."""
-    t_bytes = (45 * lanes + 16 * (boxes + keys)) / PEAK_BYTES_PER_S
-    t_ops = lanes * ops / PEAK_F32_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def problem_batch(name: str, B: int, R: int, K: int, seed: int, dev):
     """(system, x0 [B, R, 4], controls [B, R, 3], obstacles [B, K, 4]): a
     distinct random box field per problem, two padding rows each."""
@@ -621,6 +556,206 @@ def check_b6(dev, kw) -> dict:
     t["valid_fraction"] = float(rc.rollout_batched_cuda(system, x0, c, obs, **kw)[1]
                                 .float().mean())
     out["max_abs_err"] = max(errs)
+    return out
+
+
+def culled_field(K: int, dev):
+    """Phase 18's fields: Scenario.dense(K) (padded to a multiple of 8), or
+    tests/test_pallas.py's 16 random boxes with two padding rows (K=16)."""
+    from cudasbmp_torch.config import Scenario
+
+    if K != 16:
+        return torch.tensor(Scenario.dense(K, seed=0).padded_obstacles(K + 8)[0],
+                            device=dev)
+    r = np.random.default_rng(1234)
+    lo = r.uniform(0, 18, (K, 2))
+    boxes = np.concatenate([lo, lo + r.uniform(0.3, 3.0, (K, 2))], -1)
+    boxes[-2:] = (1.0, 1.0, 0.0, 0.0)
+    return torch.tensor(boxes.astype(np.float32), device=dev)
+
+
+def check_b5(dev, kw) -> dict:
+    """Phase 18: B5 (both kernels with cull=W) bitwise against cull off, in
+    every instantiation at W in WINDOWS on the dense-24 and the 16-box
+    fields, at 2^17 lanes random and Morton-grouped, at ragged R and at 100
+    boxes; against its plain twin; device ms of B2 off and at each W beside
+    the culled twin at the cull table's shape."""
+    from cudasbmp_torch import rng
+    from cudasbmp_torch.config import Scenario
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.probes import throughput as tp
+    from cudasbmp_torch.systems.bicycle import KinematicBicycle
+
+    out = {"checks": 0, "twin": {}, "times": {}}
+    key = rng.key(18, dev)
+
+    def against_b1(system, x0, c, obs, opts, tag) -> None:
+        x1, valid = rc.rollout_cuda(system, x0, c, obs, **opts)
+        y1, c2, v2 = rc.sample_and_rollout_cuda(system, key, x0, obs, **opts)
+        for W in WINDOWS:
+            cx1, cvalid = rc.rollout_cuda(system, x0, c, obs, **opts, cull=W)
+            cy1, cc2, cv2 = rc.sample_and_rollout_cuda(system, key, x0, obs, **opts,
+                                                       cull=W)
+            check(torch.equal(cvalid, valid) and bitwise(cx1, x1)
+                  and bitwise(cc2, c2) and torch.equal(cv2, v2) and bitwise(cy1, y1),
+                  f"B5 {tag} W={W}: differs from cull off")
+            out["checks"] += 2
+
+    def grouped(x0, c):
+        order = tp.morton_order(x0)
+        return x0[order].contiguous(), c[order].contiguous()
+
+    for K in (24, 16):
+        obs = culled_field(K, dev)
+        for i, name in enumerate(SYSTEMS):
+            system, x0, c = system_batch(name, B_CHECK, 180 + i, dev)
+            for fp in (None, FOOTPRINT):
+                for fast in (False, True):
+                    opts = dict(kw, footprint=fp, fast_math=fast)
+                    tag = f"K={K}/{name}/{'footprint' if fp else 'broad'}/" \
+                          f"{'fast' if fast else 'exact'}"
+                    against_b1(system, x0, c, obs, opts, tag)
+                    against_b1(system, *grouped(x0, c), obs, opts, tag + "/grouped")
+    system = KinematicBicycle()
+    for R, K in ((33, 24), (4097, 24), (4097, 100), (B_CHECK, 100)):
+        _, x0, c = system_batch("bicycle", R, 190 + R % 97, dev)
+        obs = culled_field(K, dev)
+        for fp in (None, FOOTPRINT):
+            against_b1(system, *grouped(x0, c), obs, dict(kw, footprint=fp),
+                       f"R={R} K={K}")
+    # the plain culled twin on the card, at warps of 32 lanes
+    obs = culled_field(24, dev)
+    _, x0, c = system_batch("bicycle", B_CHECK, 199, dev)
+    gx0, gc = grouped(x0, c)
+    for fp in (None, FOOTPRINT):
+        for fast in (False, True):
+            opts = dict(kw, footprint=fp, fast_math=fast)
+            cx1, cvalid = rc.rollout_cuda(system, gx0, gc, obs, **opts, cull=4)
+            tx1, tvalid = rc.rollout_culled_soa(system, gx0, gc, obs, cull=4,
+                                                group=rc.WARP, **opts)
+            check(torch.equal(cvalid, tvalid) and bitwise(cx1, tx1),
+                  f"B5 twin {fp} {fast}: differs from the kernel")
+            out["twin"][f"{'footprint' if fp else 'broad'}/{'fast' if fast else 'exact'}"] = {
+                "max_abs_err": float((cx1 - tx1).abs().max()),
+                "valid_fraction": float(cvalid.float().mean())}
+    # device ms at the cull table's shape: B2 on 2^17 dense-24 starts
+    sc_obs = torch.tensor(Scenario.dense(24).obstacles, device=dev)
+    t = out["times"]
+    for g in (False, True):
+        x0 = tp.start_states(B_CHECK, dev, grouped=g)
+        for W in (0, *WINDOWS):
+            timed(t, f"{'grouped' if g else 'random'}_W{W}",
+                  lambda: rc.sample_and_rollout_bicycle_cuda(key, x0, sc_obs, **kw, cull=W))
+    x0 = tp.start_states(B_CHECK, dev, grouped=True)
+    timed(t, "plain_grouped_W4", lambda: rc.sample_and_rollout_torch(
+        system, key, x0, sc_obs, **kw, cull=4), n=3)
+    out["max_abs_err"] = max(v["max_abs_err"] for v in out["twin"].values())
+    return out
+
+
+def run_probes(dev) -> dict:
+    """Phase 19: the throughput probe (bench.py's settings: 2^17 lanes, 10
+    steps) through cuda, cuda_rng, fast math, dense-24 and the plain torch
+    backend, then the cull table. Launch counts are zeroed before and read
+    after: the table is B5's main path."""
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.probes import throughput as tp
+
+    out = {"probes": {}}
+    rc.reset_launch_counts()
+    for label, kw in (("cuda", dict(backend="cuda")),
+                      ("cuda_rng", dict(backend="cuda_rng")),
+                      ("cuda_rng_fast", dict(backend="cuda_rng", fast_math=True)),
+                      ("cuda_rng_dense24", dict(backend="cuda_rng", dense=True)),
+                      ("cuda_fast", dict(backend="cuda", fast_math=True)),
+                      ("torch", dict(backend="torch"))):
+        r = tp.measure_prop_throughput(device=dev, **kw)
+        check(0.0 < r["valid_fraction"] < 1.0 and r["valid_per_sec"] > 0,
+              f"probe {label}: {r}")
+        out["probes"][label] = r
+    out["probe_launches"] = {w.__name__: w.launches for w in rc.WRAPPERS}
+    check(out["probe_launches"]["rollout_cuda"] > 0
+          and out["probe_launches"]["sample_and_rollout_cuda"] > 0,
+          f"probes: launches {out['probe_launches']}")
+    rc.reset_launch_counts()
+    table = tp.cull_table(device=dev)
+    out["cull_table"] = table
+    out["b5_launches"] = rc.sample_and_rollout_cuda.culled
+    check(out["b5_launches"] > 0 and rc.rollout_cuda.launches == 0,
+          f"cull table: B5 launches {out['b5_launches']}")
+    fr = {r["label"]: r["valid_fraction"] for r in table["rows"]}
+    check(len({v for k, v in fr.items() if k.startswith("dense24_grouped")}) == 1,
+          f"cull table: the culled rows' valid fractions differ: {fr}")
+    return out
+
+
+def run_calibration(dev, probes: dict) -> dict:
+    """Phase 20: the calibration chains (P1a, P1b, P2) against their plain
+    twins on the card, their rates from device time (launches zeroed before
+    and read after ``calibrate``), and B2's roofline shares, exact, fast and
+    dense-24."""
+    from cudasbmp_torch.ops import chains_cuda as cc
+    from cudasbmp_torch.probes import roofline as rf
+
+    x = rf.chain_inputs(dev)
+    out = {"checks": {}, "plain_ms": {}}
+    for chain, rtol in ((64, 1e-5), (rf.ALU_CHAIN, 2e-3)):
+        a, b = cc.alu_chain_cuda(x, chain), cc.alu_chain_torch(x, chain)
+        err = float(((a - b).abs() / b.abs()).max())
+        check(err <= rtol, f"P1a at {chain} links: relative error {err} > {rtol}")
+        out["checks"][f"alu_{chain}"] = {"max_rel_err": err, "rtol": rtol,
+                                         "max_abs_err": float((a - b).abs().max())}
+    for op, chain in (("cos", rf.TRANS_CHAIN), ("sin", rf.TRANS_CHAIN), ("tan", 2)):
+        a, b = cc.trans_chain_cuda(x, chain, op), cc.trans_chain_torch(x, chain, op)
+        err = float(((a - b).abs() / b.abs()).max())
+        check(err <= 1e-5, f"P1b {op} at {chain} links: relative error {err}")
+        out["checks"][f"{op}_{chain}"] = {"max_rel_err": err, "bitwise": bitwise(a, b),
+                                          "max_abs_err": float((a - b).abs().max())}
+    a = cc.trans_chain_cuda(x, rf.TRANS_CHAIN, "tan")
+    out["checks"][f"tan_{rf.TRANS_CHAIN}"] = {
+        "bitwise": bitwise(a, cc.trans_chain_torch(x, rf.TRANS_CHAIN, "tan")),
+        "finite": bool(torch.isfinite(a).all())}
+    for rows in rf.GATHER_ROWS:
+        _, tbl, idx = rf.chain_inputs(dev, rows)
+        check(bitwise(cc.gather_chain_cuda(tbl, idx, rf.GATHER_CHAIN),
+                      cc.gather_chain_torch(tbl, idx, rf.GATHER_CHAIN)),
+              f"P2 at {rows} rows: differs from its twin")
+        out["checks"][f"gather_{rows}"] = {"bitwise": True}
+    pm = out["plain_ms"]
+    timed(pm, "alu", lambda: cc.alu_chain_torch(x, rf.ALU_CHAIN), n=2)
+    timed(pm, "cos", lambda: cc.trans_chain_torch(x, rf.TRANS_CHAIN, "cos"), n=3)
+    _, tbl, idx = rf.chain_inputs(dev, 1024)
+    timed(pm, "gather1024", lambda: cc.gather_chain_torch(tbl, idx, rf.GATHER_CHAIN), n=3)
+    cc.reset_launch_counts()
+    out["calibration"] = rf.calibrate(dev)
+    out["launches"] = {w.__name__: w.launches for w in cc.WRAPPERS}
+    check(all(out["launches"].values()), f"calibrate: launches {out['launches']}")
+    out["shares"] = rf.b2_shares(out["calibration"], dev, probes={
+        "exact_demo": probes["cuda_rng"], "fast_math_demo": probes["cuda_rng_fast"],
+        "exact_dense24": probes["cuda_rng_dense24"]})
+    return out
+
+
+def run_probe_cli() -> dict:
+    """Phase 21: ``probe`` as a user starts it, on the card, at the
+    CostProp reference's 524,288 lanes."""
+    out = {}
+    for planner in ("naive", "costprop"):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "cudasbmp_torch.cli", "probe",
+                            "--planner", planner, "--width", str(PROBE_LANES),
+                            "--device", "cuda"],
+                           cwd=ROOT, capture_output=True, text=True, timeout=300)
+        lines = p.stdout.splitlines()
+        check(p.returncode == 0 and len(lines) == 3,
+              f"cli probe {planner}: exit {p.returncode}\n{p.stdout[-2000:]}"
+              f"\n{p.stderr[-2000:]}")
+        m = re.fullmatch(r"Kernel execution time: (\d+\.\d+) milliseconds", lines[0])
+        rate = json.loads(lines[2])["rollouts_per_sec"]
+        check(m is not None and lines[1] == f"Tree size: {PROBE_LANES}" and rate > 0,
+              f"cli probe {planner}: {lines}")
+        out[planner] = {"seconds": time.perf_counter() - t0, "lines": lines,
+                        "kernel_ms": float(m[1]), "rollouts_per_sec": rate}
     return out
 
 
@@ -918,6 +1053,8 @@ def main() -> int:
     from cudasbmp_torch.ops import _build
     from cudasbmp_torch.ops import rollout_cuda as rc
     from cudasbmp_torch.ops.rollout import rollout_batch
+    from cudasbmp_torch.probes import roofline as rf
+    from cudasbmp_torch.probes import timing
     from cudasbmp_torch.systems.bicycle import KinematicBicycle
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1153,6 +1290,55 @@ def main() -> int:
         f"{v['summary']['solves_per_sec']:.1f} ({v['seconds']:.1f} s)"
         for k, v in bcli.items()) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # 18. B5, the culled broad phase, against B1 and its twin
+    t0 = time.perf_counter()
+    b5 = check_b5(dev, kw)
+    record["b5"] = b5
+    b5t = b5["times"]
+    print(f"[18 B5] {b5['checks']} culled launches (W in {list(WINDOWS)}, 20 instantiations x "
+          f"2 kernels, dense-24 and 16 boxes, 2^17 random and grouped; R=33, 4097 and 2^17 at "
+          f"24 and 100 boxes) bitwise equal to cull off; twin bitwise at W=4 | B2 at 2^17 on "
+          f"dense-24, device ms random/grouped: " + ", ".join(
+              f"W={W} {b5t[f'random_W{W}_ms']:.4f}/{b5t[f'grouped_W{W}_ms']:.4f}"
+              for W in (0, *WINDOWS))
+          + f"; plain culled twin (grouped, W=4) {b5t['plain_grouped_W4_ms']:.2f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 19. the throughput probe and the cull table (B5's main path)
+    t0 = time.perf_counter()
+    probes = run_probes(dev)
+    record["probes"] = probes
+    pr = probes["probes"]
+    print("[19 probe 2^17] valid rollouts/s by device time (by wall): " + ", ".join(
+        f"{k} {v['valid_per_sec']:.4g} ({v['wall_valid_per_sec']:.4g})" for k, v in pr.items())
+        + " | cull table, rollouts/s by device time (wall): " + ", ".join(
+        f"{r['label']} {r['rollouts_per_sec']:.4g} ({r['wall_rollouts_per_sec']:.4g})"
+        for r in probes["cull_table"]["rows"])
+        + f" | B5 launches {probes['b5_launches']} ({time.perf_counter() - t0:.1f} s)",
+        flush=True)
+
+    # 20. the calibration chains (P1, P2) and B2's roofline shares
+    t0 = time.perf_counter()
+    cal = run_calibration(dev, pr)
+    record["calibration"] = cal
+    rates = cal["calibration"]
+    print(f"[20 calibrate] FFMA/s {rates['alu_fma_issues_per_sec']:.4g}, cos/sin/tan "
+          f"evals/s {rates['cos_evals_per_sec']:.4g}/{rates['sin_evals_per_sec']:.4g}/"
+          f"{rates['tan_evals_per_sec']:.4g}, gathers/s at 8/128/1024 rows "
+          f"{rates['gathers_per_sec_8']:.4g}/{rates['gathers_per_sec_128']:.4g}/"
+          f"{rates['gathers_per_sec_1024']:.4g}; chains agree with their twins | B2 share of "
+          f"the peaks: " + ", ".join(f"{k} {v['peak_share']:.4f} ({v['kernel_ms']:.4f} ms)"
+                                      for k, v in cal["shares"].items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 21. the probe subcommand
+    t0 = time.perf_counter()
+    pcli = run_probe_cli()
+    record["probe_cli"] = pcli
+    print("[21 cli probe] " + " | ".join(
+        f"{k}: {v['kernel_ms']:.3f} ms, {v['rollouts_per_sec']:.4g} rollouts/s "
+        f"({v['seconds']:.1f} s)" for k, v in pcli.items()), flush=True)
+
     if "--profile" in sys.argv[1:]:
         out_dir.mkdir(exist_ok=True)
         record["profile_tree_auto"] = profile_solve(cfg, dev, out_dir)
@@ -1167,8 +1353,19 @@ def main() -> int:
     nb, nr, nk = SWEEP_SHAPE
 
     def bounds(lanes, ops, boxes, keys=0):
-        ms, by = bound_ms(lanes, ops, boxes, keys)
+        ms, by = rf.bound_ms(lanes, ops, boxes, keys)
         return {"bound_ms": ms, "bound_by": by, "library_ms": None}
+
+    def chain_row(ms_by):
+        ms, by = ms_by
+        return {"bound_ms": ms, "bound_by": by, "library_ms": None}
+
+    ops_per_lane = rf.ops_per_lane
+    cms = cal["calibration"]["ms"]
+    cb = rf.chain_bounds(rf.CAL_SHAPE[0] * rf.CAL_SHAPE[1], 1024)
+    def chain_err(prefixes):
+        return max(v["max_abs_err"] for k, v in cal["checks"].items()
+                   if k.startswith(prefixes) and "max_abs_err" in v)
 
     kernels = [
         {"name": "rollout_kernel", "route": "cuda",
@@ -1223,13 +1420,46 @@ def main() -> int:
          "plain_launch_ms": bt["rng_plain_launch_ms"],
          **bounds(nb * nr, ops_per_lane("bicycle", False, False, nk, nd, True), nb * nk,
                   nb)},
+        {"name": "sample_and_rollout_kernel<cull> (B5)", "route": "cuda",
+         "source": "cudasbmp_torch/csrc/rollout.cu",
+         "replaces": "cudasbmp_tpu/ops/rollout_pallas.py:143",
+         "systems": list(SYSTEMS), "windows": list(WINDOWS),
+         "launches": probes["b5_launches"], "max_abs_err": b5["max_abs_err"],
+         "ms": b5t["grouped_W4_ms"], "plain_ms": b5t["plain_grouped_W4_ms"],
+         "launch_ms": b5t["grouped_W4_launch_ms"],
+         "plain_launch_ms": b5t["plain_grouped_W4_launch_ms"],
+         "cull_off_ms": b5t["grouped_W0_ms"],
+         **bounds(B_CHECK, ops_per_lane("bicycle", False, False, 24, nd, True), 24, 1)},
+        {"name": "alu_chain_kernel (P1a)", "route": "cuda",
+         "source": "cudasbmp_torch/csrc/chains.cu",
+         "replaces": "tools/roofline.py:69",
+         "launches": cal["launches"]["alu_chain_cuda"], "max_abs_err": chain_err("alu"),
+         "ms": cms["alu"], "plain_ms": cal["plain_ms"]["alu_ms"],
+         "plain_launch_ms": cal["plain_ms"]["alu_launch_ms"], **chain_row(cb["alu"])},
+        {"name": "trans_chain_kernel<cos|sin|tan> (P1b)", "route": "cuda",
+         "source": "cudasbmp_torch/csrc/chains.cu",
+         "replaces": "tools/roofline.py:79",
+         "launches": cal["launches"]["trans_chain_cuda"],
+         "max_abs_err": chain_err(("cos", "sin", "tan")),
+         "ms": cms["cos"], "ms_sin": cms["sin"], "ms_tan": cms["tan"],
+         "plain_ms": cal["plain_ms"]["cos_ms"],
+         "plain_launch_ms": cal["plain_ms"]["cos_launch_ms"], **chain_row(cb["trans"])},
+        {"name": "gather_chain_kernel (P2)", "route": "cuda",
+         "source": "cudasbmp_torch/csrc/chains.cu",
+         "replaces": "tools/r3_probe1.py:97",
+         "launches": cal["launches"]["gather_chain_cuda"], "max_abs_err": 0.0,
+         "ms": cms["gather1024"], "ms_rows8": cms["gather8"],
+         "ms_rows128": cms["gather128"], "plain_ms": cal["plain_ms"]["gather1024_ms"],
+         "plain_launch_ms": cal["plain_ms"]["gather1024_launch_ms"],
+         **chain_row(cb["gather"])},
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     record["kernels"] = kernels
-    record["profiler_irregular_windows"] = IRREGULAR_WINDOWS
+    irregular = timing.IRREGULAR_WINDOWS
+    record["profiler_irregular_windows"] = irregular
     print(f"[times] device_ms windows whose records were not a multiple of the calls: "
-          f"{len(IRREGULAR_WINDOWS)} {IRREGULAR_WINDOWS[:3]}", flush=True)
+          f"{len(irregular)} {irregular[:3]}", flush=True)
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(smi.splitlines()[0])

@@ -4,6 +4,8 @@
     python -m cudasbmp_torch.cli plan --configurations DIR [--device ...] [...]
     python -m cudasbmp_torch.cli multi --impl arena [--batch B] [...]
     python -m cudasbmp_torch.cli sweep --impl arena|stream [--scenarios N] [...]
+    python -m cudasbmp_torch.cli probe [--planner naive|costprop] [--width W]
+                                       [--rows R] [--device cuda|cpu]
 
 ``demo`` plans the reference demo scenario, ``plan`` a ``configurations/``
 directory (its numR1/numR2 files set the grid unless a flag does). Config
@@ -22,14 +24,19 @@ JAX CLI's JSON summary and exits 0. ``--impl vmap``, the JAX CLI's default,
 is not yet ported (exit 2), nor is ``--no-need-path`` meaningful there
 (exit 2, as in the JAX CLI).
 
+``probe`` runs the reference's raw propagation-throughput probes (the
+Naive and CostProp planners, no collision checks) on the demo's root and
+prints the reference's two lines (``Kernel execution time: ...``, ``Tree
+size: ...``) and a JSON line of rollouts/s.
+
 ``--device`` is explicit and defaults to ``cuda``, where the rollouts run
 through the hand-written CUDA kernels; without a CUDA device the CLI stops
 with an error instead of moving to the CPU. ``--device cpu`` runs the plain
 PyTorch versions.
 
 Not yet ported (exit 2): ``--shortcut``, ``--refine``, ``--plot``,
-``--impl vmap`` and the subcommands ``probe``, ``viz``, ``record``,
-``profile`` and ``sharded``.
+``--impl vmap`` and the subcommands ``viz``, ``record``, ``profile`` and
+``sharded``.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import dataclasses
 import json
 import sys
 
-NOT_PORTED_COMMANDS = ("probe", "viz", "record", "profile", "sharded")
+NOT_PORTED_COMMANDS = ("viz", "record", "profile", "sharded")
 NOT_PORTED_FLAGS = ("shortcut", "refine", "plot")
 
 
@@ -262,6 +269,24 @@ def _run_sweep(args: argparse.Namespace) -> int:
     return 0
 
 
+def _run_probe(args: argparse.Namespace) -> int:
+    if rc := _device_error(args):
+        return rc
+    from cudasbmp_torch.config import Scenario
+
+    if args.planner == "naive":
+        from cudasbmp_torch.planners.naive import NaivePlanner as P
+    else:
+        from cudasbmp_torch.planners.costprop import CostPropPlanner as P
+    probe = P(width_rollouts=args.width, rows=args.rows, device=args.device)
+    r = probe.plan(Scenario.demo())
+    # NaivePlanner.cu:129-130 parity
+    print(f"Kernel execution time: {r.kernel_time_s * 1e3:f} milliseconds")
+    print(f"Tree size: {r.num_rollouts}")
+    print(json.dumps({"rollouts_per_sec": r.rollouts_per_sec}))
+    return 0
+
+
 def _first_command(argv: list[str]) -> str | None:
     return next((a for a in argv if not a.startswith("-")), None)
 
@@ -307,9 +332,21 @@ def main(argv: list[str] | None = None) -> int:
                          "not yet ported (exits 2)")
     p_sweep.add_argument("--pool", type=int, default=1024,
                          help="resident slot count for --impl stream")
+    p_probe = sub.add_parser("probe", help="raw propagation-throughput probes "
+                             "(Naive/CostProp planner analogs)")
+    p_probe.add_argument("--planner", choices=["naive", "costprop"],
+                         default="costprop")
+    p_probe.add_argument("--width", type=int, default=1024 * 512,
+                         help="rollouts per row (CostProp reference: 524288)")
+    p_probe.add_argument("--rows", type=int, default=1)
+    p_probe.add_argument("--device", default="cuda",
+                         help="torch device (default cuda; cpu runs on the CPU)")
     for name in NOT_PORTED_COMMANDS:
         sub.add_parser(name, help="not yet ported (exits 2)")
     args = parser.parse_args(argv)
+
+    if args.cmd == "probe":
+        return _run_probe(args)
 
     if args.cmd == "multi":
         return _run_multi(args)

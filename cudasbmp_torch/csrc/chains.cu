@@ -1,0 +1,175 @@
+// Calibration chains for Hopper (sm_90a): the card's dependent FMA rate,
+// its accurate cos/sin/tan rate and its shared-memory gather rate, against
+// which the rollout kernels' roofline shares are read
+// (cudasbmp_torch/probes/roofline.py).
+//
+// Replaces the TPU probes of tools/roofline.py and tools/r3_probe1.py:
+//   P1a _alu_kernel under _chain_call (roofline.py:57-76): y <- y*m + x,
+//       `chain` times, m = x0*1e-9 + 0.999931 with x0 the first element of
+//       the element's program (256 x 128 elements on the TPU);
+//   P1b _trans_kernel(op) (roofline.py:79-86): y <- op(y) + eps with
+//       op in {cos, sin, tan} and eps = x0*1e-12 per program;
+//   P2  _gather_kernel (r3_probe1.py:97-108): y <- y + tbl[(idx + i) % rows,
+//       lane] for i < chain, from y = 0, with tbl [rows, 128].
+//
+// What bounds them on this card: operations, by design. P1 is one thread per
+// element; at 2048 x 128 elements (one wave of about 1,986 threads per SM,
+// some 15 warps per scheduler) the dependent chain's 4-cycle FFMA latency
+// should be hidden and P1a run at the FFMA issue rate: one __fmaf_rn per
+// link, which nvcc neither splits nor reorders. On an H100 at 700 W it ran
+// at 47% of that rate, rolled or unrolled by 16 alike; why is not measured. P1b calls the accurate cosf, sinf
+// and tanf (no fast math, as the rollout kernels build), so its rate is the
+// math library's, not the SFU's. P2 keeps a slice of 32 table columns (all
+// rows of them: 128 KB at 1,024 rows, below a block's 227 KB) in shared
+// memory, one column per thread of a warp, so the 32 threads of a warp read
+// 32 distinct banks whatever rows they gather: conflict-free by
+// construction. Each thread carries 8 independent chains (8 rows of idx) so
+// shared-memory latency overlaps; (idx + i) % rows becomes one wrap-around
+// increment per link after one floor modulo, the same integers.
+// The program of P1 is a runtime size (`program` elements): the element's
+// m and eps come from its program's first element, never from blockIdx.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kStaticSmemLimit = 48 * 1024;
+constexpr int kLanes = 128;       // P2: table and idx width
+constexpr int kSliceLanes = 32;   // P2: table columns one block holds
+constexpr int kRowsY = 8;         // P2: threadIdx.y extent
+constexpr int kRowsPerThread = 8; // P2: independent chains per thread
+constexpr int kRowsPerBlock = kRowsY * kRowsPerThread;
+
+enum TransOp { kCos = 0, kSin = 1, kTan = 2 };
+
+__global__ void __launch_bounds__(kThreads)
+    alu_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
+                     int n, int program, int chain) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const float xe = x[e];
+  const float m = __fadd_rn(__fmul_rn(x[e - e % program], 1e-9f), 0.999931f);
+  float v = xe;
+  for (int i = 0; i < chain; ++i) v = __fmaf_rn(v, m, xe);
+  y[e] = v;
+}
+
+template <int kOp>
+__device__ __forceinline__ float trans(float v) {
+  if constexpr (kOp == kCos) return cosf(v);
+  else if constexpr (kOp == kSin) return sinf(v);
+  else return tanf(v);
+}
+
+template <int kOp>
+__global__ void __launch_bounds__(kThreads)
+    trans_chain_kernel(const float* __restrict__ x, float* __restrict__ y,
+                       int n, int program, int chain) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const float eps = __fmul_rn(x[e - e % program], 1e-12f);
+  float v = x[e];
+  for (int i = 0; i < chain; ++i) v = __fadd_rn(trans<kOp>(v), eps);
+  y[e] = v;
+}
+
+// grid (kLanes / kSliceLanes, ceil(n_rows / kRowsPerBlock)), block
+// (kSliceLanes, kRowsY); thread (tx, ty) of block (bx, by) runs lane
+// bx*32 + tx of rows by*64 + ty + 8k, k < 8.
+__global__ void __launch_bounds__(kThreads)
+    gather_chain_kernel(const float* __restrict__ tbl, int rows,
+                        const int* __restrict__ idx, float* __restrict__ y,
+                        int n_rows, int chain) {
+  extern __shared__ float slice[];  // [rows][kSliceLanes]
+  const int lane0 = blockIdx.x * kSliceLanes;
+  const int t = threadIdx.y * kSliceLanes + threadIdx.x;
+  for (int j = t; j < rows * kSliceLanes; j += kThreads)
+    slice[j] = tbl[(j / kSliceLanes) * kLanes + lane0 + j % kSliceLanes];
+  __syncthreads();
+  const int lane = lane0 + threadIdx.x;
+  const int row0 = blockIdx.y * kRowsPerBlock + threadIdx.y;
+  int j[kRowsPerThread];
+  float acc[kRowsPerThread];
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int r = row0 + k * kRowsY;
+    const int v = r < n_rows ? idx[r * kLanes + lane] % rows : 0;
+    j[k] = v < 0 ? v + rows : v;  // floor modulo, as Python's and torch's %
+    acc[k] = 0.0f;
+  }
+  for (int i = 0; i < chain; ++i) {
+#pragma unroll
+    for (int k = 0; k < kRowsPerThread; ++k) {
+      acc[k] = __fadd_rn(acc[k], slice[j[k] * kSliceLanes + threadIdx.x]);
+      j[k] = j[k] + 1 == rows ? 0 : j[k] + 1;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRowsPerThread; ++k) {
+    const int r = row0 + k * kRowsY;
+    if (r < n_rows) y[r * kLanes + lane] = acc[k];
+  }
+}
+
+int start(int device) { return static_cast<int>(cudaSetDevice(device)); }
+
+}  // namespace
+
+// Plain C entry points for ctypes: device pointers of contiguous f32
+// tensors x, y of n elements (P1, `program` elements a program) or tbl f32
+// [rows, 128], idx int32 [n_rows, 128], y f32 [n_rows, 128] (P2). Each
+// launches on `stream` without synchronising and returns 0 or a
+// cudaError_t.
+
+extern "C" int cudasbmp_alu_chain(int device, const void* x, void* y, int n,
+                                  int program, int chain, void* stream) {
+  if (n < 0 || program < 1 || n % program || chain < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = start(device)) return err;
+  if (n == 0) return 0;
+  alu_chain_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), n, program, chain);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cudasbmp_trans_chain(int device, int op, const void* x,
+                                    void* y, int n, int program, int chain,
+                                    void* stream) {
+  if (n < 0 || program < 1 || n % program || chain < 0 || op < kCos ||
+      op > kTan)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = start(device)) return err;
+  if (n == 0) return 0;
+  auto kernel = op == kCos   ? trans_chain_kernel<kCos>
+                : op == kSin ? trans_chain_kernel<kSin>
+                             : trans_chain_kernel<kTan>;
+  kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), n, program, chain);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cudasbmp_gather_chain(int device, const void* tbl, int rows,
+                                     const void* idx, void* y, int n_rows,
+                                     int chain, void* stream) {
+  if (rows < 1 || n_rows < 0 || chain < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = start(device)) return err;
+  const size_t smem = sizeof(float) * kSliceLanes * static_cast<size_t>(rows);
+  if (smem > kStaticSmemLimit) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gather_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (n_rows == 0) return 0;
+  const dim3 grid(kLanes / kSliceLanes,
+                  (n_rows + kRowsPerBlock - 1) / kRowsPerBlock);
+  gather_chain_kernel<<<grid, dim3(kSliceLanes, kRowsY), smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(tbl), rows, static_cast<const int*>(idx),
+      static_cast<float*>(y), n_rows, chain);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -5,7 +5,9 @@
 // rollout_kernel) and ::sample_and_rollout_pallas (kernel B2,
 // sample_and_rollout_kernel), with both options of their one-pass body
 // _integrate: the oriented-footprint narrow phase (B3, template flag
-// kFootprint) and the chained-rotation fast math (B4, template flag kFast).
+// kFootprint) and the chained-rotation fast math (B4, template flag kFast);
+// and their cull=W body _integrate_culled, the culled broad phase (B5,
+// template flag kCull, integrate_culled below), which gives B1's results.
 // Both kernels integrate num_disc explicit-Euler steps and test every step
 // against the workspace bounds, the step's swept AABB against every
 // obstacle and, with a footprint, the agent's oriented rectangle at the new
@@ -60,6 +62,7 @@
 // ones they run as fast as before B6 joined them, to 1-2%.
 
 #include <climits>
+#include <cmath>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -192,31 +195,37 @@ struct Params {
   int blocks_per_problem;  // ceil(R / kThreads)
   float width, height;
   float hl, hw;  // footprint half length / half width
+  int windows;   // B5: step windows of the culled broad phase (0: off)
+  float pad;     // B5: how far the body reaches from (x, y): hl + hypot(hl, hw)
 };
 
-// One step's tests: exclusive workspace bounds, the swept AABB of (x, y) ->
-// (nx, ny) against every box, and with kFootprint the body centred hl
-// ahead of (nx, ny) along (ct, st) against every box. Padding boxes
-// (min 1, max 0) are separated on every axis of the broad phase and fail
-// valid_box in the narrow phase.
+__device__ __forceinline__ bool in_bounds(float nx, float ny, const Params& p) {
+  return (nx > 0.0f) & (nx < p.width) & (ny > 0.0f) & (ny < p.height);
+}
+
+// One step's geometry: the swept AABB of (x, y) -> (nx, ny) and, with
+// kFootprint, the body centred hl ahead of (nx, ny) along (ct, st).
+// clears(box) is the step's test against one box. Padding boxes (min 1,
+// max 0) are separated on every axis of the broad phase and fail valid_box
+// in the narrow phase.
 template <bool kFootprint>
-__device__ __forceinline__ bool step_clear(float x, float y, float nx,
-                                           float ny, float ct, float st,
-                                           const float* obs, const Params& p) {
-  bool clear = (nx > 0.0f) & (nx < p.width) & (ny > 0.0f) & (ny < p.height);
-  const float bminx = fminf(x, nx), bmaxx = fmaxf(x, nx);
-  const float bminy = fminf(y, ny), bmaxy = fmaxf(y, ny);
-  float fcx = 0.0f, fcy = 0.0f, act = 0.0f, ast = 0.0f;
-  if constexpr (kFootprint) {
-    fcx = add(nx, mul(p.hl, ct));
-    fcy = add(ny, mul(p.hl, st));
-    act = fabsf(ct);
-    ast = fabsf(st);
+struct StepTest {
+  float bminx, bmaxx, bminy, bmaxy;
+  float fcx = 0.0f, fcy = 0.0f, ct, st, act = 0.0f, ast = 0.0f;
+  __device__ __forceinline__ StepTest(float x, float y, float nx, float ny,
+                                      float ct_, float st_, const Params& p)
+      : bminx(fminf(x, nx)), bmaxx(fmaxf(x, nx)), bminy(fminf(y, ny)),
+        bmaxy(fmaxf(y, ny)), ct(ct_), st(st_) {
+    if constexpr (kFootprint) {
+      fcx = add(nx, mul(p.hl, ct));
+      fcy = add(ny, mul(p.hl, st));
+      act = fabsf(ct);
+      ast = fabsf(st);
+    }
   }
-  for (int o = 0; o < p.K; ++o) {
-    const float b0 = obs[4 * o], b1 = obs[4 * o + 1];
-    const float b2 = obs[4 * o + 2], b3 = obs[4 * o + 3];
-    clear &= (bmaxx <= b0) | (b2 <= bminx) | (bmaxy <= b1) | (b3 <= bminy);
+  __device__ __forceinline__ bool clears(const float* o, const Params& p) const {
+    const float b0 = o[0], b1 = o[1], b2 = o[2], b3 = o[3];
+    bool clear = (bmaxx <= b0) | (b2 <= bminx) | (bmaxy <= b1) | (b3 <= bminy);
     if constexpr (kFootprint) {
       const float bcx = mul(add(b0, b2), 0.5f), bcy = mul(add(b1, b3), 0.5f);
       const float bhx = mul(sub(b2, b0), 0.5f), bhy = mul(sub(b3, b1), 0.5f);
@@ -232,50 +241,188 @@ __device__ __forceinline__ bool step_clear(float x, float y, float nx,
                          add(add(p.hw, mul(bhx, ast)), mul(bhy, act));
       clear &= !(valid_box & !(sep_x | sep_y | sep_u | sep_v));
     }
+    return clear;
   }
-  return clear;
-}
+};
 
+// One rollout's Euler chain: the per-rollout precomputation of the exact
+// step, or the fast-math carry. step() returns the candidate from s (and
+// with fast math moves the carry on: a dead lane's carry keeps rotating,
+// harmless, its state is frozen); pose() is the heading the footprint test
+// takes at that candidate.
+template <class Sys, bool kFast>
+struct Chain {
+  typename Sys::Aux q;
+  __device__ __forceinline__ Chain(const Sys& sys, float4, float c0, float c1,
+                                   float)
+      : q(sys.prepare(c0, c1)) {}
+  __device__ __forceinline__ float4 step(const Sys& sys, float4 s, float dt) {
+    return sys.step(s, q, dt);
+  }
+  template <bool kFootprint>
+  __device__ __forceinline__ void pose(float4 n, float& ct, float& st) const {
+    ct = 1.0f;  // no heading: an axis-aligned body
+    st = 0.0f;
+    if constexpr (kFootprint && Sys::kHeading) {
+      ct = cosf(n.z);
+      st = sinf(n.z);
+    }
+  }
+};
+
+template <class Sys>
+struct Chain<Sys, true> {
+  static_assert(Sys::kFast && Sys::kHeading, "fast math needs the hooks");
+  typename Sys::Carry k;
+  typename Sys::FastAux q;
+  __device__ __forceinline__ Chain(const Sys& sys, float4 s, float c0,
+                                   float c1, float dt) {
+    sys.prepare_fast(s, c0, c1, dt, k, q);
+  }
+  __device__ __forceinline__ float4 step(const Sys& sys, float4 s, float dt) {
+    return sys.step_fast(s, k, q, dt);
+  }
+  template <bool kFootprint>
+  __device__ __forceinline__ void pose(float4, float& ct, float& st) const {
+    ct = k.ct;  // the carry has moved to the candidate's heading
+    st = k.st;
+  }
+};
+
+// The one-pass body of B1-B4: every step tests the workspace bounds and
+// every box; a rollout freezes at the candidate of its first failing step.
 template <class Sys, bool kFootprint, bool kFast>
 __device__ __forceinline__ bool integrate(const Sys& sys, float4& s, float c0,
                                           float c1, float dur,
                                           const float* obs, const Params& p) {
   const float dt = __fdiv_rn(dur, static_cast<float>(p.num_disc));
+  Chain<Sys, kFast> chain(sys, s, c0, c1, dt);
   bool alive = true;
-  if constexpr (kFast) {
-    static_assert(Sys::kFast && Sys::kHeading, "fast math needs the hooks");
-    typename Sys::Carry k;
-    typename Sys::FastAux q;
-    sys.prepare_fast(s, c0, c1, dt, k, q);
-    for (int i = 0; i < p.num_disc; ++i) {
-      // dead lanes' carry keeps rotating: harmless, their state is frozen
-      const float4 n = sys.step_fast(s, k, q, dt);
-      const bool clear =
-          step_clear<kFootprint>(s.x, s.y, n.x, n.y, k.ct, k.st, obs, p);
-      if (alive) s = n;
-      alive &= clear;
-    }
-  } else {
-    const typename Sys::Aux q = sys.prepare(c0, c1);
-    for (int i = 0; i < p.num_disc; ++i) {
-      const float4 n = sys.step(s, q, dt);
-      float ct = 1.0f, st = 0.0f;  // no heading: an axis-aligned body
-      if constexpr (kFootprint && Sys::kHeading) {
-        ct = cosf(n.z);
-        st = sinf(n.z);
-      }
-      const bool clear =
-          step_clear<kFootprint>(s.x, s.y, n.x, n.y, ct, st, obs, p);
-      if (alive) s = n;
-      alive &= clear;
-    }
+  for (int i = 0; i < p.num_disc; ++i) {
+    const float4 n = chain.step(sys, s, dt);
+    float ct, st;
+    chain.template pose<kFootprint>(n, ct, st);
+    const StepTest<kFootprint> t(s.x, s.y, n.x, n.y, ct, st, p);
+    bool clear = in_bounds(n.x, n.y, p);
+    for (int o = 0; o < p.K; ++o) clear &= t.clears(obs + 4 * o, p);
+    if (alive) s = n;
+    alive &= clear;
   }
   return alive;
 }
 
+// ---- B5: the culled broad phase --------------------------------------
+// Replaces _integrate_culled (cudasbmp_tpu/ops/rollout_pallas.py:143-328),
+// the cull=W body of both TPU kernels. A TPU program of 8,192 lanes can only
+// skip a box for all its lanes at once; here the unit is the warp, 32 lanes
+// that branch together. For each of W step windows (Python's
+// round(w * num_disc / W), halves to even, as the JAX body splits them):
+//   pass 1 integrates the window's steps from the lane's state at the
+//   window's start, on a copy of its chain, and takes the union box of the
+//   positions over the warp's live lanes (fminf/fmaxf through
+//   __shfl_xor_sync, exact in any order), padded by the body's reach;
+//   pass 2 is B1's one-pass loop over the window, testing at each step only
+//   the boxes that overlap that union box: a ballot over chunks of 32 boxes
+//   (one box a lane), so no list sized by K is kept.
+// A lane alive at step i has in pass 2 the position pass 1 computed (the
+// same instructions on the same values), so a skipped box is separated from
+// its swept box and its body: (x1, valid) are B1's to the bit, whatever the
+// grouping of lanes, which only decides how much is skipped. Lanes dead at
+// a window's start add nothing to its box. num_disc stays a runtime value:
+// pass 1 recomputes the window's steps instead of keeping them (twice the
+// step work, trig included, for fewer box tests). Lanes past R stay in the
+// warp with neutral boxes, so every shuffle and ballot has all 32 threads;
+// B6's problems start on block boundaries, so no warp spans two problems.
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Python's round(w * n / W) for 0 <= w <= W: the first step of window w
+__device__ __forceinline__ int window_start(int w, int n, int W) {
+  const int t = w * n, q = t / W, r2 = 2 * (t % W);
+  return q + ((r2 > W) | ((r2 == W) & (q & 1)));
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int d = 16; d; d >>= 1) v = fminf(v, __shfl_xor_sync(kFullWarp, v, d));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int d = 16; d; d >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullWarp, v, d));
+  return v;
+}
+
+template <class Sys, bool kFootprint, bool kFast>
+__device__ __forceinline__ bool integrate_culled(const Sys& sys, float4& s,
+                                                 float c0, float c1, float dur,
+                                                 const float* obs,
+                                                 const Params& p, bool active) {
+  const float dt = __fdiv_rn(dur, static_cast<float>(p.num_disc));
+  Chain<Sys, kFast> chain(sys, s, c0, c1, dt);
+  bool alive = active;
+  const int lane = threadIdx.x & 31;
+  for (int w = 0, lo = 0; w < p.windows; ++w) {
+    const int hi = window_start(w + 1, p.num_disc, p.windows);
+    // pass 1: the warp's union box of the window's positions
+    Chain<Sys, kFast> ahead = chain;
+    float4 u = s;
+    float mnx = u.x, mxx = u.x, mny = u.y, mxy = u.y;
+    for (int i = lo; i < hi; ++i) {
+      u = ahead.step(sys, u, dt);
+      mnx = fminf(mnx, u.x);
+      mxx = fmaxf(mxx, u.x);
+      mny = fminf(mny, u.y);
+      mxy = fmaxf(mxy, u.y);
+    }
+    if (!alive) {
+      mnx = mny = INFINITY;
+      mxx = mxy = -INFINITY;
+    }
+    mnx = sub(warp_min(mnx), p.pad);
+    mxx = add(warp_max(mxx), p.pad);
+    mny = sub(warp_min(mny), p.pad);
+    mxy = add(warp_max(mxy), p.pad);
+    // pass 2: B1's steps against the boxes that overlap it
+    for (int i = lo; i < hi; ++i) {
+      const float4 n = chain.step(sys, s, dt);
+      float ct, st;
+      chain.template pose<kFootprint>(n, ct, st);
+      const StepTest<kFootprint> t(s.x, s.y, n.x, n.y, ct, st, p);
+      bool clear = in_bounds(n.x, n.y, p);
+      for (int base = 0; base < p.K; base += 32) {
+        bool near = false;
+        if (base + lane < p.K) {
+          const float* o = obs + 4 * (base + lane);
+          near = !((mxx <= o[0]) | (o[2] <= mnx) | (mxy <= o[1]) | (o[3] <= mny));
+        }
+        for (unsigned m = __ballot_sync(kFullWarp, near); m; m &= m - 1)
+          clear &= t.clears(obs + 4 * (base + __ffs(m) - 1), p);
+      }
+      if (alive) s = n;
+      alive &= clear;
+    }
+    lo = hi;
+  }
+  return alive;
+}
+
+template <class Sys, bool kFootprint, bool kFast, bool kCull>
+__device__ __forceinline__ bool run(const Sys& sys, float4& s, float c0,
+                                    float c1, float dur, const float* obs,
+                                    const Params& p, bool active) {
+  if constexpr (kCull)
+    return integrate_culled<Sys, kFootprint, kFast>(sys, s, c0, c1, dur, obs,
+                                                    p, active);
+  else
+    return integrate<Sys, kFootprint, kFast>(sys, s, c0, c1, dur, obs, p);
+}
+
 // The block's problem b and this thread's lane r within it; copies the
 // problem's K boxes from device memory to the block's shared memory.
-// Returns false for a thread past the problem's last lane.
+// Returns false for a thread past the problem's last lane, which returns
+// at once unless the culled body (kCull) needs it in its warp.
 __device__ __forceinline__ bool locate(const Params& p, float* obs, int& b,
                                        int& r) {
   b = p.obstacle_stride ? blockIdx.x / p.blocks_per_problem : 0;
@@ -286,21 +433,31 @@ __device__ __forceinline__ bool locate(const Params& p, float* obs, int& b,
   return r < p.R;
 }
 
-template <class Sys, bool kFootprint, bool kFast>
+template <class Sys, bool kFootprint, bool kFast, bool kCull>
 __global__ void __launch_bounds__(kThreads)
     rollout_kernel(Sys sys, Params p, const float4* __restrict__ x0,
                    const float* __restrict__ controls,
                    float4* __restrict__ x1, uint8_t* __restrict__ valid) {
   extern __shared__ float obs[];
   int b, r;
-  if (!locate(p, obs, b, r)) return;
+  const bool active = locate(p, obs, b, r);
+  if (!kCull && !active) return;
   const int i = b * p.R + r;
-  float4 s = x0[i];
-  const float* c = controls + 3 * i;
-  const bool alive =
-      integrate<Sys, kFootprint, kFast>(sys, s, c[0], c[1], c[2], obs, p);
-  x1[i] = s;
-  valid[i] = alive;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float c0 = 0.0f, c1 = 0.0f, dur = 0.0f;
+  if (active) {
+    s = x0[i];
+    const float* c = controls + 3 * i;
+    c0 = c[0];
+    c1 = c[1];
+    dur = c[2];
+  }
+  const bool alive = run<Sys, kFootprint, kFast, kCull>(sys, s, c0, c1, dur,
+                                                        obs, p, active);
+  if (active) {
+    x1[i] = s;
+    valid[i] = alive;
+  }
 }
 
 __device__ __forceinline__ uint32_t mulhilo(uint32_t a, uint32_t b,
@@ -335,7 +492,7 @@ struct Bounds { float lo0, lo1, lo2, hi0, hi1, hi2; };
 
 // Lane r of problem b draws at counter (r, 0, 0, 0) under the key words
 // keys[key_stride * b].
-template <class Sys, bool kFootprint, bool kFast>
+template <class Sys, bool kFootprint, bool kFast, bool kCull>
 __global__ void __launch_bounds__(kThreads)
     sample_and_rollout_kernel(Sys sys, Params p, Bounds bounds,
                               const int64_t* __restrict__ keys, int key_stride,
@@ -345,7 +502,8 @@ __global__ void __launch_bounds__(kThreads)
                               uint8_t* __restrict__ valid) {
   extern __shared__ float obs[];
   int b, r;
-  if (!locate(p, obs, b, r)) return;
+  const bool active = locate(p, obs, b, r);
+  if (!kCull && !active) return;
   const int i = b * p.R + r;
   const int64_t* key = keys + static_cast<size_t>(key_stride) * b;
   const uint4 bits =
@@ -355,15 +513,20 @@ __global__ void __launch_bounds__(kThreads)
   const float c0 = draw(bits.x, bounds.lo0, bounds.hi0);
   const float c1 = draw(bits.y, bounds.lo1, bounds.hi1);
   const float dur = draw(bits.z, bounds.lo2, bounds.hi2);
-  float* c = controls + 3 * i;
-  c[0] = c0;
-  c[1] = c1;
-  c[2] = dur;
-  float4 s = x0[i];
-  const bool alive =
-      integrate<Sys, kFootprint, kFast>(sys, s, c0, c1, dur, obs, p);
-  x1[i] = s;
-  valid[i] = alive;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (active) {
+    float* c = controls + 3 * i;
+    c[0] = c0;
+    c[1] = c1;
+    c[2] = dur;
+    s = x0[i];
+  }
+  const bool alive = run<Sys, kFootprint, kFast, kCull>(sys, s, c0, c1, dur,
+                                                        obs, p, active);
+  if (active) {
+    x1[i] = s;
+    valid[i] = alive;
+  }
 }
 
 // The two kernels: rollout (B1, B6) and sample-and-rollout (B2, B6 Philox).
@@ -392,7 +555,7 @@ int allow_smem(Kernel kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <int kForm, class Sys, bool kFootprint, bool kFast>
+template <int kForm, class Sys, bool kFootprint, bool kFast, bool kCull>
 int launch(const Sys& sys, const Params& p, const Buffers& b) {
   const size_t smem = 16 * static_cast<size_t>(p.K);
   const auto x0 = static_cast<const float4*>(b.x0);
@@ -400,18 +563,25 @@ int launch(const Sys& sys, const Params& p, const Buffers& b) {
   const auto valid = static_cast<uint8_t*>(b.valid);
   int err = 0;
   if constexpr (kForm == kSample) {
-    auto kernel = sample_and_rollout_kernel<Sys, kFootprint, kFast>;
+    auto kernel = sample_and_rollout_kernel<Sys, kFootprint, kFast, kCull>;
     if ((err = allow_smem(kernel, smem))) return err;
     kernel<<<b.blocks, kThreads, smem, b.stream>>>(
         sys, p, b.bounds, static_cast<const int64_t*>(b.keys), b.key_stride,
         x0, x1, static_cast<float*>(b.controls_out), valid);
   } else {
-    auto kernel = rollout_kernel<Sys, kFootprint, kFast>;
+    auto kernel = rollout_kernel<Sys, kFootprint, kFast, kCull>;
     if ((err = allow_smem(kernel, smem))) return err;
     kernel<<<b.blocks, kThreads, smem, b.stream>>>(
         sys, p, x0, static_cast<const float*>(b.controls), x1, valid);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// B5 is its own instantiation, so the one-pass kernels stay as they were.
+template <int kForm, class Sys, bool kFootprint, bool kFast>
+int launch_cull(const Sys& sys, const Params& p, const Buffers& b) {
+  if (p.windows) return launch<kForm, Sys, kFootprint, kFast, true>(sys, p, b);
+  return launch<kForm, Sys, kFootprint, kFast, false>(sys, p, b);
 }
 
 // Fast math on a system without the hooks is the exact path, as in the JAX
@@ -422,14 +592,14 @@ int launch_flags(const Sys& sys, int flags, const Params& p,
   const bool fast = Sys::kFast && (flags & kFlagFast);
   if (flags & kFlagFootprint) {
     if constexpr (Sys::kFast) {
-      if (fast) return launch<kForm, Sys, true, true>(sys, p, b);
+      if (fast) return launch_cull<kForm, Sys, true, true>(sys, p, b);
     }
-    return launch<kForm, Sys, true, false>(sys, p, b);
+    return launch_cull<kForm, Sys, true, false>(sys, p, b);
   }
   if constexpr (Sys::kFast) {
-    if (fast) return launch<kForm, Sys, false, true>(sys, p, b);
+    if (fast) return launch_cull<kForm, Sys, false, true>(sys, p, b);
   }
-  return launch<kForm, Sys, false, false>(sys, p, b);
+  return launch_cull<kForm, Sys, false, false>(sys, p, b);
 }
 
 template <int kForm>
@@ -457,10 +627,11 @@ int max_obstacles(int device) {
 // blocks: nothing to launch). Returns 0 or a cudaError_t.
 int prepare(int device, int flags, const void* obstacles, int K,
             int per_problem, int P, int R, int num_disc, float width,
-            float height, float hl, float hw, Params* p, Buffers* b) {
+            float height, float hl, float hw, int windows, float pad,
+            Params* p, Buffers* b) {
   const cudaError_t invalid = cudaErrorInvalidValue;
   if (P < 0 || R < 0 || K < 0 || num_disc < 1 || (flags & ~3) ||
-      (per_problem & ~1))
+      (per_problem & ~1) || windows < 0 || windows > num_disc)
     return static_cast<int>(invalid);
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -470,7 +641,7 @@ int prepare(int device, int flags, const void* obstacles, int K,
   b->blocks = P * per;
   *p = Params{static_cast<const float*>(obstacles),
               per_problem ? 4 * static_cast<size_t>(K) : 0, K, R, num_disc,
-              per > 0 ? per : 1, width, height, hl, hw};
+              per > 0 ? per : 1, width, height, hl, hw, windows, pad};
   return 0;
 }
 
@@ -483,8 +654,10 @@ int prepare(int device, int flags, const void* obstacles, int K,
 // obstacles f32 [P, K, 4] and keys int64 [P, 2] (per_problem 1: B6).
 // `system` is a SystemId, `param` the bicycle's wheelbase L (unused by the
 // other systems), `flags` ORs 1 = footprint (half extents hl, hw) and 2 =
-// fast math. Each launches on `stream` without synchronising and returns
-// 0 or a cudaError_t.
+// fast math; `windows` > 0 runs the culled broad phase B5 with that many
+// step windows (at most num_disc) and the union boxes padded by `pad`.
+// Each launches on `stream` without synchronising and returns 0 or a
+// cudaError_t.
 
 extern "C" int cudasbmp_max_obstacles(int device) {
   return max_obstacles(device);
@@ -496,11 +669,12 @@ extern "C" int cudasbmp_rollout(int device, int system, int flags,
                                 void* x1, void* valid, int P, int R,
                                 int num_disc, float width, float height,
                                 float param, float hl, float hw,
-                                void* stream) {
+                                int windows, float pad, void* stream) {
   Params p;
   Buffers b{};
   const int err = prepare(device, flags, obstacles, K, per_problem, P, R,
-                          num_disc, width, height, hl, hw, &p, &b);
+                          num_disc, width, height, hl, hw, windows, pad, &p,
+                          &b);
   if (err || b.blocks == 0) return err;
   b.x0 = x0;
   b.controls = controls;
@@ -514,12 +688,13 @@ extern "C" int cudasbmp_sample_and_rollout(
     int device, int system, int flags, const void* keys, const void* x0,
     const void* obstacles, int K, int per_problem, void* x1, void* controls,
     void* valid, int P, int R, int num_disc, float width, float height,
-    float param, float hl, float hw, float lo0, float lo1, float lo2,
-    float hi0, float hi1, float hi2, void* stream) {
+    float param, float hl, float hw, int windows, float pad, float lo0,
+    float lo1, float lo2, float hi0, float hi1, float hi2, void* stream) {
   Params p;
   Buffers b{};
   const int err = prepare(device, flags, obstacles, K, per_problem, P, R,
-                          num_disc, width, height, hl, hw, &p, &b);
+                          num_disc, width, height, hl, hw, windows, pad, &p,
+                          &b);
   if (err || b.blocks == 0) return err;
   b.x0 = x0;
   b.x1 = x1;

@@ -1,3 +1,3 @@
-from cudasbmp_torch.ops.rollout import rollout_batch
+from cudasbmp_torch.ops.rollout import rollout_batch, rollout_unchecked
 
-__all__ = ["rollout_batch"]
+__all__ = ["rollout_batch", "rollout_unchecked"]

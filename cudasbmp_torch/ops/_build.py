@@ -3,7 +3,8 @@
 ``csrc/*.cu`` compile at first use into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), under
 ``cudasbmp_torch/_build/``, which git ignores, with the compiler's output
-beside it (``.log``). The library's file name
+beside it (``.log``). Each source compiles in its own ``nvcc``, all started
+together, and one more links the objects. The library's file name
 carries a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded as it is.
 
@@ -31,12 +32,9 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("rollout.cu",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCES = ("rollout.cu", "chains.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,15 +43,22 @@ SIGNATURES = {
     # device
     "cudasbmp_max_obstacles": (_I,),
     # device, system, flags, x0, controls, obstacles, K, per_problem, x1,
-    # valid, P, R, num_disc, width, height, param, hl, hw, stream
+    # valid, P, R, num_disc, width, height, param, hl, hw, windows, pad,
+    # stream
     "cudasbmp_rollout": (_I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _P),
+                         _F, _F, _F, _F, _F, _I, _F, _P),
     # device, system, flags, keys, x0, obstacles, K, per_problem, x1,
-    # controls, valid, P, R, num_disc, width, height, param, hl, hw, lo0,
-    # lo1, lo2, hi0, hi1, hi2, stream
+    # controls, valid, P, R, num_disc, width, height, param, hl, hw,
+    # windows, pad, lo0, lo1, lo2, hi0, hi1, hi2, stream
     "cudasbmp_sample_and_rollout": (_I, _I, _I, _P, _P, _P, _I, _I, _P, _P,
-                                    _P, _I, _I, _I, _F, _F, _F, _F, _F, _F,
-                                    _F, _F, _F, _F, _F, _P),
+                                    _P, _I, _I, _I, _F, _F, _F, _F, _F, _I,
+                                    _F, _F, _F, _F, _F, _F, _F, _P),
+    # device, x, y, n, program, chain, stream
+    "cudasbmp_alu_chain": (_I, _P, _P, _I, _I, _I, _P),
+    # device, op, x, y, n, program, chain, stream
+    "cudasbmp_trans_chain": (_I, _I, _P, _P, _I, _I, _I, _P),
+    # device, tbl, rows, idx, y, n_rows, chain, stream
+    "cudasbmp_gather_chain": (_I, _P, _I, _P, _P, _I, _I, _P),
 }
 
 
@@ -74,6 +79,18 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcudasbmp_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; their joined output, or raise with
+    the first failure's."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> tuple[Path, float, str]:
     """Compile the sources unless this exact build exists. Returns (library
     path, build seconds (0.0 when cached), compiler output, which is kept
@@ -84,20 +101,17 @@ def build() -> tuple[Path, float, str]:
         return target, 0.0, log.read_text() if log.exists() else ""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC_DIR / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{Path(s).stem}.o") for s in SOURCES]
+        out = _run([[nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / s), "-o", o]
+                    for s, o in zip(SOURCES, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        out += _run([[nvcc, *ARCH, "-shared", "-o", lib, *objs]])
+        os.replace(lib, target)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, target)
-    return target, seconds, proc.stdout + proc.stderr
+    log.write_text(out)
+    return target, seconds, out
 
 
 @functools.cache

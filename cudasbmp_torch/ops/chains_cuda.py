@@ -1,0 +1,140 @@
+"""Wrappers of the calibration chains (csrc/chains.cu), which replace the TPU
+probes of tools/roofline.py and tools/r3_probe1.py, and their plain twins:
+
+- ``alu_chain_cuda`` (P1a, ``_alu_kernel``): y <- y*m + x, ``chain`` times,
+  one FMA a link, with m = x0*1e-9 + 0.999931 and x0 the first element of
+  the element's program (``program_rows`` rows of x; 256 on the TPU);
+- ``trans_chain_cuda`` (P1b, ``_trans_kernel``): y <- op(y) + eps for op in
+  ``TRANS_OPS``, with eps = x0*1e-12 per program;
+- ``gather_chain_cuda`` (P2, ``_gather_kernel``): y <- y + tbl[(idx + i) %
+  rows, lane] for i < chain from y = 0, tbl [rows, 128], idx int32 [N, 128].
+
+``alu_chain_torch``, ``trans_chain_torch`` and ``gather_chain_torch`` are
+their plain twins. The ALU twin rounds the multiply and the add apart (the
+kernel fuses them, as jitted XLA does), so the two agree within rounding;
+the gather twin adds in the kernel's order, to the bit. One rule for every
+wrapper: tensors on the CPU go through the plain twin; CUDA tensors launch
+the kernel or raise. Each wrapper counts its launches in
+``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cudasbmp_torch.ops import _build
+from cudasbmp_torch.ops.rollout_cuda import _check, _device_of, _index, _raise_on
+
+TRANS_OPS = {"cos": 0, "sin": 1, "tan": 2}
+LANES = 128  # the gather table's width (the TPU's lane axis)
+
+
+def _per_program(x: torch.Tensor, program_rows: int, scale: float) -> torch.Tensor:
+    """x0 * scale for each row: x0 the first element of the row's program."""
+    return (x[::program_rows, :1] * scale).repeat_interleave(program_rows, 0)
+
+
+def alu_chain_torch(x: torch.Tensor, chain: int, program_rows: int = 256
+                    ) -> torch.Tensor:
+    m = _per_program(x, program_rows, 1e-9) + 0.999931
+    y = x
+    for _ in range(chain):
+        y = y * m + x
+    return y
+
+
+def trans_chain_torch(x: torch.Tensor, chain: int, op: str,
+                      program_rows: int = 256) -> torch.Tensor:
+    fn = {"cos": torch.cos, "sin": torch.sin, "tan": torch.tan}[op]
+    eps = _per_program(x, program_rows, 1e-12)
+    y = x
+    for _ in range(chain):
+        y = fn(y) + eps
+    return y
+
+
+def gather_chain_torch(tbl: torch.Tensor, idx: torch.Tensor, chain: int
+                       ) -> torch.Tensor:
+    rows = tbl.shape[0]
+    y = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
+    for i in range(chain):
+        y = y + torch.gather(tbl, 0, (idx + i) % rows)
+    return y
+
+
+def _chain_args(x: torch.Tensor, chain: int, program_rows: int
+                ) -> tuple[int | None, int]:
+    """Check a P1 input; return (CUDA device index, or None on the CPU,
+    elements of a program)."""
+    if x.dim() != 2 or program_rows < 1 or x.shape[0] % program_rows or chain < 0:
+        raise ValueError(f"x: expected [programs * {program_rows}, lanes], got "
+                         f"{tuple(x.shape)} (chain {chain})")
+    _check("x", x, tuple(x.shape), torch.float32)
+    if _device_of(x).type == "cpu":
+        return None, program_rows * x.shape[1]
+    return _index(x.device), program_rows * x.shape[1]
+
+
+def alu_chain_cuda(x: torch.Tensor, chain: int, program_rows: int = 256
+                   ) -> torch.Tensor:
+    """Kernel P1a on x f32 [programs * program_rows, lanes]."""
+    dev, program = _chain_args(x, chain, program_rows)
+    if dev is None:
+        return alu_chain_torch(x, chain, program_rows)
+    y = torch.empty_like(x)
+    rc = _build.load().cudasbmp_alu_chain(
+        dev, x.data_ptr(), y.data_ptr(), x.numel(), program, chain,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "alu_chain_kernel")
+    alu_chain_cuda.launches += 1
+    return y
+
+
+def trans_chain_cuda(x: torch.Tensor, chain: int, op: str,
+                     program_rows: int = 256) -> torch.Tensor:
+    """Kernel P1b with op ``cos``, ``sin`` or ``tan`` (the accurate CUDA
+    functions) on x f32 [programs * program_rows, lanes]."""
+    if op not in TRANS_OPS:
+        raise ValueError(f"op {op!r}: expected one of {sorted(TRANS_OPS)}")
+    dev, program = _chain_args(x, chain, program_rows)
+    if dev is None:
+        return trans_chain_torch(x, chain, op, program_rows)
+    y = torch.empty_like(x)
+    rc = _build.load().cudasbmp_trans_chain(
+        dev, TRANS_OPS[op], x.data_ptr(), y.data_ptr(), x.numel(), program, chain,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "trans_chain_kernel")
+    trans_chain_cuda.launches += 1
+    return y
+
+
+def gather_chain_cuda(tbl: torch.Tensor, idx: torch.Tensor, chain: int
+                      ) -> torch.Tensor:
+    """Kernel P2: tbl f32 [rows, 128], idx int32 [N, 128] -> y f32 [N, 128].
+    A block keeps 32 columns of every row in shared memory, so rows are
+    limited to what one block holds (1,816 on an H100)."""
+    if _device_of(tbl, idx).type == "cpu":
+        return gather_chain_torch(tbl, idx, chain)
+    rows = tbl.shape[0] if tbl.dim() == 2 else 0
+    _check("tbl", tbl, (rows, LANES), torch.float32)
+    _check("idx", idx, (idx.shape[0] if idx.dim() == 2 else 0, LANES), torch.int32)
+    if rows < 1 or chain < 0:
+        raise ValueError(f"tbl: {rows} rows, chain {chain}")
+    y = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+    rc = _build.load().cudasbmp_gather_chain(
+        _index(idx.device), tbl.data_ptr(), rows, idx.data_ptr(), y.data_ptr(),
+        idx.shape[0], chain, torch.cuda.current_stream(idx.device).cuda_stream)
+    _raise_on(rc, "gather_chain_kernel")
+    gather_chain_cuda.launches += 1
+    return y
+
+
+WRAPPERS = (alu_chain_cuda, trans_chain_cuda, gather_chain_cuda)
+
+
+def reset_launch_counts() -> None:
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+
+
+reset_launch_counts()

@@ -1,6 +1,7 @@
 """Batched propagate-and-check in plain PyTorch: the plain version of the
 rollout kernel's exact path (counterpart of
-cudasbmp_tpu/ops/rollout.py::rollout_batch).
+cudasbmp_tpu/ops/rollout.py::rollout_batch), and the unchecked propagation
+of the probe planners (``rollout_unchecked``).
 
 B rollouts advance in lockstep for ``num_disc`` Euler steps with an
 ``alive`` mask in place of the reference's ``break``: a rollout freezes at
@@ -50,3 +51,17 @@ def rollout_batch(system, x0: torch.Tensor, controls: torch.Tensor,
         state = torch.where(alive[..., None], cand, state)
         alive = alive & step_ok
     return state, alive
+
+
+def rollout_unchecked(system, x0: torch.Tensor, controls: torch.Tensor,
+                      num_disc: int) -> torch.Tensor:
+    """Propagation with no bounds or collision test, the probe planners'
+    path (counterpart of cudasbmp_tpu/ops/rollout.py::rollout_unchecked):
+    x0 [B, state_dim], controls [B, control_dim] (duration last) -> x1.
+    ``dt`` is a true division, as in ``rollout_batch``."""
+    ctrl = controls[..., :-1]
+    dt = div(controls[..., -1], num_disc)
+    state = x0
+    for _ in range(num_disc):
+        state = system.step(state, ctrl, dt)
+    return state

@@ -14,27 +14,37 @@ TPU kernels of cudasbmp_tpu/ops/rollout_pallas.py, and their plain twins:
   (parallel/batch_kgmt.py:200-211, 226-230): lanes [B, R], obstacles
   [B, K, 4], and for the Philox form keys [B, 2];
 - all take the footprint narrow phase (B3) and fast math (B4) as options,
-  for every system of the registry;
+  for every system of the registry, and ``cull=W``, the culled broad phase
+  (kernel B5, ``_integrate_culled``, rollout_pallas.py:143-328): the same
+  (x1, valid) to the bit, with each warp of 32 lanes testing at each step
+  only the boxes near its union box of the step's window. It pays where
+  neighbouring lanes are near each other (grouped lanes) on dense fields;
+- ``rollout_bicycle_cuda`` and ``sample_and_rollout_bicycle_cuda`` are the
+  bicycle entry points of the JAX module (rollout_pallas.py:445-458,
+  608-632);
 - ``rollout_soa`` is their plain PyTorch twin: the JAX kernel body
   ``_integrate`` (rollout_pallas.py:66-140) on per-component tensors,
   through the systems' SoA hooks, over lanes [B] or [B, R] (with obstacles
   [B, K, 4] for one set per problem). Without fast math it rounds exactly
   as ``rollout_batch`` does. ``sample_and_rollout_torch`` draws the same
-  Philox controls first.
+  Philox controls first. ``rollout_culled_soa`` is B5's twin: the JAX body
+  ``_integrate_culled`` operator by operator over groups of lanes.
 
 One rule for every wrapper: tensors on the CPU go through the plain twin;
 CUDA tensors launch the kernel or raise. Nothing falls back from the card
 to the CPU or from the kernel to the plain version.
 
-Each wrapper counts its launches in ``<wrapper>.launches``, and per
+Each wrapper counts its launches in ``<wrapper>.launches``, per
 instantiation in ``<wrapper>.instantiations[(system name, footprint,
 fast)]`` (fast: the fast-math body ran, i.e. fast math on a system with the
-hooks), both incremented only where the kernel is launched.
+hooks), and the culled ones (B5) also in ``<wrapper>.culled``, all
+incremented only where the kernel is launched.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 
 import torch
@@ -44,6 +54,7 @@ from cudasbmp_torch._math import div
 from cudasbmp_torch.geometry.aabb import segment_aabb, segment_clear
 from cudasbmp_torch.geometry.footprint import footprint_clear_cs
 from cudasbmp_torch.ops import _build
+from cudasbmp_torch.systems.base import ControlSpec
 from cudasbmp_torch.systems.bicycle import KinematicBicycle
 from cudasbmp_torch.systems.double_integrator import DoubleIntegrator2D
 from cudasbmp_torch.systems.dubins import DubinsCar
@@ -54,6 +65,31 @@ from cudasbmp_torch.systems.unicycle import Unicycle
 SYSTEM_IDS = {KinematicBicycle: 0, Point2D: 1, DoubleIntegrator2D: 2,
               Unicycle: 3, DubinsCar: 4}
 FLAG_FOOTPRINT, FLAG_FAST = 1, 2
+WARP = 32  # the lanes B5 culls for together
+
+
+def cull_windows(cull: bool | int | None, num_disc: int) -> int:
+    """The step windows of ``cull`` (rollout_pallas.py:390, 408): None,
+    False or 0 is off (0); True or 1 one whole-trajectory box; W >= 2 that
+    many windows, at most one a step."""
+    return max(1, min(int(cull), num_disc)) if cull else 0
+
+
+def window_bounds(windows: int, num_disc: int) -> list[int]:
+    """The first step of each window and the end: Python's round (halves to
+    even) of w * num_disc / W, as _integrate_culled splits the steps; the
+    kernel computes the same integers."""
+    return [round(w * num_disc / windows) for w in range(windows + 1)]
+
+
+def footprint_pad(footprint: tuple[float, float] | None) -> float:
+    """How far the body reaches from its reference point in any direction,
+    hl + hypot(hl, hw), in double as the JAX body computes it; 0 without a
+    footprint."""
+    if footprint is None:
+        return 0.0
+    hl, hw = footprint
+    return hl + float((hl * hl + hw * hw) ** 0.5)
 
 
 def supports_system(system) -> bool:
@@ -112,6 +148,153 @@ def rollout_soa(system, x0: torch.Tensor, controls: torch.Tensor,
             carry = new_carry  # dead lanes keep rotating; their state is frozen
         alive = alive & clear
     return torch.stack(comps, -1), alive
+
+
+def _group_reduce(v: torch.Tensor, group: int, op: str) -> torch.Tensor:
+    """The min or max of ``v`` over consecutive groups of ``group`` lanes
+    along the last axis (the last group may be short), broadcast back to
+    every lane of the group."""
+    n = v.shape[-1]
+    fill = float("inf") if op == "min" else float("-inf")
+    g = torch.nn.functional.pad(v, (0, -n % group), value=fill)
+    g = g.unflatten(-1, (-1, group))
+    g = g.amin(-1) if op == "min" else g.amax(-1)
+    return g.repeat_interleave(group, -1)[..., :n]
+
+
+def rollout_culled_soa(system, x0: torch.Tensor, controls: torch.Tensor,
+                       obstacles: torch.Tensor, *, cull: bool | int, group: int,
+                       num_disc: int, width: float, height: float,
+                       footprint: tuple[float, float] | None = None,
+                       fast_math: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of kernel B5: ``_integrate_culled`` (rollout_pallas.py:
+    143-328) operator by operator, with each consecutive ``group`` of lanes
+    along the last axis in the place of a TPU program (the kernel's warp:
+    ``WARP``). Pass 1 runs the unconditional chain and folds the workspace
+    bounds into the first failing step; each group takes its union boxes
+    (the whole trajectory and ``cull_windows(cull)`` windows, padded by
+    ``footprint_pad``); pass 2 tests box k at the steps of a window only
+    where the group's boxes overlap it (masks in the place of ``lax.cond``);
+    then the first-failure freeze is rebuilt. Lanes [B] or [B, R] as
+    ``rollout_soa``, with obstacles [K, 4] or [B, K, 4]; the result is
+    ``rollout_soa``'s to the bit, whatever ``group``."""
+    if not supports_system(system):
+        raise NotImplementedError(f"system {system.name!r} has no SoA hooks")
+    W = cull_windows(cull, num_disc)
+    if W == 0:
+        raise ValueError("rollout_culled_soa needs cull >= 1")
+    boxes = obstacles.unbind(-2)  # K x [4] or K x [B, 4]
+    if obstacles.dim() == 3:  # one set per problem: box k is [B, 1] per side
+        boxes = [b[:, None] for b in boxes]
+    comps = list(x0.unbind(-1))
+    ctrl = list(controls[..., :-1].unbind(-1))
+    dt = div(controls[..., -1], num_disc)
+    use_fast = fast_math and hasattr(system, "soa_step_fast")
+    if use_fast:
+        carry, aux = system.soa_prepare_fast(comps, ctrl, dt)
+    else:
+        aux = system.soa_prepare(ctrl)
+    heading_index = getattr(system, "heading_index", None)
+    # pass 1: the unconditional chain
+    positions, bboxes, poses = [], [], []
+    cur = comps
+    for i in range(num_disc):
+        if use_fast:
+            new, carry = system.soa_step_fast(cur, carry, aux, dt)
+        else:
+            new = system.soa_step(cur, aux, dt)
+        nx, ny, x, y = new[0], new[1], cur[0], cur[1]
+        bboxes.append((torch.minimum(x, nx), torch.maximum(x, nx),
+                       torch.minimum(y, ny), torch.maximum(y, ny)))
+        if footprint is not None:
+            if use_fast and heading_index is not None:
+                poses.append((carry[0], carry[1]))
+            elif heading_index is not None:
+                poses.append((torch.cos(new[heading_index]),
+                              torch.sin(new[heading_index])))
+            else:
+                poses.append((torch.ones_like(nx), torch.zeros_like(nx)))
+        positions.append(new)
+        oob = ~((nx > 0.0) & (nx < width) & (ny > 0.0) & (ny < height))
+        fi = torch.where(oob, i, num_disc).to(torch.int32)
+        fail = fi if i == 0 else torch.minimum(fail, fi)
+        cur = new
+
+    # the groups' union boxes: whole trajectory and per window
+    def chain(op, vals):
+        acc = vals[0]
+        for v in vals[1:]:
+            acc = op(acc, v)
+        return acc
+
+    pad = footprint_pad(footprint)
+
+    def union_box(step_boxes):
+        return (_group_reduce(chain(torch.minimum, [b[0] for b in step_boxes]),
+                              group, "min") - pad,
+                _group_reduce(chain(torch.maximum, [b[1] for b in step_boxes]),
+                              group, "max") + pad,
+                _group_reduce(chain(torch.minimum, [b[2] for b in step_boxes]),
+                              group, "min") - pad,
+                _group_reduce(chain(torch.maximum, [b[3] for b in step_boxes]),
+                              group, "max") + pad)
+
+    bounds = window_bounds(W, num_disc)
+    windows = [range(bounds[w], bounds[w + 1]) for w in range(W)
+               if bounds[w] < bounds[w + 1]]
+    win_boxes = [union_box([bboxes[i] for i in win]) for win in windows]
+    whole = tuple(chain(torch.minimum if j % 2 == 0 else torch.maximum,
+                        [b[j] for b in win_boxes]) for j in range(4))
+
+    def step_hit(i, oxmin, oymin, oxmax, oymax):
+        bmnx, bmxx, bmny, bmxy = bboxes[i]
+        hit = ~((bmxx <= oxmin) | (oxmax <= bmnx)
+                | (bmxy <= oymin) | (oymax <= bmny))
+        if footprint is not None:
+            hl, hw = footprint
+            ct, st = poses[i]
+            nx, ny = positions[i][0], positions[i][1]
+            bcx = (oxmin + oxmax) * 0.5
+            bcy = (oymin + oymax) * 0.5
+            bhx = (oxmax - oxmin) * 0.5
+            bhy = (oymax - oymin) * 0.5
+            valid_box = (bhx >= 0) & (bhy >= 0)
+            fcx = nx + hl * ct
+            fcy = ny + hl * st
+            act, ast = torch.abs(ct), torch.abs(st)
+            dx = fcx - bcx
+            dy = fcy - bcy
+            sep_x = torch.abs(dx) >= bhx + hl * act + hw * ast
+            sep_y = torch.abs(dy) >= bhy + hl * ast + hw * act
+            sep_u = torch.abs(dx * ct + dy * st) >= hl + bhx * act + bhy * ast
+            sep_v = torch.abs(dy * ct - dx * st) >= hw + bhx * ast + bhy * act
+            hit = hit | (valid_box & ~(sep_x | sep_y | sep_u | sep_v))
+        return hit
+
+    def overlaps(box, oxmin, oymin, oxmax, oymax):
+        mnx, mxx, mny, mxy = box
+        return ~((mxx <= oxmin) | (oxmax <= mnx) | (mxy <= oymin) | (oymax <= mny))
+
+    # pass 2: each box's exact tests where the group's boxes overlap it
+    for box in boxes:
+        o = box.unbind(-1)
+        f = fail
+        for win, wbox in zip(windows, win_boxes):
+            tested = f
+            for i in win:
+                tested = torch.minimum(
+                    tested, torch.where(step_hit(i, *o), i, num_disc).to(torch.int32))
+            f = torch.where(overlaps(wbox, *o), tested, f)
+        fail = torch.where(overlaps(whole, *o), f, fail)
+
+    # the first-failure freeze: the candidate of step min(fail, num_disc - 1)
+    alive = fail >= num_disc
+    take = torch.clamp(fail, max=num_disc - 1)
+    out = positions[0]
+    for i in range(1, num_disc):
+        sel = take >= i
+        out = [torch.where(sel, n, o) for n, o in zip(positions[i], out)]
+    return torch.stack(out, -1), alive
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:
@@ -178,10 +361,11 @@ def _kernel_args(system, x0: torch.Tensor, obstacles: torch.Tensor,
     return dev, sid, flags, P, R, K, param, hl, hw
 
 
-def _count(wrapper, system, flags: int) -> None:
+def _count(wrapper, system, flags: int, windows: int) -> None:
     """One launch of ``wrapper``'s kernel, in the instantiation
-    (system name, footprint, fast) it ran."""
+    (system name, footprint, fast) it ran, culled (B5) or not."""
     wrapper.launches += 1
+    wrapper.culled += bool(windows)
     wrapper.instantiations[(system.name, bool(flags & FLAG_FOOTPRINT),
                             bool(flags & FLAG_FAST)
                             and hasattr(system, "soa_step_fast"))] += 1
@@ -192,12 +376,21 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
+def _plain_rollout(system, x0, controls, obstacles, *, cull, **kw):
+    """The plain twin of the kernel the wrapper would launch: B5's with
+    ``cull``, over warps of lanes, else B1's."""
+    if cull_windows(cull, kw["num_disc"]):
+        return rollout_culled_soa(system, x0, controls, obstacles, cull=cull,
+                                  group=WARP, **kw)
+    return rollout_soa(system, x0, controls, obstacles, **kw)
+
+
 def _rollout(wrapper, system, x0: torch.Tensor, controls: torch.Tensor,
              obstacles: torch.Tensor, per_problem: bool, *, num_disc: int,
-             width: float, height: float, footprint, fast_math: bool
+             width: float, height: float, footprint, fast_math: bool, cull
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """``rollout_kernel`` on the card for ``wrapper`` (B1, or B6 with
-    ``per_problem``), or the plain twin on the CPU."""
+    ``per_problem``; B5 with ``cull``), or the plain twin on the CPU."""
     kw = dict(num_disc=num_disc, width=width, height=height,
               footprint=footprint, fast_math=fast_math)
     device = _device_of(x0, controls, obstacles)
@@ -205,7 +398,7 @@ def _rollout(wrapper, system, x0: torch.Tensor, controls: torch.Tensor,
         if obstacles.dim() != 2 + per_problem:
             raise ValueError(f"obstacles: expected {'[B, K' if per_problem else '[K'},"
                              f" 4], got {tuple(obstacles.shape)}")
-        return rollout_soa(system, x0, controls, obstacles, **kw)
+        return _plain_rollout(system, x0, controls, obstacles, cull=cull, **kw)
     dev, sid, flags, P, R, K, param, hl, hw = _kernel_args(
         system, x0, obstacles, footprint, fast_math, per_problem)
     _check("controls", controls, (*x0.shape[:-1], system.control_spec.dim),
@@ -214,25 +407,27 @@ def _rollout(wrapper, system, x0: torch.Tensor, controls: torch.Tensor,
     valid = torch.empty(x0.shape[:-1], dtype=torch.bool, device=device)
     if P * R == 0:
         return x1, valid
+    windows = cull_windows(cull, num_disc)
     rc = _build.load().cudasbmp_rollout(
         dev, sid, flags, x0.data_ptr(), controls.data_ptr(),
         obstacles.data_ptr(), K, int(per_problem), x1.data_ptr(),
         valid.data_ptr(), P, R, num_disc, width, height, param, hl, hw,
+        windows, footprint_pad(footprint) if windows else 0.0,
         torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, "rollout_kernel")
-    _count(wrapper, system, flags)
+    _count(wrapper, system, flags, windows)
     return x1, valid
 
 
 def _sample_and_rollout(wrapper, system, keys: torch.Tensor, x0: torch.Tensor,
                         obstacles: torch.Tensor, per_problem: bool, *,
                         num_disc: int, width: float, height: float, footprint,
-                        fast_math: bool
+                        fast_math: bool, cull
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``sample_and_rollout_kernel`` on the card for ``wrapper`` (B2, or B6
-    with ``per_problem``), or the plain twin on the CPU."""
+    with ``per_problem``; B5 with ``cull``), or the plain twin on the CPU."""
     kw = dict(num_disc=num_disc, width=width, height=height,
-              footprint=footprint, fast_math=fast_math)
+              footprint=footprint, fast_math=fast_math, cull=cull)
     device = _device_of(keys, x0, obstacles)
     if device.type == "cpu":
         if keys.dim() != 1 + per_problem or obstacles.dim() != 2 + per_problem:
@@ -250,61 +445,66 @@ def _sample_and_rollout(wrapper, system, keys: torch.Tensor, x0: torch.Tensor,
     valid = torch.empty(x0.shape[:-1], dtype=torch.bool, device=device)
     if P * R == 0:
         return x1, controls, valid
+    windows = cull_windows(cull, num_disc)
     rc = _build.load().cudasbmp_sample_and_rollout(
         dev, sid, flags, keys.data_ptr(), x0.data_ptr(), obstacles.data_ptr(),
         K, int(per_problem), x1.data_ptr(), controls.data_ptr(),
         valid.data_ptr(), P, R, num_disc, width, height, param, hl, hw,
+        windows, footprint_pad(footprint) if windows else 0.0,
         *spec.lo, *spec.hi, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, "sample_and_rollout_kernel")
-    _count(wrapper, system, flags)
+    _count(wrapper, system, flags, windows)
     return x1, controls, valid
 
 
 def rollout_cuda(system, x0: torch.Tensor, controls: torch.Tensor,
                  obstacles: torch.Tensor, *, num_disc: int, width: float,
                  height: float, footprint: tuple[float, float] | None = None,
-                 fast_math: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B1 (with B3/B4 as options): (x1 [B, 4], valid bool [B]) for
-    x0 [B, 4], controls [B, 3] (duration last), obstacles [K, 4]; the
-    contract of ``rollout_soa``."""
+                 fast_math: bool = False, cull: bool | int | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B1 (with B3/B4 as options, and B5 with ``cull``): (x1 [B, 4],
+    valid bool [B]) for x0 [B, 4], controls [B, 3] (duration last),
+    obstacles [K, 4]; the contract of ``rollout_soa``."""
     return _rollout(rollout_cuda, system, x0, controls, obstacles, False,
                     num_disc=num_disc, width=width, height=height,
-                    footprint=footprint, fast_math=fast_math)
+                    footprint=footprint, fast_math=fast_math, cull=cull)
 
 
 def rollout_batched_cuda(system, x0: torch.Tensor, controls: torch.Tensor,
                          obstacles: torch.Tensor, *, num_disc: int,
                          width: float, height: float,
                          footprint: tuple[float, float] | None = None,
-                         fast_math: bool = False
+                         fast_math: bool = False, cull: bool | int | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B6: B problems of R lanes each, problem b against its own
     obstacles[b]. x0 [B, R, 4], controls [B, R, 3] (duration last),
     obstacles [B, K, 4] -> (x1 [B, R, 4], valid bool [B, R]); the contract
-    of ``rollout_soa``."""
+    of ``rollout_soa`` (B5's with ``cull``, warps within each problem)."""
     return _rollout(rollout_batched_cuda, system, x0, controls, obstacles, True,
                     num_disc=num_disc, width=width, height=height,
-                    footprint=footprint, fast_math=fast_math)
+                    footprint=footprint, fast_math=fast_math, cull=cull)
 
 
 def sample_and_rollout_torch(system, key: torch.Tensor, x0: torch.Tensor,
                              obstacles: torch.Tensor, *, num_disc: int,
                              width: float, height: float,
                              footprint: tuple[float, float] | None = None,
-                             fast_math: bool = False
+                             fast_math: bool = False,
+                             cull: bool | int | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of kernel B2, and of B6's Philox form for keys [B, 2] over
     lanes [B, R] and obstacles [B, K, 4]: lane r of each problem draws from
-    the counter (r, 0, 0, 0) under its problem's key, then ``rollout_soa``.
-    Returns (x1, controls, valid)."""
+    the counter (r, 0, 0, 0) under its problem's key, then ``rollout_soa``
+    (``rollout_culled_soa`` over warps with ``cull``). Returns (x1,
+    controls, valid)."""
     spec = system.control_spec
     lo = torch.tensor(spec.lo, dtype=torch.float32, device=x0.device)
     hi = torch.tensor(spec.hi, dtype=torch.float32, device=x0.device)
     u = rng.philox_uniform_lanes(key, x0.shape[-2], spec.dim)
     controls = lo + u * (hi - lo)
-    x1, valid = rollout_soa(system, x0, controls, obstacles, num_disc=num_disc,
-                            width=width, height=height, footprint=footprint,
-                            fast_math=fast_math)
+    x1, valid = _plain_rollout(system, x0, controls, obstacles, num_disc=num_disc,
+                               width=width, height=height, footprint=footprint,
+                               fast_math=fast_math, cull=cull)
     return x1, controls, valid
 
 
@@ -312,22 +512,25 @@ def sample_and_rollout_cuda(system, key: torch.Tensor, x0: torch.Tensor,
                             obstacles: torch.Tensor, *, num_disc: int,
                             width: float, height: float,
                             footprint: tuple[float, float] | None = None,
-                            fast_math: bool = False
+                            fast_math: bool = False,
+                            cull: bool | int | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel B2: draw each lane's controls from Philox-4x32-10 under the
     threefry key data ``key`` (int64 [2]) at counter (lane, 0, 0, 0), then
-    roll out as B1. Returns (x1 [B, 4], controls [B, 3], valid bool [B])."""
+    roll out as B1 (B5 with ``cull``). Returns (x1 [B, 4], controls [B, 3],
+    valid bool [B])."""
     return _sample_and_rollout(sample_and_rollout_cuda, system, key, x0,
                                obstacles, False, num_disc=num_disc, width=width,
                                height=height, footprint=footprint,
-                               fast_math=fast_math)
+                               fast_math=fast_math, cull=cull)
 
 
 def sample_and_rollout_batched_cuda(system, keys: torch.Tensor, x0: torch.Tensor,
                                     obstacles: torch.Tensor, *, num_disc: int,
                                     width: float, height: float,
                                     footprint: tuple[float, float] | None = None,
-                                    fast_math: bool = False
+                                    fast_math: bool = False,
+                                    cull: bool | int | None = None
                                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel B6, Philox form: problem b's lane r draws its controls from
     Philox-4x32-10 under the key words keys[b] (int64 [B, 2]) at counter
@@ -337,17 +540,53 @@ def sample_and_rollout_batched_cuda(system, keys: torch.Tensor, x0: torch.Tensor
     return _sample_and_rollout(sample_and_rollout_batched_cuda, system, keys, x0,
                                obstacles, True, num_disc=num_disc, width=width,
                                height=height, footprint=footprint,
-                               fast_math=fast_math)
+                               fast_math=fast_math, cull=cull)
+
+
+def rollout_bicycle_cuda(x0: torch.Tensor, controls: torch.Tensor,
+                         obstacles: torch.Tensor, *, num_disc: int, width: float,
+                         height: float, agent_length: float = 1.0,
+                         fast_math: bool = False, cull: bool | int | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1 (B5 with ``cull``) for the kinematic bicycle of wheelbase
+    ``agent_length``: the counterpart of ``rollout_bicycle_pallas``."""
+    return rollout_cuda(KinematicBicycle(agent_length=agent_length), x0, controls,
+                        obstacles, num_disc=num_disc, width=width, height=height,
+                        fast_math=fast_math, cull=cull)
+
+
+def sample_and_rollout_bicycle_cuda(key: torch.Tensor, x0: torch.Tensor,
+                                    obstacles: torch.Tensor, *, num_disc: int,
+                                    width: float, height: float,
+                                    agent_length: float = 1.0,
+                                    control_bounds: tuple | None = None,
+                                    fast_math: bool = False,
+                                    cull: bool | int | None = None
+                                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B2 (B5 with ``cull``) for the kinematic bicycle, its controls drawn
+    from ``control_bounds`` ((lo, hi) per control, duration last) where
+    given, else the system's box: the counterpart of
+    ``sample_and_rollout_bicycle_pallas``."""
+    system = KinematicBicycle(agent_length=agent_length)
+    if control_bounds is not None:
+        system = dataclasses.replace(system, control_spec=ControlSpec(
+            lo=tuple(b[0] for b in control_bounds),
+            hi=tuple(b[1] for b in control_bounds)))
+    return sample_and_rollout_cuda(system, key, x0, obstacles, num_disc=num_disc,
+                                   width=width, height=height,
+                                   fast_math=fast_math, cull=cull)
 
 
 WRAPPERS = (rollout_cuda, sample_and_rollout_cuda, rollout_batched_cuda,
             sample_and_rollout_batched_cuda)
 for _wrapper in WRAPPERS:
     _wrapper.launches = 0
+    _wrapper.culled = 0
     _wrapper.instantiations = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     for wrapper in WRAPPERS:
         wrapper.launches = 0
+        wrapper.culled = 0
         wrapper.instantiations.clear()

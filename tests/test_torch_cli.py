@@ -2,8 +2,8 @@
 ``--device cpu`` at small sizes: the reference parity lines, a JSON summary
 equal to KGMT.plan's, the flag-over-file override rule of the JAX CLI, the
 artifact dump, the batch subcommands ``multi`` and ``sweep`` (the JAX CLI's
-JSON keys, values equal to the library call's), and exit code 2 for what is
-not yet ported."""
+JSON keys, values equal to the library call's), the throughput probe
+``probe``, and exit code 2 for what is not yet ported."""
 
 import argparse
 import json
@@ -104,7 +104,7 @@ def test_flag_overrides_config_file_as_in_the_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["probe"], ["viz", "--artifacts", "x"], ["record", "--out-dir", "x"],
+    ["viz", "--artifacts", "x"], ["record", "--out-dir", "x"],
     ["profile", "--trace-dir", "x"], ["multi", "--batch", "2"], ["sweep"],
     ["sharded"], ["demo", "--device", "cpu", "--shortcut"],
     ["demo", "--device", "cpu", "--refine"], ["demo", "--device", "cpu", "--plot"],
@@ -112,6 +112,27 @@ def test_flag_overrides_config_file_as_in_the_jax_cli(tmp_path):
 def test_not_yet_ported_exits_2(capsys, argv):
     rc, out, err = run(capsys, *argv)
     assert rc == 2 and "not yet ported" in err and out == ""
+
+
+@pytest.mark.parametrize("planner,width,rows", [("naive", 256, 3),
+                                                ("costprop", 4096, 2)])
+def test_probe_prints_the_reference_lines(capsys, planner, width, rows):
+    """probe --device cpu: the JAX CLI's three lines (cudasbmp_tpu/cli.py:
+    301-304), over ``--width`` x ``--rows`` unchecked rollouts."""
+    rc, out, err = run(capsys, "probe", "--planner", planner, "--width", str(width),
+                       "--rows", str(rows), "--device", "cpu")
+    lines = out.splitlines()
+    assert rc == 0 and err == "" and len(lines) == 3
+    assert re.fullmatch(r"Kernel execution time: \d+\.\d{6} milliseconds", lines[0])
+    assert lines[1] == f"Tree size: {width * rows}"
+    assert json.loads(lines[2])["rollouts_per_sec"] > 0
+
+
+def test_probe_needs_the_card_unless_told_otherwise(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    rc, out, err = run(capsys, "probe", "--width", "64")
+    assert rc == 2 and "torch.cuda.is_available() is false" in err and out == ""
 
 
 def test_device_cuda_without_a_card_fails_loudly(capsys):

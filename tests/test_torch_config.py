@@ -101,9 +101,10 @@ def test_package_source_never_mentions_jax_imports():
 
 
 def test_package_imports_and_solves_with_jax_blocked():
-    """Every module of the port, parallel/ included, imports with JAX and
-    the JAX package blocked, and the single query, the arena sweep and the
-    streaming sweep run."""
+    """Every module of the port, parallel/ and probes/ included, imports
+    with JAX and the JAX package blocked, and the single query, the arena
+    sweep, the streaming sweep, the probe planners and the throughput probe
+    run."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -122,6 +123,15 @@ def test_package_imports_and_solves_with_jax_blocked():
         "s = parallel.StreamingMonteCarloPlanner(cfg, pool=2, device='cpu').run(\n"
         "    4, num_obstacles=5)\n"
         "assert s.iters.shape == (4,), s\n"
+        "from cudasbmp_torch.planners import CostPropPlanner, NaivePlanner\n"
+        "for P in (NaivePlanner, CostPropPlanner):\n"
+        "    assert P(width_rollouts=64, rows=2, device='cpu').plan(\n"
+        "        cudasbmp_torch.Scenario.demo()).samples.shape == (2, 64, 7)\n"
+        "from cudasbmp_torch.probes import roofline, throughput\n"
+        "r = throughput.measure_prop_throughput(64, 1, 'cuda_rng', dense=True,\n"
+        "                                       cull=2, device='cpu')\n"
+        "assert r['wall_rollouts_per_sec'] > 0, r\n"
+        "assert roofline.ops_per_lane('bicycle', False, False, 8, 10, False) == 542\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
         "print('ok')\n"
     )

@@ -345,3 +345,153 @@ def test_sweeps_run_every_wave_through_b6(dev, backend, kernel):
         12, seed=2, num_obstacles=5, id_lo=lo) for lo in (0, 12)]
     np.testing.assert_array_equal(np.concatenate([p.costs for p in parts]), st.costs)
     np.testing.assert_array_equal(np.concatenate([p.iters for p in parts]), st.iters)
+
+
+# ---- B5, the culled broad phase; P1/P2, the calibration chains ----------
+
+WINDOWS = [1, 2, 4, 5]
+
+
+def dense_field(K: int, dev):
+    """Scenario.dense(K)'s boxes, padded to a multiple of 8 with padding rows."""
+    sc = ctt.Scenario.dense(K, seed=0)
+    return torch.tensor(sc.padded_obstacles(K + 8)[0], device=dev)
+
+
+def grouped(x0, c):
+    from cudasbmp_torch.probes.throughput import morton_order
+
+    order = morton_order(x0)
+    return x0[order].contiguous(), c[order].contiguous()
+
+
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("footprint", [None, FP], ids=["broad", "footprint"])
+@pytest.mark.parametrize("name", SYSTEMS)
+def test_culled_kernel_is_b1_in_every_instantiation(dev, name, footprint, fast_math):
+    """B5 (both kernels) equals B1/B2 to the bit, states and masks, on the
+    dense-24 field at R=4097, for W in {1, 2, 4, 5}, on random and on
+    Morton-grouped lanes; and its twin at W=4 on the grouped lanes."""
+    system, x0, c = system_batch(name, 4097, 50 + SYSTEMS.index(name), dev)
+    obs = dense_field(24, dev)
+    opts = dict(KW, footprint=footprint, fast_math=fast_math)
+    key = rng.key(23, dev)
+    for lanes in ((x0, c), grouped(x0, c)):
+        x1, valid = rc.rollout_cuda(system, *lanes, obs, **opts)
+        y1, c2, v2 = rc.sample_and_rollout_cuda(system, key, lanes[0], obs, **opts)
+        assert 0.05 < valid.float().mean() < 0.99
+        for W in WINDOWS:
+            cx1, cvalid = rc.rollout_cuda(system, *lanes, obs, **opts, cull=W)
+            assert torch.equal(cvalid, valid) and _bitwise(cx1, x1)
+            cy1, cc2, cv2 = rc.sample_and_rollout_cuda(system, key, lanes[0], obs,
+                                                       **opts, cull=W)
+            assert _bitwise(cc2, c2) and torch.equal(cv2, v2) and _bitwise(cy1, y1)
+    # the twin on the grouped lanes, the last of the loop
+    tx1, tvalid = rc.rollout_culled_soa(system, *lanes, obs, cull=4, group=rc.WARP,
+                                        **opts)
+    assert torch.equal(tvalid, valid) and _bitwise(tx1, x1)
+
+
+@pytest.mark.parametrize("R", [33, 2 ** 17])
+@pytest.mark.parametrize("K", [24, 100])
+def test_culled_kernel_at_ragged_and_full_width(dev, R, K):
+    """R=33 (a ragged last warp) and R=2^17 (the probe's width), 24 and 100
+    boxes (four ballot chunks), every bicycle option, W in {1, 2, 4, 5},
+    random and grouped lanes: B5 equals B1 to the bit."""
+    system, x0, c = system_batch("bicycle", R, 60 + K, dev)
+    obs = dense_field(K, dev)
+    for fp in (None, FP):
+        for fast in (False, True):
+            opts = dict(KW, footprint=fp, fast_math=fast)
+            for lanes in ((x0, c), grouped(x0, c)):
+                x1, valid = rc.rollout_cuda(system, *lanes, obs, **opts)
+                for W in WINDOWS:
+                    cx1, cvalid = rc.rollout_cuda(system, *lanes, obs, **opts, cull=W)
+                    assert torch.equal(cvalid, valid) and _bitwise(cx1, x1)
+            if R == 33:
+                tx1, tvalid = rc.rollout_culled_soa(system, x0, c, obs, cull=2,
+                                                    group=rc.WARP, **opts)
+                cx1, cvalid = rc.rollout_cuda(system, x0, c, obs, **opts, cull=2)
+                assert torch.equal(tvalid, cvalid) and _bitwise(tx1, cx1)
+
+
+@pytest.mark.parametrize("R", [33, 300])
+def test_culled_batched_kernel_is_b6(dev, R):
+    """B5 in B6's form (a box set and key per problem; a warp never spans
+    two problems): equal to B6 and to the culled twin."""
+    system, x0, c, obs = problem_batch("bicycle", 16, R, 24, 13, dev)
+    keys = rng.split(rng.key(33, dev), 16)
+    for fp in (None, FP):
+        opts = dict(KW, footprint=fp)
+        x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **opts)
+        y1, c2, v2 = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs, **opts)
+        for W in WINDOWS:
+            cx1, cvalid = rc.rollout_batched_cuda(system, x0, c, obs, **opts, cull=W)
+            assert torch.equal(cvalid, valid) and _bitwise(cx1, x1)
+            cy1, cc2, cv2 = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs,
+                                                               **opts, cull=W)
+            assert _bitwise(cc2, c2) and torch.equal(cv2, v2) and _bitwise(cy1, y1)
+        tx1, tvalid = rc.rollout_culled_soa(system, x0, c, obs, cull=4, group=rc.WARP,
+                                            **opts)
+        assert torch.equal(tvalid, valid) and _bitwise(tx1, x1)
+
+
+def test_culled_launches_are_counted(dev):
+    system, x0, c = system_batch("bicycle", 512, 3, dev)
+    obs = dense_field(24, dev)
+    rc.reset_launch_counts()
+    rc.rollout_cuda(system, x0, c, obs, **KW)
+    rc.rollout_bicycle_cuda(x0, c, obs, **KW, cull=True)
+    rc.sample_and_rollout_bicycle_cuda(rng.key(1, dev), x0, obs, **KW, cull=5)
+    assert (rc.rollout_cuda.launches, rc.rollout_cuda.culled) == (2, 1)
+    assert (rc.sample_and_rollout_cuda.launches, rc.sample_and_rollout_cuda.culled) == (1, 1)
+
+
+def test_chains_match_their_twins(dev):
+    """P1a within rtol 1e-5 at 64 links (FMA against two roundings) and
+    2e-3 at the full 16,384 (a link's rounding difference, under 1.2e-7
+    relative, is damped by m = 0.99993 only over some 1/(1 - m) = 14,500
+    links); cos and sin within 1e-5 at the full 2,048 links; tan at 2 links
+    (it amplifies any difference); P2 to the bit at 8, 128, 1,024 and the
+    most rows one block holds."""
+    from cudasbmp_torch.ops import chains_cuda as cc
+    from cudasbmp_torch.probes import roofline as rf
+
+    x = rf.chain_inputs(dev)
+    cc.reset_launch_counts()
+    for chain, rtol in ((64, 1e-5), (rf.ALU_CHAIN, 2e-3)):
+        torch.testing.assert_close(cc.alu_chain_cuda(x, chain),
+                                   cc.alu_chain_torch(x, chain), rtol=rtol, atol=0)
+    for op, chain in (("cos", rf.TRANS_CHAIN), ("sin", rf.TRANS_CHAIN), ("tan", 2)):
+        torch.testing.assert_close(cc.trans_chain_cuda(x, chain, op),
+                                   cc.trans_chain_torch(x, chain, op), rtol=1e-5, atol=0)
+    limit = 16 * rc.max_kernel_obstacles(dev.index or 0) // (4 * 32)
+    for rows in (*rf.GATHER_ROWS, limit):
+        _, tbl, idx = rf.chain_inputs(dev, rows)
+        idx[0, :8] = -rows - 3  # the floor modulo of negative indices
+        assert _bitwise(cc.gather_chain_cuda(tbl, idx, rf.GATHER_CHAIN),
+                        cc.gather_chain_torch(tbl, idx, rf.GATHER_CHAIN))
+    assert [w.launches for w in cc.WRAPPERS] == [2, 3, 4]
+    _, tbl, idx = rf.chain_inputs(dev, 8)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        cc.gather_chain_cuda(torch.zeros(limit + 1, 128, device=dev), idx, 4)
+
+
+def test_chain_wrappers_reject_bad_inputs(dev):
+    from cudasbmp_torch.ops import chains_cuda as cc
+
+    x = torch.rand(512, 128, device=dev)
+    tbl, idx = torch.rand(8, 128, device=dev), torch.zeros(64, 128, dtype=torch.int32,
+                                                           device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        cc.alu_chain_cuda(x.double(), 4)
+    with pytest.raises(ValueError, match="programs"):
+        cc.trans_chain_cuda(x[:300], 4, "cos")
+    with pytest.raises(ValueError, match="several devices"):
+        cc.gather_chain_cuda(tbl.cpu(), idx, 4)
+    with pytest.raises(ValueError, match="int32"):
+        cc.gather_chain_cuda(tbl, idx.long(), 4)
+    with pytest.raises(ValueError, match="tbl"):
+        cc.gather_chain_cuda(tbl[:, :64].contiguous(), idx, 4)
+    with pytest.raises(ValueError, match="idx"):
+        cc.gather_chain_cuda(tbl, idx[:, :100].contiguous(), 4)

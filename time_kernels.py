@@ -20,6 +20,7 @@ in the order parent, change, change, parent.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import pathlib
 import subprocess
@@ -45,9 +46,17 @@ def main() -> int:
     from cudasbmp_torch.ops import rollout_cuda as rc
     from cudasbmp_torch.systems.bicycle import KinematicBicycle
 
-    # this script's helpers; cudasbmp_torch stays the one imported from root
-    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
-    from chip_smoke import SWEEP_SHAPE, demo_batch, device_ms, problem_batch, time_ms
+    # this script's helpers, and the timing module of this script's own
+    # checkout by its path; cudasbmp_torch stays the one imported from root
+    here = pathlib.Path(__file__).resolve().parent
+    sys.path.insert(0, str(here))
+    from chip_smoke import SWEEP_SHAPE, demo_batch, problem_batch
+
+    spec = importlib.util.spec_from_file_location(
+        "_timing", here / "cudasbmp_torch" / "probes" / "timing.py")
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    device_ms, time_ms = timing.device_ms, timing.time_ms
 
     if not pathlib.Path(cudasbmp_torch.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"time_kernels: imported {cudasbmp_torch.__file__}, not {root}")
