@@ -9,22 +9,29 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc seconds and the kernels' register and spill counts;
-3. B1 (rollout_kernel) against its plain PyTorch version at 2^17 demo lanes
-   and at the main path's wave width R=4096;
-4. B2 (sample_and_rollout_kernel) against its plain twin, at both widths;
+3. B1 (rollout_kernel) against its plain PyTorch version at 2^17 demo lanes,
+   at the main path's wave width R=4096, at R=33 and 4,097 (lanes past R
+   inside a thread group's warp), and with 40 boxes at 4,096 and 4,097;
+4. B2 (sample_and_rollout_kernel) against its plain twin, at those widths;
 5. the reference demo solve (KGMTConfig() defaults: M=30000, R=4096,
    N=16/n=8) in tree mode, 'auto' backend, seeds 0-3: solved, path replays,
-   and the launch counters prove every wave went through B1;
+   and the launch counters prove every wave went through B1, at the G
+   (threads a rollout) the rule picks for 4,096 lanes, G > 1;
 6. the same with 'cuda_rng' (every wave through B2) and need_path=False;
 7. throughput: ms per call of B1, B2 and their plain versions at B=4096
    (the main path's shape; the JSON line's times) and valid 10-step
    rollouts/s at B=2^17: device time under torch.profiler over 20 calls
    after warm-up (``ms``), and CUDA events over 20 calls (``launch_ms``,
    which the host's launch rate sets where it is slower than the card);
+   the per-G table (B1 exact and with the footprint at every forced G in
+   {1, 2, 4, 8} at 1,024 to 2^17 lanes) and the one-warp floor of each
+   rollout row (32 lanes, G = 1);
 8. every instantiation of B1 and B2 (5 systems x {broad phase, footprint
-   B3} x {exact, fast math B4}) bitwise against its plain twin at B=4096,
-   and kernel/plain ms at B=2^17 for bicycle+footprint+fast and
-   dubins+footprint;
+   B3} x {exact, fast math B4}) bitwise against its plain twin at the
+   rule's G and at every forced G, at R in {33, 4,096, 4,097, 2^17} and K
+   in {8, 40}; kernel/plain ms at B=4096 (the main path's width) for
+   bicycle+footprint (B3) and bicycle+footprint+fast (B4), and at B=2^17
+   for bicycle+footprint+fast and dubins+footprint;
 9. 40 boxes (Scenario.dense, max_obstacles=64), past the 32 a static
    shared array once held: B1/B2 against their twins, and a solve;
 10. the bicycle with every option (footprint 0.5, fast math, goal bias
@@ -38,8 +45,10 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     configurations/ with systems/car.yaml, on the card;
 13. B6 (rollout_kernel and sample_and_rollout_kernel with one box set and
     key per problem), every instantiation of both forms bitwise against its
-    plain twin at B=8 problems x R=512 lanes and at the sweeps' B=1024 x
-    R=128, with a distinct box set per problem, and at 70,000 problems x 2
+    plain twin at B=8 problems x R=512 lanes, at the extension rounds'
+    buckets of 8 and 64 problems x R=128 and at the sweeps' B=1024 x R=128,
+    at the rule's G and at every forced G, with a distinct box set per
+    problem, and at 70,000 problems x 2
     lanes (past a grid's y extent); a wall in
     problem 1 changes only problem 1; a key gives the same rows at B=4 and
     at B=8 in another slot; ms of B6, its twin, and B1 on the same lanes
@@ -48,9 +57,10 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     jitter 1.0, R=128, 150 windows, auto capacity, one extension; the
     bench.py settings) under 'auto' (every wave through B1) and 'cuda_rng'
     (B2): solve rate, cost quantiles, solves/s, launches equal to the waves
-    run, solved paths replaying within 1e-4 with cost = sum of durations;
+    run, at the rule's G for 32,768 lanes, solved paths replaying within
+    1e-4 with cost = sum of durations;
 15. the Monte-Carlo sweep at config 5's per-chip width (1024 random
-    scenarios, 8 boxes, two extensions), every wave through B6;
+    scenarios, 8 boxes, two extensions), every wave through B6 at G = 1;
 16. the streaming sweep (4096 scenarios, pool 1024, R=128, 150 waves per
     scenario) under 'auto' (B6) and 'cuda_rng' (B6's Philox form); then at
     256 scenarios two id_lo partitions and pool sizes 32 and 64 reproduce
@@ -67,9 +77,10 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     cuda_rng, fast math, dense-24 and torch; then the cull table of
     tools/r4_cull_bench.py, B5's main path;
 20. the calibration chains P1a (FMA), P1b (cos, sin, tan) and P2 (gathers
-    at 8, 128 and 1,024 rows) against their plain twins, their rates from
-    device time (probes/roofline.py::calibrate), and B2's roofline shares,
-    exact, fast and dense-24;
+    at 8, 128 and 1,024 rows) against their plain twins, the rollout
+    kernels' sincosf against torch.sin/torch.cos at every float, their
+    rates from device time (probes/roofline.py::calibrate), and B2's
+    roofline shares, exact, fast and dense-24;
 21. the CLI's probe, naive and costprop at 524,288 lanes, as subprocesses
     on the card.
 
@@ -77,7 +88,9 @@ Then the card's name and power limit, a JSON line of the kernels and,
 last, {"ok": true, "device": {...}}. Each kernel entry has its device
 time, its plain twin's, both also by CUDA events, and its bound: the
 larger of the bytes it must move over 3.35 TB/s and its f32 operations
-over 67 TFLOP/s (probes/roofline.py). Any failed check raises: the script
+over 67 TFLOP/s (probes/roofline.py); the rollout rows also the one-warp
+floor (``floor_ms``) and, for B1-B4 and B6, the G their main path ran at
+(``split``). Any failed check raises: the script
 exits non-zero and prints no result. The full record also goes to
 chiprun_out/chip_smoke.json.
 """
@@ -112,6 +125,12 @@ MC_N = 1024  # BASELINE config 5 per chip
 STREAM_N, STREAM_POOL = 4096, 1024  # bench.py's streaming sweep
 CHECK_N, CHECK_POOL = 256, 64  # the invariance checks
 SWEEP_SHAPE = (1024, 128, 8)  # B6's timing shape: problems, lanes, boxes
+SPLIT_WIDTHS = (1024, 2048, 4096, 8192, 16_384, 32_768, B_CHECK)  # the per-G table's lanes
+# problems of R=128 in the arena's and the Monte-Carlo sweep's extension
+# rounds (a bucket is a power of two, at least 8: batch_kgmt.py::_extend)
+EXTENSION_BUCKETS = (8, 64)
+RAGGED = (33, 4097)  # lanes past R inside a thread group's warp
+FLOOR_LANES = 32  # one warp at G = 1: a launch and one rollout's chain
 WINDOWS = (1, 2, 4, 5)  # B5's step windows, as tools/r4_cull_bench.py
 PROBE_LANES = 524_288  # the CostProp probe's width (CostPropPlanner.cu:85-88)
 
@@ -293,47 +312,60 @@ def bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def check_against_twins(name, system, x0, c, obstacles, key, kw) -> dict:
+def check_against_twins(name, system, x0, c, obstacles, key, kw,
+                        splits=(None,)) -> dict:
     """B1 and B2 with the options in ``kw`` against their plain twins on the
-    card: bitwise states, equal masks, bitwise B2 controls."""
+    card, at each G of ``splits`` (None: the rule's): bitwise states, equal
+    masks, bitwise B2 controls."""
     from cudasbmp_torch.ops import rollout_cuda as rc
 
-    x1, valid = rc.rollout_cuda(system, x0, c, obstacles, **kw)
     px1, pvalid = rc.rollout_soa(system, x0, c, obstacles, **kw)
-    y1, c2, v2 = rc.sample_and_rollout_cuda(system, key, x0, obstacles, **kw)
     ty1, tc2, tv2 = rc.sample_and_rollout_torch(system, key, x0, obstacles, **kw)
-    torch.cuda.synchronize()
-    check(torch.equal(valid, pvalid) and bitwise(x1, px1),
-          f"B1 {name} {kw}: {int((valid != pvalid).sum())} mask mismatches, "
-          f"max |dx1| {float((x1 - px1).abs().max())}")
-    check(bitwise(c2, tc2) and torch.equal(v2, tv2) and bitwise(y1, ty1),
-          f"B2 {name} {kw}: differs from its twin")
-    check(bool(torch.isfinite(x1).all()), f"B1 {name} {kw}: non-finite x1")
-    return {"max_abs_err": max(float((x1 - px1).abs().max()),
-                               float((y1 - ty1).abs().max())),
-            "valid_fraction": float(valid.float().mean())}
+    err = 0.0
+    for G in splits:
+        x1, valid = rc.rollout_cuda(system, x0, c, obstacles, **kw, split=G)
+        y1, c2, v2 = rc.sample_and_rollout_cuda(system, key, x0, obstacles, **kw, split=G)
+        torch.cuda.synchronize()
+        check(torch.equal(valid, pvalid) and bitwise(x1, px1),
+              f"B1 {name} {kw} G={G}: {int((valid != pvalid).sum())} mask mismatches, "
+              f"max |dx1| {float((x1 - px1).abs().max())}")
+        check(bitwise(c2, tc2) and torch.equal(v2, tv2) and bitwise(y1, ty1),
+              f"B2 {name} {kw} G={G}: differs from its twin")
+        check(bool(torch.isfinite(x1).all()), f"B1 {name} {kw}: non-finite x1")
+        err = max(err, float((x1 - px1).abs().max()), float((y1 - ty1).abs().max()))
+    return {"max_abs_err": err, "valid_fraction": float(pvalid.float().mean())}
 
 
 def check_instantiations(dev, obstacles, kw) -> dict:
     """Phase 8: every (system, footprint, fast math) instantiation of B1 and
-    B2 against its twin at B=4096; kernel and twin ms at B=2^17 for
-    bicycle+footprint+fast (B4 with B3) and dubins+footprint (B3)."""
+    B2 against its twin at the rule's G and at every forced G, at R in
+    {33, 4,096, 4,097, 2^17} and K in {8, 40}; kernel and twin ms of B3
+    (bicycle + footprint) and B4 (and fast math) at B=4096, the width of
+    their main path, and at B=2^17 for bicycle+footprint+fast and
+    dubins+footprint."""
     from cudasbmp_torch import rng
+    from cudasbmp_torch.config import Scenario
     from cudasbmp_torch.ops import rollout_cuda as rc
 
     key = rng.key(777, dev)
+    forty = torch.tensor(Scenario.dense(40, seed=0).padded_obstacles(64)[0], device=dev)
     out = {"checks": {}, "times": {}}
     for i, name in enumerate(SYSTEMS):
-        system, x0, c = system_batch(name, 4096, 50 + i, dev)
-        for fp in (None, FOOTPRINT):
-            for fast in (False, True):
-                opts = dict(kw, footprint=fp, fast_math=fast)
-                tag = f"{name}/{'footprint' if fp else 'broad'}/{'fast' if fast else 'exact'}"
-                out["checks"][tag] = check_against_twins(name, system, x0, c,
-                                                         obstacles, key, opts)
-    for tag, name, fast in (("bicycle/footprint/fast", "bicycle", True),
-                            ("dubins/footprint/exact", "dubins", False)):
-        system, x0, c = system_batch(name, B_CHECK, 60, dev)
+        for R in (RAGGED[0], 4096, RAGGED[1], B_CHECK):
+            system, x0, c = system_batch(name, R, 50 + i, dev)
+            for K, obs in ((obstacles.shape[0], obstacles), (40, forty)):
+                for fp in (None, FOOTPRINT):
+                    for fast in (False, True):
+                        opts = dict(kw, footprint=fp, fast_math=fast)
+                        tag = (f"{name}/{'footprint' if fp else 'broad'}/"
+                               f"{'fast' if fast else 'exact'}/R={R}/K={K}")
+                        out["checks"][tag] = check_against_twins(
+                            name, system, x0, c, obs, key, opts, (None, *rc.SPLITS))
+    for tag, name, fast, B in (("b3_4096", "bicycle", False, 4096),
+                               ("b4_4096", "bicycle", True, 4096),
+                               ("bicycle/footprint/fast", "bicycle", True, B_CHECK),
+                               ("dubins/footprint/exact", "dubins", False, B_CHECK)):
+        system, x0, c = system_batch(name, B, 60, dev)
         opts = dict(kw, footprint=FOOTPRINT, fast_math=fast)
         t = out["times"][tag] = {}
         timed(t, "kernel", lambda: rc.rollout_cuda(system, x0, c, obstacles, **opts))
@@ -341,6 +373,55 @@ def check_instantiations(dev, obstacles, kw) -> dict:
         t["valid_fraction"] = float(rc.rollout_cuda(system, x0, c, obstacles,
                                                     **opts)[1].float().mean())
     return out
+
+
+def split_table(dev, obstacles, kw) -> dict:
+    """Phase 7's per-G table: device ms of B1, exact and with the footprint,
+    at every forced G and each of SPLIT_WIDTHS demo lanes (K=8), beside the
+    G the rule picks there."""
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.probes import timing
+    from cudasbmp_torch.systems.bicycle import KinematicBicycle
+
+    system, out = KinematicBicycle(), {}
+    for B in SPLIT_WIDTHS:
+        x0, ctrl = demo_batch(B, 1, dev)
+        row = out[str(B)] = {"rule": rc.lanes_per_rollout(B, rc.sm_count(dev.index or 0))}
+        for tag, opts in (("exact", kw), ("footprint", dict(kw, footprint=FOOTPRINT))):
+            for G in rc.SPLITS:
+                row[f"{tag}_g{G}_ms"] = timing.device_ms(
+                    lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **opts, split=G))
+    return out
+
+
+def floors(dev, obstacles, kw) -> dict:
+    """Phase 7's one-warp floors: device ms of each rollout row's kernel at
+    FLOOR_LANES lanes and G = 1, a launch and one rollout's chain: B1, B2,
+    B3 (bicycle + footprint), B4 (and fast math), both B6 forms (one problem
+    of 32 lanes) and B5 (B2 with cull=4 on dense-24)."""
+    from cudasbmp_torch import rng
+    from cudasbmp_torch.config import Scenario
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.probes import timing
+    from cudasbmp_torch.systems.bicycle import KinematicBicycle
+
+    system, key = KinematicBicycle(), rng.key(32, dev)
+    x0, ctrl = demo_batch(FLOOR_LANES, 2, dev)
+    fp = dict(kw, footprint=FOOTPRINT, split=1)
+    one = dict(kw, split=1)
+    bx0, bc, bobs = x0[None], ctrl[None], obstacles[None].contiguous()
+    dense = torch.tensor(Scenario.dense(24).obstacles, device=dev)
+    runs = {"b1": lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **one),
+            "b2": lambda: rc.sample_and_rollout_cuda(system, key, x0, obstacles, **one),
+            "b3": lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **fp),
+            "b4": lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **fp,
+                                          fast_math=True),
+            "b6": lambda: rc.rollout_batched_cuda(system, bx0, bc, bobs, **one),
+            "b6_rng": lambda: rc.sample_and_rollout_batched_cuda(
+                system, key[None], bx0, bobs, **one),
+            "b5": lambda: rc.sample_and_rollout_cuda(system, key, x0, dense, **kw,
+                                                     cull=4)}
+    return {f"{k}_ms": timing.device_ms(fn) for k, fn in runs.items()}
 
 
 def check_many_boxes(dev, kw) -> dict:
@@ -384,10 +465,13 @@ def solve_all_options(dev) -> dict:
         summary, rows = solve_seeds(c, dev, replay=c.need_path, seeds=seeds)
         launches = rc.rollout_cuda.launches + rc.sample_and_rollout_cuda.launches
         inst = rc.rollout_cuda.instantiations + rc.sample_and_rollout_cuda.instantiations
+        splits = rc.rollout_cuda.splits + rc.sample_and_rollout_cuda.splits
+        G = rc.lanes_per_rollout(c.rollouts_per_iter, rc.sm_count(dev.index or 0))
         check(launches == summary["waves"]
-              and inst[("bicycle", True, True)] == launches,
-              f"all options {mode}: {dict(inst)} for {summary['waves']} waves")
-        out[mode] = {**summary, "seeds": rows, "launches": launches}
+              and inst[("bicycle", True, True)] == launches and splits == {G: launches},
+              f"all options {mode}: {dict(inst)} at G {dict(splits)} for "
+              f"{summary['waves']} waves")
+        out[mode] = {**summary, "seeds": rows, "launches": launches, "split": G}
 
     def solve(c):
         r = KGMT(c, device=dev).plan(Scenario.demo(), seed=0)
@@ -430,9 +514,12 @@ def solve_other_systems(dev) -> dict:
         rc.reset_launch_counts()
         summary, rows = solve_seeds(cfg, dev, replay=True, min_rate=min_rate)
         inst = dict(rc.rollout_cuda.instantiations)
+        G = rc.lanes_per_rollout(cfg.rollouts_per_iter, rc.sm_count(dev.index or 0))
         check(rc.rollout_cuda.launches == summary["waves"]
-              and inst == {(cfg.system, False, False): summary["waves"]},
-              f"{tag}: launches {inst} for {summary['waves']} waves")
+              and inst == {(cfg.system, False, False): summary["waves"]}
+              and rc.rollout_cuda.splits == {G: summary["waves"]},
+              f"{tag}: launches {inst} at G {dict(rc.rollout_cuda.splits)} for "
+              f"{summary['waves']} waves")
         out[tag] = {**summary, "seeds": rows, "b1_launches": rc.rollout_cuda.launches}
     return out
 
@@ -482,33 +569,38 @@ def problem_batch(name: str, B: int, R: int, K: int, seed: int, dev):
 
 def check_b6(dev, kw) -> dict:
     """Phase 13: both forms of B6 in every instantiation against their
-    plain twins (bitwise) at B=8 x R=512 and at the sweeps' launch shape
-    (SWEEP_SHAPE, one block per problem), then at 70,000 problems (more
-    than a grid's y extent); the isolation and key checks; times at the
-    sweeps' shape."""
+    plain twins (bitwise) at B=8 x R=512, at the extension rounds' buckets
+    (EXTENSION_BUCKETS x R=128) and at the sweeps' launch shape
+    (SWEEP_SHAPE, one block per problem at G = 1), each at the rule's G and
+    at every forced G, then at 70,000 problems (more than a grid's y extent) at the
+    rule's G and G = 8; the isolation and key checks; times at the sweeps'
+    shape."""
     from cudasbmp_torch import rng
     from cudasbmp_torch.ops import rollout_cuda as rc
 
     out = {"checks": {}, "times": {}}
     errs = []
 
-    def against_twins(tag, system, x0, c, obs, keys, opts) -> None:
-        x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **opts)
+    def against_twins(tag, system, x0, c, obs, keys, opts,
+                      splits=(None, *rc.SPLITS)) -> None:
         px1, pvalid = rc.rollout_soa(system, x0, c, obs, **opts)
-        y1, c2, v2 = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs, **opts)
         ty1, tc2, tv2 = rc.sample_and_rollout_torch(system, keys, x0, obs, **opts)
-        torch.cuda.synchronize()
-        check(torch.equal(valid, pvalid) and bitwise(x1, px1),
-              f"B6 {tag}: {int((valid != pvalid).sum())} mask mismatches")
-        check(bitwise(c2, tc2) and torch.equal(v2, tv2) and bitwise(y1, ty1),
-              f"B6 Philox {tag}: differs from its twin")
-        check(bool(torch.isfinite(x1).all()), f"B6 {tag}: non-finite x1")
-        err = max(float((x1 - px1).abs().max()), float((y1 - ty1).abs().max()))
-        errs.append(err)
-        out["checks"][tag] = {"max_abs_err": err,
-                              "valid_fraction": float(valid.float().mean())}
+        for G in splits:
+            x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **opts, split=G)
+            y1, c2, v2 = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs,
+                                                            **opts, split=G)
+            torch.cuda.synchronize()
+            check(torch.equal(valid, pvalid) and bitwise(x1, px1),
+                  f"B6 {tag} G={G}: {int((valid != pvalid).sum())} mask mismatches")
+            check(bitwise(c2, tc2) and torch.equal(v2, tv2) and bitwise(y1, ty1),
+                  f"B6 Philox {tag} G={G}: differs from its twin")
+            check(bool(torch.isfinite(x1).all()), f"B6 {tag}: non-finite x1")
+            errs.append(max(float((x1 - px1).abs().max()), float((y1 - ty1).abs().max())))
+        out["checks"][tag] = {"max_abs_err": max(errs[-len(splits):]),
+                              "valid_fraction": float(pvalid.float().mean())}
 
-    for nb, nr, nk in ((8, 512, 8), SWEEP_SHAPE):
+    for nb, nr, nk in ((8, 512, 8), *((b, 128, 8) for b in EXTENSION_BUCKETS),
+                       SWEEP_SHAPE):
         for i, name in enumerate(SYSTEMS):
             system, x0, c, obs = problem_batch(name, nb, nr, nk, 80 + i, dev)
             keys = rng.split(rng.key(90 + i, dev), nb)
@@ -520,7 +612,7 @@ def check_b6(dev, kw) -> dict:
                                   dict(kw, footprint=fp, fast_math=fast))
     system, x0, c, obs = problem_batch("bicycle", 70_000, 2, 4, 97, dev)
     against_twins("70000x2/bicycle/broad/exact", system, x0, c, obs,
-                  rng.split(rng.key(96, dev), 70_000), kw)
+                  rng.split(rng.key(96, dev), 70_000), kw, (None, 8))
     # isolation: a wall in problem 1 changes problem 1's lanes only
     system, x0, c, obs = problem_batch("bicycle", 8, 512, 8, 99, dev)
     x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **kw)
@@ -721,6 +813,10 @@ def run_calibration(dev, probes: dict) -> dict:
                       cc.gather_chain_torch(tbl, idx, rf.GATHER_CHAIN)),
               f"P2 at {rows} rows: differs from its twin")
         out["checks"][f"gather_{rows}"] = {"bitwise": True}
+    # the rollout kernels' one sincosf a heading against torch.sin/torch.cos
+    out["sincos_differences"] = cc.sincos_differences(dev)
+    check(out["sincos_differences"] == 0,
+          f"sincosf differs from torch.sin/cos on {out['sincos_differences']} floats")
     pm = out["plain_ms"]
     timed(pm, "alu", lambda: cc.alu_chain_torch(x, rf.ALU_CHAIN), n=2)
     timed(pm, "cos", lambda: cc.trans_chain_torch(x, rf.TRANS_CHAIN, "cos"), n=3)
@@ -808,6 +904,11 @@ def arena_config4(dev, backend: str) -> dict:
     launches = {w.__name__: w.launches for w in rc.WRAPPERS}
     check(launches.pop(kernel.__name__) == sum(waves) and set(launches.values()) == {0},
           f"arena {backend}: launches {dict(launches)} {kernel.launches} for waves {waves}")
+    # the first solve's waves at the rule's G for B x R lanes; the extension,
+    # narrower, at its own
+    G = rc.lanes_per_rollout(ARENA_B * cfg.rollouts_per_iter, rc.sm_count(dev.index or 0))
+    check(kernel.splits[G] >= waves[0], f"arena {backend}: G {dict(kernel.splits)}, "
+          f"{waves[0]} waves at G={G}")
     system = planner.system
     obs_t = torch.tensor(obstacles, device=dev)
     worst = 0.0
@@ -833,8 +934,8 @@ def arena_config4(dev, backend: str) -> dict:
             "iterations_p50": float(np.median(res.iterations)),
             "iterations_max": int(res.iterations.max()),
             "solves_per_sec": res.solves_per_sec, "wall_time_s": res.wall_time_s,
-            "waves": waves, "launches": kernel.launches,
-            "budget_exhausted": int(res.budget_exhausted.sum()),
+            "waves": waves, "launches": kernel.launches, "split": G,
+            "splits": dict(kernel.splits), "budget_exhausted": int(res.budget_exhausted.sum()),
             "replay_max_err": worst}
 
 
@@ -856,9 +957,10 @@ def mc_sweep(dev) -> dict:
     finally:
         undo()
     launches = {w.__name__: w.launches for w in rc.WRAPPERS}
+    splits = rc.rollout_batched_cuda.splits
     check(launches.pop("rollout_batched_cuda") == sum(waves)
-          and set(launches.values()) == {0},
-          f"Monte-Carlo sweep: launches {launches} for waves {waves}")
+          and set(launches.values()) == {0} and splits[1] >= waves[0],
+          f"Monte-Carlo sweep: launches {launches} at G {dict(splits)} for waves {waves}")
     check(s.solve_rate >= 0.5 and bool(np.isfinite(s.costs[s.solved]).all())
           and bool((s.costs[s.solved] > 0).all()),
           f"Monte-Carlo sweep: solve rate {s.solve_rate}")
@@ -866,7 +968,7 @@ def mc_sweep(dev) -> dict:
             "cost_p10_p50_p90": quantiles(s.costs), "solves_per_sec": s.solves_per_sec,
             "wall_time_s": s.wall_time_s, "mean_tree_size": s.mean_tree_size,
             "budget_exhausted": s.num_budget_exhausted, "waves": waves,
-            "launches": rc.rollout_batched_cuda.launches}
+            "launches": rc.rollout_batched_cuda.launches, "splits": dict(splits)}
 
 
 def stream_sweep(dev) -> dict:
@@ -892,8 +994,10 @@ def stream_sweep(dev) -> dict:
             undo()
         launches = {w.__name__: w.launches for w in rc.WRAPPERS}
         main_launches = launches.pop(kernel.__name__)
-        check(main_launches == sum(iters) and set(launches.values()) == {0},
-              f"streaming {backend}: launches {launches} for {iters} iterations")
+        check(main_launches == sum(iters) and set(launches.values()) == {0}
+              and kernel.splits == {1: main_launches},
+              f"streaming {backend}: launches {launches} at G {dict(kernel.splits)} for "
+              f"{iters} iterations")
         check(s.solve_rate >= 0.5, f"streaming {backend}: solve rate {s.solve_rate}")
         check(bool(((np.isfinite(s.costs)) | (s.iters >= cfg.num_iterations)).all()),
               f"streaming {backend}: a scenario neither solved nor exhausted")
@@ -1088,24 +1192,26 @@ def main() -> int:
 
     # 3. B1 against the plain version; 4. B2 against its plain twin
     key = rng.key(12345, dev)
+    forty = torch.tensor(Scenario.dense(40, seed=0).padded_obstacles(64)[0], device=dev)
     checks = {}
-    for B in (B_CHECK, cfg.rollouts_per_iter):
+    for B, obs, tag in ((B_CHECK, obstacles, ""), (cfg.rollouts_per_iter, obstacles, ""),
+                        *((r, obstacles, "") for r in RAGGED),
+                        *((r, forty, "/K=40") for r in (cfg.rollouts_per_iter, *RAGGED))):
         x0, ctrl = demo_batch(B, 0, dev)
-        x1, valid = rc.rollout_cuda(system, x0, ctrl, obstacles, **kw)
-        px1, pvalid = rollout_batch(system, x0, ctrl, cfg.num_disc, obstacles,
+        x1, valid = rc.rollout_cuda(system, x0, ctrl, obs, **kw)
+        px1, pvalid = rollout_batch(system, x0, ctrl, cfg.num_disc, obs,
                                     cfg.width, cfg.height)
         torch.cuda.synchronize()
-        b1 = compare("rollout_kernel", system, x0, ctrl, obstacles, cfg, x1,
+        b1 = compare("rollout_kernel", system, x0, ctrl, obs, cfg, x1,
                      valid, px1, pvalid)
-        x1, c, valid = rc.sample_and_rollout_cuda(system, key, x0, obstacles, **kw)
-        tx1, tc, tvalid = rc.sample_and_rollout_torch(system, key, x0, obstacles,
-                                                      **kw)
+        x1, c, valid = rc.sample_and_rollout_cuda(system, key, x0, obs, **kw)
+        tx1, tc, tvalid = rc.sample_and_rollout_torch(system, key, x0, obs, **kw)
         torch.cuda.synchronize()
         check(torch.equal(c.view(torch.int32), tc.view(torch.int32)),
               "sample_and_rollout_kernel: controls differ from the Philox twin")
-        b2 = compare("sample_and_rollout_kernel", system, x0, c, obstacles, cfg,
+        b2 = compare("sample_and_rollout_kernel", system, x0, c, obs, cfg,
                      x1, valid, tx1, tvalid)
-        checks[B] = (b1, b2)
+        checks[f"{B}{tag}"] = (b1, b2)
     b1 = {k: max(checks[B][0][k] for B in checks) for k in ("mismatches", "max_abs_err")}
     b2 = {k: max(checks[B][1][k] for B in checks) for k in ("mismatches", "max_abs_err")}
     record["checks"] = {str(B): {"b1": v[0], "b2": v[1]} for B, v in checks.items()}
@@ -1116,34 +1222,42 @@ def main() -> int:
           f"max|dx1|={b2['max_abs_err']:.3g} bitwise rows "
           f"{min(v[1]['bitwise_rows'] for v in checks.values()):.6f}", flush=True)
 
-    # 5. the demo solve through B1
+    # 5. the demo solve through B1, at the rule's G for the wave's lanes
+    G_demo = rc.lanes_per_rollout(cfg.rollouts_per_iter, rc.sm_count(dev.index or 0))
+    check(G_demo > 1, f"the rule picks G={G_demo} for the demo's wave")
     rc.reset_launch_counts()
     tree, rows = solve_seeds(cfg, dev, replay=True)
     b1_launches, b2_launches = rc.rollout_cuda.launches, rc.sample_and_rollout_cuda.launches
-    check(b1_launches == tree["waves"] and b2_launches == 0,
-          f"tree/auto: B1 launches {b1_launches} for {tree['waves']} waves, "
-          f"B2 {b2_launches}")
-    record["tree_auto"] = {**tree, "seeds": rows, "b1_launches": b1_launches}
+    check(b1_launches == tree["waves"] and b2_launches == 0
+          and rc.rollout_cuda.splits == {G_demo: b1_launches},
+          f"tree/auto: B1 launches {b1_launches} for {tree['waves']} waves at G "
+          f"{dict(rc.rollout_cuda.splits)}, B2 {b2_launches}")
+    record["tree_auto"] = {**tree, "seeds": rows, "b1_launches": b1_launches,
+                           "split": G_demo}
     print(f"[5 demo tree auto] solve rate {tree['solve_rate']:.2f} cost p50 "
           f"{tree['cost_p50']:.4f} p90 {tree['cost_p90']:.4f} TTS p50 "
           f"{tree['tts_p50_s'] * 1e3:.1f} ms p90 {tree['tts_p90_s'] * 1e3:.1f} ms | "
-          f"waves {tree['waves']} B1 launches {b1_launches} B2 0", flush=True)
+          f"waves {tree['waves']} B1 launches {b1_launches} at G={G_demo}, B2 0",
+          flush=True)
 
     # 6. cuda_rng (B2) and pathless
     rc.reset_launch_counts()
     rngs, rows = solve_seeds(cfg.replace(rollout_backend="cuda_rng"), dev, replay=True)
     b2_main = rc.sample_and_rollout_cuda.launches
-    check(rc.rollout_cuda.launches == 0 and b2_main == rngs["waves"],
+    check(rc.rollout_cuda.launches == 0 and b2_main == rngs["waves"]
+          and rc.sample_and_rollout_cuda.splits == {G_demo: b2_main},
           f"tree/cuda_rng: B1 {rc.rollout_cuda.launches}, B2 {b2_main} for "
-          f"{rngs['waves']} waves")
+          f"{rngs['waves']} waves at G {dict(rc.sample_and_rollout_cuda.splits)}")
     rc.reset_launch_counts()
     pathless, prows = solve_seeds(cfg.replace(need_path=False), dev, replay=False)
     check(rc.rollout_cuda.launches == pathless["waves"]
-          and rc.sample_and_rollout_cuda.launches == 0,
+          and rc.sample_and_rollout_cuda.launches == 0
+          and rc.rollout_cuda.splits == {G_demo: pathless["waves"]},
           f"pathless/auto: B1 {rc.rollout_cuda.launches} for {pathless['waves']} waves")
-    record["tree_cuda_rng"] = {**rngs, "seeds": rows, "b2_launches": b2_main}
+    record["tree_cuda_rng"] = {**rngs, "seeds": rows, "b2_launches": b2_main,
+                               "split": G_demo}
     record["pathless_auto"] = {**pathless, "seeds": prows,
-                               "b1_launches": rc.rollout_cuda.launches}
+                               "b1_launches": rc.rollout_cuda.launches, "split": G_demo}
     print(f"[6 demo cuda_rng] rate {rngs['solve_rate']:.2f} cost p50 "
           f"{rngs['cost_p50']:.4f} TTS p50 {rngs['tts_p50_s'] * 1e3:.1f} ms, B2 "
           f"launches {b2_main} B1 0 | [pathless auto] rate "
@@ -1178,19 +1292,31 @@ def main() -> int:
           f"{big['plain_valid_rollouts_per_s']:.4g}/s) B2 {big['b2_ms']:.4f} "
           f"({big['b2_launch_ms']:.4f}) twin {big['twin_ms']:.4f} "
           f"({big['twin_launch_ms']:.4f})", flush=True)
+    t0 = time.perf_counter()
+    table = split_table(dev, obstacles, kw)
+    floor = floors(dev, obstacles, kw)
+    record["split_table"], record["floors"] = table, floor
+    print("[7 per-G] B1 device us at G=1/2/4/8 (the rule's G): " + " | ".join(
+        f"{B} {tag} " + "/".join(f"{row[f'{tag}_g{G}_ms'] * 1e3:.2f}" for G in rc.SPLITS)
+        + f" ({row['rule']})" for B, row in table.items()
+        for tag in ("exact", "footprint"))
+        + " | one-warp floors (32 lanes, G=1) us: " + ", ".join(
+            f"{k[:-3]} {v * 1e3:.2f}" for k, v in floor.items())
+        + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # 8. every instantiation of B1/B2 (B3, B4) against its twin; times
     t0 = time.perf_counter()
     inst = check_instantiations(dev, obstacles, kw)
     record["instantiations"] = inst
-    fast_t, fp_t = inst["times"]["bicycle/footprint/fast"], inst["times"]["dubins/footprint/exact"]
-    print(f"[8 instantiations] {len(inst['checks'])} x (B1, B2) bitwise equal to their "
-          f"twins at B=4096 | B={B_CHECK}, device ms (CUDA-event ms): bicycle+footprint+"
-          f"fast {fast_t['kernel_ms']:.4f} ({fast_t['kernel_launch_ms']:.4f}) plain "
-          f"{fast_t['plain_ms']:.4f} ({fast_t['plain_launch_ms']:.4f}); dubins+footprint "
-          f"{fp_t['kernel_ms']:.4f} ({fp_t['kernel_launch_ms']:.4f}) plain "
-          f"{fp_t['plain_ms']:.4f} ({fp_t['plain_launch_ms']:.4f}) "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    it = inst["times"]
+    fp_t, fast_t = it["b3_4096"], it["b4_4096"]
+    print(f"[8 instantiations] {len(inst['checks'])} x (B1, B2) x G in "
+          f"{['rule', *rc.SPLITS]} bitwise equal to their twins (R in "
+          f"{[RAGGED[0], 4096, RAGGED[1], B_CHECK]}, K in {{8, 40}}) | device ms "
+          f"(CUDA-event ms), kernel/plain: " + "; ".join(
+              f"{k} {v['kernel_ms']:.4f} ({v['kernel_launch_ms']:.4f})/{v['plain_ms']:.4f} "
+              f"({v['plain_launch_ms']:.4f})" for k, v in it.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # 9. 40 boxes
     t0 = time.perf_counter()
@@ -1238,7 +1364,9 @@ def main() -> int:
     record["b6"] = b6
     bt = b6["times"]
     print(f"[13 B6] {len(b6['checks'])} x (B6, B6 Philox) bitwise equal to their twins at "
-          f"B=8 x R=512, B=1024 x R=128 and B=70000 x R=2; wall in problem 1 changed {b6['isolation']['lanes_changed_in_problem_1']}"
+          f"B=8 x R=512, B={' and '.join(map(str, EXTENSION_BUCKETS))} x R=128 and "
+          f"B=1024 x R=128 (G: the rule's, 1, 2, 4, 8) and B=70000 x R=2 (the "
+          f"rule's, 8); wall in problem 1 changed {b6['isolation']['lanes_changed_in_problem_1']}"
           f" of its lanes and none elsewhere; keys slot- and B-independent | B=1024 x R=128 x "
           f"K=8, device ms (CUDA-event ms): B6 {bt['b6_ms']:.4f} ({bt['b6_launch_ms']:.4f}) "
           f"plain {bt['plain_ms']:.4f} ({bt['plain_launch_ms']:.4f}), Philox "
@@ -1326,7 +1454,8 @@ def main() -> int:
           f"evals/s {rates['cos_evals_per_sec']:.4g}/{rates['sin_evals_per_sec']:.4g}/"
           f"{rates['tan_evals_per_sec']:.4g}, gathers/s at 8/128/1024 rows "
           f"{rates['gathers_per_sec_8']:.4g}/{rates['gathers_per_sec_128']:.4g}/"
-          f"{rates['gathers_per_sec_1024']:.4g}; chains agree with their twins | B2 share of "
+          f"{rates['gathers_per_sec_1024']:.4g}; chains agree with their twins; sincosf "
+          f"differs from torch.sin/cos on {cal['sincos_differences']} of 2^32 floats | B2 share of "
           f"the peaks: " + ", ".join(f"{k} {v['peak_share']:.4f} ({v['kernel_ms']:.4f} ms)"
                                       for k, v in cal["shares"].items())
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -1361,6 +1490,11 @@ def main() -> int:
         return {"bound_ms": ms, "bound_by": by, "library_ms": None}
 
     ops_per_lane = rf.ops_per_lane
+    G_options = opts["tree_auto"]["split"]
+    # B6's G: the most launches of its main paths (the sweeps at full width)
+    b6_splits = {**mc["splits"]}
+    b6_splits[1] = b6_splits.get(1, 0) + stream["auto"]["launches"]
+    G_b6 = max(b6_splits, key=b6_splits.get)
     cms = cal["calibration"]["ms"]
     cb = rf.chain_bounds(rf.CAL_SHAPE[0] * rf.CAL_SHAPE[1], 1024)
     def chain_err(prefixes):
@@ -1375,6 +1509,7 @@ def main() -> int:
          "launches": b1_launches, "max_abs_err": max(b1["max_abs_err"], inst_err),
          "ms": main["b1_ms"], "plain_ms": main["plain_ms"],
          "launch_ms": main["b1_launch_ms"], "plain_launch_ms": main["plain_launch_ms"],
+         "split": G_demo, "floor_ms": floor["b1_ms"],
          **bounds(R, ops_per_lane("bicycle", False, False, K, nd, False), K)},
         {"name": "sample_and_rollout_kernel", "route": "cuda",
          "source": "cudasbmp_torch/csrc/rollout.cu",
@@ -1383,6 +1518,7 @@ def main() -> int:
          "launches": b2_main, "max_abs_err": max(b2["max_abs_err"], inst_err),
          "ms": main["b2_ms"], "plain_ms": main["twin_ms"],
          "launch_ms": main["b2_launch_ms"], "plain_launch_ms": main["twin_launch_ms"],
+         "split": G_demo, "floor_ms": floor["b2_ms"],
          **bounds(R, ops_per_lane("bicycle", False, False, K, nd, True), K, 1)},
         {"name": "rollout_kernel<footprint> (B3)", "route": "cuda",
          "source": "cudasbmp_torch/csrc/rollout.cu",
@@ -1391,7 +1527,9 @@ def main() -> int:
          "launches": option_launches, "max_abs_err": inst_err,
          "ms": fp_t["kernel_ms"], "plain_ms": fp_t["plain_ms"],
          "launch_ms": fp_t["kernel_launch_ms"], "plain_launch_ms": fp_t["plain_launch_ms"],
-         **bounds(B_CHECK, ops_per_lane("dubins", True, False, K, nd, False), K)},
+         "timed": "bicycle + footprint, 4096 lanes",
+         "split": G_options, "floor_ms": floor["b3_ms"],
+         **bounds(R, ops_per_lane("bicycle", True, False, K, nd, False), K)},
         {"name": "rollout_kernel<fast_math> (B4)", "route": "cuda",
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/ops/rollout_pallas.py:81",
@@ -1400,7 +1538,9 @@ def main() -> int:
          "ms": fast_t["kernel_ms"], "plain_ms": fast_t["plain_ms"],
          "launch_ms": fast_t["kernel_launch_ms"],
          "plain_launch_ms": fast_t["plain_launch_ms"],
-         **bounds(B_CHECK, ops_per_lane("bicycle", True, True, K, nd, False), K)},
+         "timed": "bicycle + footprint + fast math, 4096 lanes",
+         "split": G_options, "floor_ms": floor["b4_ms"],
+         **bounds(R, ops_per_lane("bicycle", True, True, K, nd, False), K)},
         {"name": "rollout_kernel, per-problem boxes (B6)", "route": "cuda",
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/parallel/batch_kgmt.py:227",
@@ -1408,6 +1548,7 @@ def main() -> int:
          "launches": mc["launches"] + stream["auto"]["launches"],
          "max_abs_err": b6["max_abs_err"], "ms": bt["b6_ms"], "plain_ms": bt["plain_ms"],
          "launch_ms": bt["b6_launch_ms"], "plain_launch_ms": bt["plain_launch_ms"],
+         "split": G_b6, "splits": b6_splits, "floor_ms": floor["b6_ms"],
          **bounds(nb * nr, ops_per_lane("bicycle", False, False, nk, nd, False), nb * nk)},
         {"name": "sample_and_rollout_kernel, per-problem boxes and keys (B6)",
          "route": "cuda",
@@ -1418,6 +1559,7 @@ def main() -> int:
          "max_abs_err": b6["max_abs_err"], "ms": bt["b6_rng_ms"],
          "plain_ms": bt["rng_plain_ms"], "launch_ms": bt["b6_rng_launch_ms"],
          "plain_launch_ms": bt["rng_plain_launch_ms"],
+         "split": 1, "floor_ms": floor["b6_rng_ms"],
          **bounds(nb * nr, ops_per_lane("bicycle", False, False, nk, nd, True), nb * nk,
                   nb)},
         {"name": "sample_and_rollout_kernel<cull> (B5)", "route": "cuda",
@@ -1428,7 +1570,7 @@ def main() -> int:
          "ms": b5t["grouped_W4_ms"], "plain_ms": b5t["plain_grouped_W4_ms"],
          "launch_ms": b5t["grouped_W4_launch_ms"],
          "plain_launch_ms": b5t["plain_grouped_W4_launch_ms"],
-         "cull_off_ms": b5t["grouped_W0_ms"],
+         "cull_off_ms": b5t["grouped_W0_ms"], "floor_ms": floor["b5_ms"],
          **bounds(B_CHECK, ops_per_lane("bicycle", False, False, 24, nd, True), 24, 1)},
         {"name": "alu_chain_kernel (P1a)", "route": "cuda",
          "source": "cudasbmp_torch/csrc/chains.cu",

@@ -28,6 +28,11 @@
 // increment per link after one floor modulo, the same integers.
 // The program of P1 is a runtime size (`program` elements): the element's
 // m and eps come from its program's first element, never from blockIdx.
+//
+// sincos_kernel is no TPU kernel's port: it checks the rollout kernels'
+// heading trig (csrc/rollout.cu::cos_sin, one sincosf for the pair) against
+// the separate cosf and sinf that PyTorch's cos and sin, and so the plain
+// twins, call (ops/chains_cuda.py::sincos_differences, every float).
 
 #include <cuda_runtime.h>
 
@@ -112,6 +117,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+    sincos_kernel(const float* __restrict__ x, float* __restrict__ s,
+                  float* __restrict__ c, int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n) sincosf(x[e], s + e, c + e);
+}
+
 int start(int device) { return static_cast<int>(cudaSetDevice(device)); }
 
 }  // namespace
@@ -121,6 +133,18 @@ int start(int device) { return static_cast<int>(cudaSetDevice(device)); }
 // [rows, 128], idx int32 [n_rows, 128], y f32 [n_rows, 128] (P2). Each
 // launches on `stream` without synchronising and returns 0 or a
 // cudaError_t.
+
+extern "C" int cudasbmp_sincos(int device, const void* x, void* s, void* c,
+                               int n, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = start(device)) return err;
+  if (n == 0) return 0;
+  sincos_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(s),
+      static_cast<float*>(c), n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int cudasbmp_alu_chain(int device, const void* x, void* y, int n,
                                   int program, int chain, void* stream) {
@@ -162,7 +186,10 @@ extern "C" int cudasbmp_gather_chain(int device, const void* tbl, int rows,
     const cudaError_t e = cudaFuncSetAttribute(
         gather_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // leave no error for a later launch
+      return static_cast<int>(e);
+    }
   }
   if (n_rows == 0) return 0;
   const dim3 grid(kLanes / kSliceLanes,

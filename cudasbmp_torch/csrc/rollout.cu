@@ -14,16 +14,49 @@
 // pose against every obstacle (separating axes); a rollout freezes at the
 // candidate state of its first failing step (the reference's break).
 //
-// What bounds it on this card: transcendental and ALU throughput, not
-// bytes. A 10-step rollout reads 28 B (a float4 state and three controls)
-// and writes 17 B (a float4 state and a valid byte), but computes up to 2
-// trig functions per step (4 with a footprint on the exact path) and a
-// 4-axis test per step and obstacle. The design keeps the whole step loop in
-// registers, one thread per rollout, with the obstacle set in dynamic shared
-// memory (16 B per box, loaded once per block), so device memory is touched
-// once on the way in and once on the way out. Shared memory caps K at what
-// one block can hold (cudaDevAttrMaxSharedMemoryPerBlockOptin / 16: 14,528
-// boxes at 227 KB on an H100).
+// What bounds it on this card depends on the width of the launch. A 10-step
+// rollout reads 28 B (a float4 state and three controls) and writes 17 B (a
+// float4 state and a valid byte), but computes up to 2 trig functions per
+// step (4 with a footprint on the exact path) and a 4-axis test per step
+// and obstacle, so bytes never bound it. Where the launch fills the card
+// (2^17 probe lanes, the sweeps' 1,024 x 128) ALU issue slots do. At the
+// demo's wave of 4,096 lanes, one thread per rollout in 256-thread blocks
+// is 16 blocks on 16 of the 132 SMs, and the time is the latency of one
+// rollout's serial chain: 10 dependent steps, each its trig and a walk over
+// the K boxes in shared memory. The design keeps the whole step loop in
+// registers, with the obstacle set in dynamic shared memory (16 B per box,
+// loaded once per block), so device memory is touched once on the way in
+// and once on the way out. Shared memory caps K at what one block can hold
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin / 16: 14,528 boxes at 227 KB on
+// an H100).
+//
+// Thread groups (Params::split, G in {1, 2, 4, 8}, a runtime value, so no
+// instantiation of its own) shorten that chain at narrow widths. G adjacent
+// threads of a warp serve one rollout. Every sub-lane g runs the same Euler
+// chain (the same instructions on the same values, so the same bits) and
+// tests only the boxes o = g mod G; the step's clear is the AND over the
+// group, from one __ballot_sync a step. Where ceil(K / G) <= kRegBoxes a
+// sub-lane reads its boxes from device memory into registers, neutral boxes
+// filling the other slots, so a step tests kRegBoxes boxes without a branch
+// and needs no block barrier (the boxes reach registers through the
+// thread's own shared-memory slots, by cp.async). The chain runs
+// unconditionally (integrate_group), so a step never waits on the previous
+// step's box tests and ballot; (x1, valid) stay the one-thread body's to the
+// bit whatever G. At the demo's 8 boxes G = 4 gives each sub-lane two, in
+// registers: 64 blocks on 64 SMs, each step 2 box tests instead of 8. The
+// heading's cosine and sine come from one sincosf (cos_sin), one range
+// reduction for the pair instead of two in a row; it rounds as cosf and
+// sinf apart for every float (ops/chains_cuda.py::sincos_differences).
+// With G > 1 the threads past R stay in their warp (neutral state, masked
+// loads and stores) for the ballot, and sub-lane 0 alone writes the
+// outputs. Blocks stay kThreads threads, 256 / G rollouts each, so B6's
+// problems still start on block boundaries. Where the card is full, G > 1
+// only adds work (the chain runs G times), so the wrapper's rule
+// (ops/rollout_cuda.py::lanes_per_rollout) picks G = 1 there, where the
+// one-thread body (integrate) walks the boxes in shared memory: the group
+// body at G = 1 ran 12% slower at 32,768 lanes and 20% at 2^17; the culled
+// instantiations (kCull) always run with G = 1: their warp is the unit that
+// skips boxes together, which sub-lanes would split.
 //
 // Floating point: every add, subtract, multiply and divide of the step, of
 // the rotation recurrence and of the footprint test is an explicit
@@ -31,9 +64,10 @@
 // which nvcc never contracts into an FMA, in the plain PyTorch version's op
 // order (cudasbmp_torch/systems/*.py, geometry/footprint.py), so kernel and
 // plain version agree to the bit. The build keeps nvcc's default
-// --fmad=true and no --use_fast_math: cosf/sinf/tanf are the accurate CUDA
-// math-library functions, compiled as PyTorch's own cos/sin/tan kernels are.
-// dt = dur / num_disc is a true division.
+// --fmad=true and no --use_fast_math: sincosf/cosf/sinf/tanf are the
+// accurate CUDA math-library functions, compiled as PyTorch's own
+// cos/sin/tan kernels are (sincosf rounds as cosf and sinf apart). dt =
+// dur / num_disc is a true division.
 //
 // B2 draws its controls from Philox-4x32-10 (Random123): key = the two
 // words of the wave's threefry control key, counter = (lane, 0, 0, 0),
@@ -44,8 +78,8 @@
 // (cudasbmp_tpu/parallel/batch_kgmt.py:200-211, 226-230): the batched
 // arena's Monte-Carlo sweep and the streaming sweep, where every problem
 // has its own boxes. It is the same two kernels. A launch runs P problems
-// of R lanes each, one thread per lane in blocks of kThreads: block j
-// serves problem j / ceil(R / kThreads) and loads only that problem's
+// of R lanes each, G threads per lane in blocks of kThreads: block j
+// serves problem j / ceil(R * G / kThreads) and loads only that problem's
 // boxes, at obstacles + stride * problem, with a stride of 4*K floats for
 // B6 and 0 for B1/B2 (P = 1, one shared set). The Philox form keys
 // problem b with keys[b] (a key stride of 2, or 0 for B2's one key) and
@@ -70,10 +104,20 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kStaticSmemLimit = 48 * 1024;
+constexpr int kMaxSplit = 8;   // threads a rollout, at most
+constexpr int kRegBoxes = 2;   // boxes a sub-lane holds in registers, at most
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+
+// (cos x, sin x) from one sincosf
+__device__ __forceinline__ float2 cos_sin(float x) {
+  float sn, cs;
+  sincosf(x, &sn, &cs);
+  return make_float2(cs, sn);
+}
 
 // x + (v * c) * dt, the position update every system shares
 __device__ __forceinline__ float advance(float x, float v, float c, float dt) {
@@ -103,8 +147,9 @@ struct Bicycle {  // (x, y, theta, v); controls (a, steering)
     return {a, tanf(steering)};
   }
   __device__ float4 step(float4 s, Aux q, float dt) const {
-    return make_float4(advance(s.x, s.w, cosf(s.z), dt),
-                       advance(s.y, s.w, sinf(s.z), dt),
+    const float2 cs = cos_sin(s.z);
+    return make_float4(advance(s.x, s.w, cs.x, dt),
+                       advance(s.y, s.w, cs.y, dt),
                        add(s.z, mul(mul(__fdiv_rn(s.w, L), q.tan_s), dt)),
                        add(s.w, mul(q.a, dt)));
   }
@@ -162,8 +207,9 @@ struct ConstantTurn {  // (x, y, theta, 0); controls (v, omega | kappa)
     return kCurvature ? mul(mul(v, turn), dt) : mul(turn, dt);
   }
   __device__ float4 step(float4 s, Aux q, float dt) const {
-    return make_float4(advance(s.x, q.v, cosf(s.z), dt),
-                       advance(s.y, q.v, sinf(s.z), dt),
+    const float2 cs = cos_sin(s.z);
+    return make_float4(advance(s.x, q.v, cs.x, dt),
+                       advance(s.y, q.v, cs.y, dt),
                        add(s.z, dtheta(q.v, q.turn, dt)), 0.0f);
   }
   __device__ void prepare_fast(float4 s, float v, float turn, float dt,
@@ -192,11 +238,13 @@ struct Params {
   const float* obstacles;  // [K, 4] xmin, ymin, xmax, ymax, or [P, K, 4]
   size_t obstacle_stride;  // floats from one problem's set to the next: 4*K or 0
   int K, R, num_disc;      // R lanes per problem
-  int blocks_per_problem;  // ceil(R / kThreads)
+  int blocks_per_problem;  // ceil(R * split / kThreads)
   float width, height;
   float hl, hw;  // footprint half length / half width
   int windows;   // B5: step windows of the culled broad phase (0: off)
   float pad;     // B5: how far the body reaches from (x, y): hl + hypot(hl, hw)
+  int split, split_log2;  // G threads a rollout (1 with windows) and log2 G
+  int reg_boxes;          // ceil(K / G) <= kRegBoxes: boxes in registers
 };
 
 __device__ __forceinline__ bool in_bounds(float nx, float ny, const Params& p) {
@@ -224,7 +272,10 @@ struct StepTest {
     }
   }
   __device__ __forceinline__ bool clears(const float* o, const Params& p) const {
-    const float b0 = o[0], b1 = o[1], b2 = o[2], b3 = o[3];
+    return clears(make_float4(o[0], o[1], o[2], o[3]), p);
+  }
+  __device__ __forceinline__ bool clears(float4 o, const Params& p) const {
+    const float b0 = o.x, b1 = o.y, b2 = o.z, b3 = o.w;
     bool clear = (bmaxx <= b0) | (b2 <= bminx) | (bmaxy <= b1) | (b3 <= bminy);
     if constexpr (kFootprint) {
       const float bcx = mul(add(b0, b2), 0.5f), bcy = mul(add(b1, b3), 0.5f);
@@ -264,8 +315,9 @@ struct Chain {
     ct = 1.0f;  // no heading: an axis-aligned body
     st = 0.0f;
     if constexpr (kFootprint && Sys::kHeading) {
-      ct = cosf(n.z);
-      st = sinf(n.z);
+      const float2 cs = cos_sin(n.z);
+      ct = cs.x;
+      st = cs.y;
     }
   }
 };
@@ -289,8 +341,11 @@ struct Chain<Sys, true> {
   }
 };
 
-// The one-pass body of B1-B4: every step tests the workspace bounds and
-// every box; a rollout freezes at the candidate of its first failing step.
+// The one-pass body of B1-B4 on one thread a rollout (G = 1, boxes past
+// the register cap): every step tests the workspace bounds and every box in
+// shared memory; a rollout freezes at the candidate of its first failing
+// step. integrate_group with SharedBoxes computes the same at G = 1, but
+// ran 12-20% slower on full launches (PERF.md, the G = 1 body).
 template <class Sys, bool kFootprint, bool kFast>
 __device__ __forceinline__ bool integrate(const Sys& sys, float4& s, float c0,
                                           float c1, float dur,
@@ -307,6 +362,113 @@ __device__ __forceinline__ bool integrate(const Sys& sys, float4& s, float c0,
     for (int o = 0; o < p.K; ++o) clear &= t.clears(obs + 4 * o, p);
     if (alive) s = n;
     alive &= clear;
+  }
+  return alive;
+}
+
+// The AND of ``clear`` over the G sub-lanes of this thread's group (G > 1):
+// one ballot of the whole warp, so every thread of the warp calls it.
+__device__ __forceinline__ bool group_all(bool clear, const Params& p) {
+  const unsigned votes = __ballot_sync(kFullWarp, clear);
+  const unsigned group = ((1u << p.split) - 1u)
+                         << ((threadIdx.x & 31) & ~(p.split - 1));
+  return (votes & group) == group;
+}
+
+// How many boxes sub-lane g tests: those of o = g mod G below K.
+__device__ __forceinline__ int boxes_of(int g, const Params& p) {
+  return g < p.K ? ((p.K - 1 - g) >> p.split_log2) + 1 : 0;
+}
+
+// A box that clears every step that is in bounds: it is separated on every
+// broad-phase axis from any finite swept box and fails valid_box in the
+// narrow phase (a step out of bounds fails whatever the boxes say).
+__device__ __forceinline__ float4 neutral_box() {
+  return make_float4(INFINITY, INFINITY, -INFINITY, -INFINITY);
+}
+
+// Sub-lane g's boxes in registers (p.reg_boxes): its few, neutral boxes in
+// the other slots, so every step tests all kRegBoxes slots without a branch.
+// When the thread starts, stage() copies them from device memory into its
+// own kRegBoxes slots of shared memory with cp.async, which holds no
+// register while it runs; load() waits for the copy and reads them into
+// registers once the chain is prepared. So their latency overlaps the
+// prologue's, and no box is live in a register across its divisions and
+// trig. No other thread reads the slots: no barrier.
+struct RegBoxes {
+  const float4* src;  // the problem's boxes in device memory
+  float4* slot;       // this thread's kRegBoxes slots in shared memory
+  int g;
+  float4 box[kRegBoxes];
+  __device__ __forceinline__ void stage(const Params& p) const {
+    const int mine = boxes_of(g, p);
+#pragma unroll
+    for (int j = 0; j < kRegBoxes; ++j)
+      if (j < mine)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 16;"
+                     :: "r"(static_cast<unsigned>(
+                            __cvta_generic_to_shared(slot + j))),
+                        "l"(src + g + (j << p.split_log2))
+                     : "memory");
+  }
+  __device__ __forceinline__ void load(const Params& p) {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    const int mine = boxes_of(g, p);
+#pragma unroll
+    for (int j = 0; j < kRegBoxes; ++j)
+      box[j] = j < mine ? slot[j] : neutral_box();
+  }
+  template <bool kFootprint>
+  __device__ __forceinline__ bool clear(const StepTest<kFootprint>& t,
+                                        const Params& p) const {
+    bool c = true;
+#pragma unroll
+    for (int j = 0; j < kRegBoxes; ++j) c &= t.clears(box[j], p);
+    return c;
+  }
+};
+
+// Sub-lane g's boxes in shared memory: o = g, g + G, ... below K.
+struct SharedBoxes {
+  const float4* obs;
+  int g;
+  __device__ __forceinline__ void load(const Params&) const {}
+  template <bool kFootprint>
+  __device__ __forceinline__ bool clear(const StepTest<kFootprint>& t,
+                                        const Params& p) const {
+    bool c = true;
+    for (int o = g; o < p.K; o += p.split) c &= t.clears(obs[o], p);
+    return c;
+  }
+};
+
+// The same body on a group of G threads (or on one, with its boxes in
+// registers): sub-lane g tests its boxes (``boxes``), and the group ANDs
+// its verdicts. The chain runs unconditionally (u), as the culled body's
+// pass 1 does: a live rollout's state is u, and a dead one's candidates are
+// never taken, so (s, alive) are integrate's to the bit, while the next step
+// no longer waits on this step's box tests and ballot; the loop is unrolled
+// by two so the compiler can overlap them.
+template <class Sys, bool kFootprint, bool kFast, class Boxes>
+__device__ __forceinline__ bool integrate_group(const Sys& sys, float4& s,
+                                                float c0, float c1, float dur,
+                                                Boxes boxes, const Params& p) {
+  const float dt = __fdiv_rn(dur, static_cast<float>(p.num_disc));
+  Chain<Sys, kFast> chain(sys, s, c0, c1, dt);
+  boxes.load(p);
+  float4 u = s;
+  bool alive = true;
+#pragma unroll 2
+  for (int i = 0; i < p.num_disc; ++i) {
+    const float4 n = chain.step(sys, u, dt);
+    float ct, st;
+    chain.template pose<kFootprint>(n, ct, st);
+    const StepTest<kFootprint> t(u.x, u.y, n.x, n.y, ct, st, p);
+    bool clear = in_bounds(n.x, n.y, p) & boxes.clear(t, p);
+    if (p.split > 1) clear = group_all(clear, p);
+    if (alive) s = n;
+    alive &= clear;
+    u = n;
   }
   return alive;
 }
@@ -333,8 +495,6 @@ __device__ __forceinline__ bool integrate(const Sys& sys, float4& s, float c0,
 // step work, trig included, for fewer box tests). Lanes past R stay in the
 // warp with neutral boxes, so every shuffle and ballot has all 32 threads;
 // B6's problems start on block boundaries, so no warp spans two problems.
-
-constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Python's round(w * n / W) for 0 <= w <= W: the first step of window w
 __device__ __forceinline__ int window_start(int w, int n, int W) {
@@ -410,27 +570,55 @@ __device__ __forceinline__ bool integrate_culled(const Sys& sys, float4& s,
 
 template <class Sys, bool kFootprint, bool kFast, bool kCull>
 __device__ __forceinline__ bool run(const Sys& sys, float4& s, float c0,
-                                    float c1, float dur, const float* obs,
-                                    const Params& p, bool active) {
-  if constexpr (kCull)
+                                    float c1, float dur, const RegBoxes& regs,
+                                    const float* obs, const Params& p,
+                                    bool active, int g) {
+  if constexpr (kCull) {
     return integrate_culled<Sys, kFootprint, kFast>(sys, s, c0, c1, dur, obs,
                                                     p, active);
-  else
+  } else {
+    if (p.reg_boxes)
+      return integrate_group<Sys, kFootprint, kFast>(sys, s, c0, c1, dur,
+                                                     regs, p);
+    if (p.split > 1)
+      return integrate_group<Sys, kFootprint, kFast>(
+          sys, s, c0, c1, dur,
+          SharedBoxes{reinterpret_cast<const float4*>(obs), g}, p);
     return integrate<Sys, kFootprint, kFast>(sys, s, c0, c1, dur, obs, p);
+  }
 }
 
-// The block's problem b and this thread's lane r within it; copies the
-// problem's K boxes from device memory to the block's shared memory.
-// Returns false for a thread past the problem's last lane, which returns
-// at once unless the culled body (kCull) needs it in its warp.
-__device__ __forceinline__ bool locate(const Params& p, float* obs, int& b,
-                                       int& r) {
+// This thread's problem b, its lane r within it and its sub-lane g: the
+// block holds kThreads / G rollouts, G adjacent threads each. False for a
+// thread past the problem's last lane, which returns once the boxes are in
+// place unless its warp needs it: the culled body (kCull) and G > 1.
+// tests/test_torch_split.py::thread_map is this map in Python.
+__device__ __forceinline__ bool locate(const Params& p, int& b, int& r,
+                                       int& g) {
   b = p.obstacle_stride ? blockIdx.x / p.blocks_per_problem : 0;
+  g = threadIdx.x & (p.split - 1);
+  r = (blockIdx.x - b * p.blocks_per_problem) * (kThreads >> p.split_log2) +
+      (threadIdx.x >> p.split_log2);
+  return r < p.R;
+}
+
+// Problem b's boxes: sub-lane g's few staged for registers (p.reg_boxes,
+// read in integrate_group), or all K copied into the block's shared memory.
+// Called after the thread's own loads are issued, so their latencies
+// overlap; a thread that returns at once (``runs`` false) stages none.
+__device__ __forceinline__ RegBoxes load_boxes(const Params& p, int b, int g,
+                                               float* obs, bool runs) {
   const float* src = p.obstacles + p.obstacle_stride * b;
+  const RegBoxes regs{reinterpret_cast<const float4*>(src),
+                      reinterpret_cast<float4*>(obs) + threadIdx.x * kRegBoxes,
+                      g, {}};
+  if (p.reg_boxes) {
+    if (runs) regs.stage(p);
+    return regs;
+  }
   for (int j = threadIdx.x; j < 4 * p.K; j += blockDim.x) obs[j] = src[j];
   __syncthreads();
-  r = (blockIdx.x - b * p.blocks_per_problem) * blockDim.x + threadIdx.x;
-  return r < p.R;
+  return regs;
 }
 
 template <class Sys, bool kFootprint, bool kFast, bool kCull>
@@ -438,10 +626,10 @@ __global__ void __launch_bounds__(kThreads)
     rollout_kernel(Sys sys, Params p, const float4* __restrict__ x0,
                    const float* __restrict__ controls,
                    float4* __restrict__ x1, uint8_t* __restrict__ valid) {
-  extern __shared__ float obs[];
-  int b, r;
-  const bool active = locate(p, obs, b, r);
-  if (!kCull && !active) return;
+  extern __shared__ float4 smem[];  // the boxes, 16-byte aligned
+  float* obs = reinterpret_cast<float*>(smem);
+  int b, r, g;
+  const bool active = locate(p, b, r, g);
   const int i = b * p.R + r;
   float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float c0 = 0.0f, c1 = 0.0f, dur = 0.0f;
@@ -452,9 +640,12 @@ __global__ void __launch_bounds__(kThreads)
     c1 = c[1];
     dur = c[2];
   }
-  const bool alive = run<Sys, kFootprint, kFast, kCull>(sys, s, c0, c1, dur,
-                                                        obs, p, active);
-  if (active) {
+  const bool runs = kCull || p.split > 1 || active;
+  const RegBoxes regs = load_boxes(p, b, g, obs, runs);
+  if (!runs) return;
+  const bool alive = run<Sys, kFootprint, kFast, kCull>(
+      sys, s, c0, c1, dur, regs, obs, p, active, g);
+  if (active && g == 0) {
     x1[i] = s;
     valid[i] = alive;
   }
@@ -491,7 +682,8 @@ __device__ __forceinline__ float draw(uint32_t bits, float lo, float hi) {
 struct Bounds { float lo0, lo1, lo2, hi0, hi1, hi2; };
 
 // Lane r of problem b draws at counter (r, 0, 0, 0) under the key words
-// keys[key_stride * b].
+// keys[key_stride * b]; every sub-lane of its group draws the same bits,
+// and sub-lane 0 writes them.
 template <class Sys, bool kFootprint, bool kFast, bool kCull>
 __global__ void __launch_bounds__(kThreads)
     sample_and_rollout_kernel(Sys sys, Params p, Bounds bounds,
@@ -500,11 +692,13 @@ __global__ void __launch_bounds__(kThreads)
                               float4* __restrict__ x1,
                               float* __restrict__ controls,
                               uint8_t* __restrict__ valid) {
-  extern __shared__ float obs[];
-  int b, r;
-  const bool active = locate(p, obs, b, r);
-  if (!kCull && !active) return;
+  extern __shared__ float4 smem[];  // the boxes, 16-byte aligned
+  float* obs = reinterpret_cast<float*>(smem);
+  int b, r, g;
+  const bool active = locate(p, b, r, g);
   const int i = b * p.R + r;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (active) s = x0[i];
   const int64_t* key = keys + static_cast<size_t>(key_stride) * b;
   const uint4 bits =
       philox4x32_10(make_uint4(static_cast<uint32_t>(r), 0u, 0u, 0u),
@@ -513,17 +707,16 @@ __global__ void __launch_bounds__(kThreads)
   const float c0 = draw(bits.x, bounds.lo0, bounds.hi0);
   const float c1 = draw(bits.y, bounds.lo1, bounds.hi1);
   const float dur = draw(bits.z, bounds.lo2, bounds.hi2);
-  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (active) {
+  const bool runs = kCull || p.split > 1 || active;
+  const RegBoxes regs = load_boxes(p, b, g, obs, runs);
+  if (!runs) return;
+  const bool alive = run<Sys, kFootprint, kFast, kCull>(
+      sys, s, c0, c1, dur, regs, obs, p, active, g);
+  if (active && g == 0) {
     float* c = controls + 3 * i;
     c[0] = c0;
     c[1] = c1;
     c[2] = dur;
-    s = x0[i];
-  }
-  const bool alive = run<Sys, kFootprint, kFast, kCull>(sys, s, c0, c1, dur,
-                                                        obs, p, active);
-  if (active) {
     x1[i] = s;
     valid[i] = alive;
   }
@@ -550,14 +743,18 @@ struct Buffers {
 template <class Kernel>
 int allow_smem(Kernel kernel, size_t smem) {
   if (smem <= kStaticSmemLimit) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
+  const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
+      static_cast<int>(smem));
+  if (e != cudaSuccess) cudaGetLastError();  // leave no error for a later launch
+  return static_cast<int>(e);
 }
 
 template <int kForm, class Sys, bool kFootprint, bool kFast, bool kCull>
 int launch(const Sys& sys, const Params& p, const Buffers& b) {
-  const size_t smem = 16 * static_cast<size_t>(p.K);
+  // the walk's K boxes, or each thread's kRegBoxes staging slots
+  const size_t smem = p.reg_boxes ? sizeof(float4) * kThreads * kRegBoxes
+                                  : sizeof(float4) * static_cast<size_t>(p.K);
   const auto x0 = static_cast<const float4*>(b.x0);
   const auto x1 = static_cast<float4*>(b.x1);
   const auto valid = static_cast<uint8_t*>(b.valid);
@@ -623,25 +820,34 @@ int max_obstacles(int device) {
   return e == cudaSuccess ? bytes / 16 : -static_cast<int>(e);
 }
 
-// Check a launch of P problems of R lanes and fill p and b's grid (no
-// blocks: nothing to launch). Returns 0 or a cudaError_t.
+// Check a launch of P problems of R lanes at G = split threads a rollout
+// and fill p and b's grid (no blocks: nothing to launch): ceil(R * G /
+// kThreads) blocks a problem (tests/test_torch_split.py::launch_geometry).
+// Returns 0 or a cudaError_t.
 int prepare(int device, int flags, const void* obstacles, int K,
             int per_problem, int P, int R, int num_disc, float width,
             float height, float hl, float hw, int windows, float pad,
-            Params* p, Buffers* b) {
+            int split, Params* p, Buffers* b) {
   const cudaError_t invalid = cudaErrorInvalidValue;
   if (P < 0 || R < 0 || K < 0 || num_disc < 1 || (flags & ~3) ||
-      (per_problem & ~1) || windows < 0 || windows > num_disc)
+      (per_problem & ~1) || windows < 0 || windows > num_disc ||
+      split < 1 || split > kMaxSplit || (split & (split - 1)) ||
+      (windows && split != 1))
     return static_cast<int>(invalid);
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (K > max_obstacles(device)) return static_cast<int>(invalid);
-  const int per = (R + kThreads - 1) / kThreads;
-  if (static_cast<long long>(P) * R > INT_MAX) return static_cast<int>(invalid);
-  b->blocks = P * per;
+  const long long per =
+      (static_cast<long long>(R) * split + kThreads - 1) / kThreads;
+  if (static_cast<long long>(P) * R > INT_MAX || P * per > INT_MAX)
+    return static_cast<int>(invalid);
+  b->blocks = static_cast<int>(P * per);
+  const int split_log2 = __builtin_ctz(split);
   *p = Params{static_cast<const float*>(obstacles),
               per_problem ? 4 * static_cast<size_t>(K) : 0, K, R, num_disc,
-              per > 0 ? per : 1, width, height, hl, hw, windows, pad};
+              per > 0 ? static_cast<int>(per) : 1, width, height, hl, hw,
+              windows, pad, split, split_log2,
+              !windows && ((K + split - 1) >> split_log2) <= kRegBoxes};
   return 0;
 }
 
@@ -655,7 +861,8 @@ int prepare(int device, int flags, const void* obstacles, int K,
 // `system` is a SystemId, `param` the bicycle's wheelbase L (unused by the
 // other systems), `flags` ORs 1 = footprint (half extents hl, hw) and 2 =
 // fast math; `windows` > 0 runs the culled broad phase B5 with that many
-// step windows (at most num_disc) and the union boxes padded by `pad`.
+// step windows (at most num_disc) and the union boxes padded by `pad`;
+// `split` is G, the threads a rollout (1, 2, 4 or 8; 1 with windows).
 // Each launches on `stream` without synchronising and returns 0 or a
 // cudaError_t.
 
@@ -669,12 +876,13 @@ extern "C" int cudasbmp_rollout(int device, int system, int flags,
                                 void* x1, void* valid, int P, int R,
                                 int num_disc, float width, float height,
                                 float param, float hl, float hw,
-                                int windows, float pad, void* stream) {
+                                int windows, float pad, int split,
+                                void* stream) {
   Params p;
   Buffers b{};
   const int err = prepare(device, flags, obstacles, K, per_problem, P, R,
-                          num_disc, width, height, hl, hw, windows, pad, &p,
-                          &b);
+                          num_disc, width, height, hl, hw, windows, pad,
+                          split, &p, &b);
   if (err || b.blocks == 0) return err;
   b.x0 = x0;
   b.controls = controls;
@@ -689,12 +897,13 @@ extern "C" int cudasbmp_sample_and_rollout(
     const void* obstacles, int K, int per_problem, void* x1, void* controls,
     void* valid, int P, int R, int num_disc, float width, float height,
     float param, float hl, float hw, int windows, float pad, float lo0,
-    float lo1, float lo2, float hi0, float hi1, float hi2, void* stream) {
+    float lo1, float lo2, float hi0, float hi1, float hi2, int split,
+    void* stream) {
   Params p;
   Buffers b{};
   const int err = prepare(device, flags, obstacles, K, per_problem, P, R,
-                          num_disc, width, height, hl, hw, windows, pad, &p,
-                          &b);
+                          num_disc, width, height, hl, hw, windows, pad,
+                          split, &p, &b);
   if (err || b.blocks == 0) return err;
   b.x0 = x0;
   b.x1 = x1;

@@ -9,8 +9,12 @@ probes of tools/roofline.py and tools/r3_probe1.py, and their plain twins:
 - ``gather_chain_cuda`` (P2, ``_gather_kernel``): y <- y + tbl[(idx + i) %
   rows, lane] for i < chain from y = 0, tbl [rows, 128], idx int32 [N, 128].
 
-``alu_chain_torch``, ``trans_chain_torch`` and ``gather_chain_torch`` are
-their plain twins. The ALU twin rounds the multiply and the add apart (the
+``sincos_cuda`` is no TPU kernel's port: sincosf, as the rollout kernels
+take a heading's cosine and sine, held against ``torch.sin`` and
+``torch.cos`` over every float by ``sincos_differences``.
+
+``alu_chain_torch``, ``trans_chain_torch``, ``gather_chain_torch`` and
+``sincos_torch`` are their plain twins. The ALU twin rounds the multiply and the add apart (the
 kernel fuses them, as jitted XLA does), so the two agree within rounding;
 the gather twin adds in the kernel's order, to the bit. One rule for every
 wrapper: tensors on the CPU go through the plain twin; CUDA tensors launch
@@ -129,11 +133,46 @@ def gather_chain_cuda(tbl: torch.Tensor, idx: torch.Tensor, chain: int
     return y
 
 
+def sincos_torch(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return torch.sin(x), torch.cos(x)
+
+
+def sincos_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sin x, cos x) of f32 x from one sincosf each, as
+    csrc/rollout.cu::cos_sin computes a heading's pair."""
+    _check("x", x, tuple(x.shape), torch.float32)
+    if _device_of(x).type == "cpu":
+        return sincos_torch(x)
+    s, c = torch.empty_like(x), torch.empty_like(x)
+    rc = _build.load().cudasbmp_sincos(
+        _index(x.device), x.data_ptr(), s.data_ptr(), c.data_ptr(), x.numel(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "sincos_kernel")
+    sincos_cuda.launches += 1
+    return s, c
+
+
+def sincos_differences(device, chunk: int = 1 << 26) -> int:
+    """How many of the 2^32 float bit patterns ``sincos_cuda`` maps to
+    another sine or cosine than ``torch.sin``/``torch.cos`` on ``device``
+    (a NaN equals any NaN). 0 means the rollout kernels' one sincosf a
+    heading rounds as the plain twins' separate cos and sin, for every
+    input."""
+    bad = 0
+    for base in range(-2 ** 31, 2 ** 31, chunk):
+        x = torch.arange(base, base + chunk, dtype=torch.int64, device=device)
+        x = x.to(torch.int32).view(torch.float32)
+        for a, b in zip(sincos_cuda(x), sincos_torch(x)):
+            differ = a.view(torch.int32) != b.view(torch.int32)
+            bad += int((differ & ~(a.isnan() & b.isnan())).sum())
+    return bad
+
+
 WRAPPERS = (alu_chain_cuda, trans_chain_cuda, gather_chain_cuda)
 
 
 def reset_launch_counts() -> None:
-    for wrapper in WRAPPERS:
+    for wrapper in (*WRAPPERS, sincos_cuda):
         wrapper.launches = 0
 
 

@@ -34,11 +34,19 @@ One rule for every wrapper: tensors on the CPU go through the plain twin;
 CUDA tensors launch the kernel or raise. Nothing falls back from the card
 to the CPU or from the kernel to the plain version.
 
+On the card each rollout runs on a group of G threads (``split``, 1, 2, 4
+or 8): every sub-lane integrates the same chain and tests every G-th box,
+and the group ANDs the verdicts, so the result is the same for every G.
+``lanes_per_rollout`` picks G from the launch's total lanes and the card's
+SM count (G > 1 only where one thread a rollout would leave SMs idle);
+``split=`` forces it, for tests and measurements. The culled body (B5)
+always runs with G = 1.
+
 Each wrapper counts its launches in ``<wrapper>.launches``, per
 instantiation in ``<wrapper>.instantiations[(system name, footprint,
 fast)]`` (fast: the fast-math body ran, i.e. fast math on a system with the
-hooks), and the culled ones (B5) also in ``<wrapper>.culled``, all
-incremented only where the kernel is launched.
+hooks), per G in ``<wrapper>.splits[G]``, and the culled ones (B5) also in
+``<wrapper>.culled``, all incremented only where the kernel is launched.
 """
 
 from __future__ import annotations
@@ -66,6 +74,29 @@ SYSTEM_IDS = {KinematicBicycle: 0, Point2D: 1, DoubleIntegrator2D: 2,
               Unicycle: 3, DubinsCar: 4}
 FLAG_FOOTPRINT, FLAG_FAST = 1, 2
 WARP = 32  # the lanes B5 culls for together
+SPLITS = (1, 2, 4, 8)  # the threads a rollout may run on (kMaxSplit)
+# lanes_per_rollout's G for a narrow launch, and the threads an SM it may
+# fill with it: 16 warps, four for each of an SM's schedulers (PERF.md, the
+# per-G table)
+NARROW_SPLIT = 4
+SPLIT_THREADS_PER_SM = 16 * WARP
+
+
+def lanes_per_rollout(lanes: int, sm_count: int) -> int:
+    """G, the threads each rollout of a launch of ``lanes`` rollouts (all
+    problems together) runs on: NARROW_SPLIT where lanes * NARROW_SPLIT <=
+    SPLIT_THREADS_PER_SM * sm_count, else 1. A narrow launch, whose one
+    thread a rollout would leave most SMs idle and wait on one rollout's
+    chain, takes G = 4 (at 8 boxes two a sub-lane, in registers); a launch
+    that fills the card takes G = 1, where more threads a rollout would only
+    repeat the chain. On an H100 (132 SMs) G = 4 up to 16,896 lanes: the
+    demo's 4,096 and the extension rounds' buckets of 8 to 128 problems x
+    128 lanes; G = 1 from the arena's 32,768, the sweeps' 1,024 x 128 and
+    the probe's 2^17. G = 2 (its four boxes in shared memory) lost to G = 4
+    at every width and G = 8 won by at most 2.1%, at 2,048 lanes or
+    fewer."""
+    fits = lanes * NARROW_SPLIT <= SPLIT_THREADS_PER_SM * sm_count
+    return NARROW_SPLIT if fits else 1
 
 
 def cull_windows(cull: bool | int | None, num_disc: int) -> int:
@@ -329,6 +360,28 @@ def max_kernel_obstacles(device_index: int) -> int:
     return n
 
 
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """The card's streaming multiprocessors (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _check_split(split: int | None, cull) -> None:
+    if split is not None and (type(split) is not int or split not in SPLITS):
+        raise ValueError(f"split={split!r}: expected None or one of {SPLITS}")
+    if split not in (None, 1) and cull:
+        raise ValueError(f"split={split}: the culled body (cull={cull!r}) runs "
+                         "one thread a rollout")
+
+
+def _split(split: int | None, lanes: int, windows: int, dev: int) -> int:
+    """G for a launch on the card: ``split`` where given, else the rule;
+    1 for the culled body."""
+    if windows:
+        return 1
+    return split if split is not None else lanes_per_rollout(lanes, sm_count(dev))
+
+
 def _kernel_args(system, x0: torch.Tensor, obstacles: torch.Tensor,
                  footprint, fast_math: bool, per_problem: bool) -> tuple:
     """Check the inputs; return (device index, system id, flags, P, R, K,
@@ -349,6 +402,8 @@ def _kernel_args(system, x0: torch.Tensor, obstacles: torch.Tensor,
     if x0.data_ptr() % 16:
         raise ValueError("x0: rows are read as float4, need 16-byte alignment")
     _check("obstacles", obstacles, (*lanes[:-1], K, 4), torch.float32)
+    if obstacles.data_ptr() % 16:
+        raise ValueError("obstacles: rows are read as float4, need 16-byte alignment")
     dev = _index(x0.device)
     limit = max_kernel_obstacles(dev)
     if K > limit:
@@ -361,11 +416,13 @@ def _kernel_args(system, x0: torch.Tensor, obstacles: torch.Tensor,
     return dev, sid, flags, P, R, K, param, hl, hw
 
 
-def _count(wrapper, system, flags: int, windows: int) -> None:
+def _count(wrapper, system, flags: int, windows: int, split: int) -> None:
     """One launch of ``wrapper``'s kernel, in the instantiation
-    (system name, footprint, fast) it ran, culled (B5) or not."""
+    (system name, footprint, fast) it ran, culled (B5) or not, at G =
+    ``split``."""
     wrapper.launches += 1
     wrapper.culled += bool(windows)
+    wrapper.splits[split] += 1
     wrapper.instantiations[(system.name, bool(flags & FLAG_FOOTPRINT),
                             bool(flags & FLAG_FAST)
                             and hasattr(system, "soa_step_fast"))] += 1
@@ -387,12 +444,13 @@ def _plain_rollout(system, x0, controls, obstacles, *, cull, **kw):
 
 def _rollout(wrapper, system, x0: torch.Tensor, controls: torch.Tensor,
              obstacles: torch.Tensor, per_problem: bool, *, num_disc: int,
-             width: float, height: float, footprint, fast_math: bool, cull
-             ) -> tuple[torch.Tensor, torch.Tensor]:
+             width: float, height: float, footprint, fast_math: bool, cull,
+             split: int | None) -> tuple[torch.Tensor, torch.Tensor]:
     """``rollout_kernel`` on the card for ``wrapper`` (B1, or B6 with
     ``per_problem``; B5 with ``cull``), or the plain twin on the CPU."""
     kw = dict(num_disc=num_disc, width=width, height=height,
               footprint=footprint, fast_math=fast_math)
+    _check_split(split, cull)
     device = _device_of(x0, controls, obstacles)
     if device.type == "cpu":
         if obstacles.dim() != 2 + per_problem:
@@ -408,26 +466,28 @@ def _rollout(wrapper, system, x0: torch.Tensor, controls: torch.Tensor,
     if P * R == 0:
         return x1, valid
     windows = cull_windows(cull, num_disc)
+    G = _split(split, P * R, windows, dev)
     rc = _build.load().cudasbmp_rollout(
         dev, sid, flags, x0.data_ptr(), controls.data_ptr(),
         obstacles.data_ptr(), K, int(per_problem), x1.data_ptr(),
         valid.data_ptr(), P, R, num_disc, width, height, param, hl, hw,
-        windows, footprint_pad(footprint) if windows else 0.0,
+        windows, footprint_pad(footprint) if windows else 0.0, G,
         torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, "rollout_kernel")
-    _count(wrapper, system, flags, windows)
+    _count(wrapper, system, flags, windows, G)
     return x1, valid
 
 
 def _sample_and_rollout(wrapper, system, keys: torch.Tensor, x0: torch.Tensor,
                         obstacles: torch.Tensor, per_problem: bool, *,
                         num_disc: int, width: float, height: float, footprint,
-                        fast_math: bool, cull
+                        fast_math: bool, cull, split: int | None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``sample_and_rollout_kernel`` on the card for ``wrapper`` (B2, or B6
     with ``per_problem``; B5 with ``cull``), or the plain twin on the CPU."""
     kw = dict(num_disc=num_disc, width=width, height=height,
               footprint=footprint, fast_math=fast_math, cull=cull)
+    _check_split(split, cull)
     device = _device_of(keys, x0, obstacles)
     if device.type == "cpu":
         if keys.dim() != 1 + per_problem or obstacles.dim() != 2 + per_problem:
@@ -446,43 +506,50 @@ def _sample_and_rollout(wrapper, system, keys: torch.Tensor, x0: torch.Tensor,
     if P * R == 0:
         return x1, controls, valid
     windows = cull_windows(cull, num_disc)
+    G = _split(split, P * R, windows, dev)
     rc = _build.load().cudasbmp_sample_and_rollout(
         dev, sid, flags, keys.data_ptr(), x0.data_ptr(), obstacles.data_ptr(),
         K, int(per_problem), x1.data_ptr(), controls.data_ptr(),
         valid.data_ptr(), P, R, num_disc, width, height, param, hl, hw,
         windows, footprint_pad(footprint) if windows else 0.0,
-        *spec.lo, *spec.hi, torch.cuda.current_stream(device).cuda_stream)
+        *spec.lo, *spec.hi, G, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, "sample_and_rollout_kernel")
-    _count(wrapper, system, flags, windows)
+    _count(wrapper, system, flags, windows, G)
     return x1, controls, valid
 
 
 def rollout_cuda(system, x0: torch.Tensor, controls: torch.Tensor,
                  obstacles: torch.Tensor, *, num_disc: int, width: float,
                  height: float, footprint: tuple[float, float] | None = None,
-                 fast_math: bool = False, cull: bool | int | None = None
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+                 fast_math: bool = False, cull: bool | int | None = None,
+                 split: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B1 (with B3/B4 as options, and B5 with ``cull``): (x1 [B, 4],
     valid bool [B]) for x0 [B, 4], controls [B, 3] (duration last),
-    obstacles [K, 4]; the contract of ``rollout_soa``."""
+    obstacles [K, 4]; the contract of ``rollout_soa``. ``split`` forces G,
+    the threads a rollout (None: ``lanes_per_rollout``); the result does
+    not depend on it."""
     return _rollout(rollout_cuda, system, x0, controls, obstacles, False,
                     num_disc=num_disc, width=width, height=height,
-                    footprint=footprint, fast_math=fast_math, cull=cull)
+                    footprint=footprint, fast_math=fast_math, cull=cull,
+                    split=split)
 
 
 def rollout_batched_cuda(system, x0: torch.Tensor, controls: torch.Tensor,
                          obstacles: torch.Tensor, *, num_disc: int,
                          width: float, height: float,
                          footprint: tuple[float, float] | None = None,
-                         fast_math: bool = False, cull: bool | int | None = None
+                         fast_math: bool = False, cull: bool | int | None = None,
+                         split: int | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B6: B problems of R lanes each, problem b against its own
     obstacles[b]. x0 [B, R, 4], controls [B, R, 3] (duration last),
     obstacles [B, K, 4] -> (x1 [B, R, 4], valid bool [B, R]); the contract
-    of ``rollout_soa`` (B5's with ``cull``, warps within each problem)."""
+    of ``rollout_soa`` (B5's with ``cull``, warps within each problem).
+    ``split`` as ``rollout_cuda``'s, the rule taking all B * R lanes."""
     return _rollout(rollout_batched_cuda, system, x0, controls, obstacles, True,
                     num_disc=num_disc, width=width, height=height,
-                    footprint=footprint, fast_math=fast_math, cull=cull)
+                    footprint=footprint, fast_math=fast_math, cull=cull,
+                    split=split)
 
 
 def sample_and_rollout_torch(system, key: torch.Tensor, x0: torch.Tensor,
@@ -513,16 +580,17 @@ def sample_and_rollout_cuda(system, key: torch.Tensor, x0: torch.Tensor,
                             width: float, height: float,
                             footprint: tuple[float, float] | None = None,
                             fast_math: bool = False,
-                            cull: bool | int | None = None
+                            cull: bool | int | None = None,
+                            split: int | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel B2: draw each lane's controls from Philox-4x32-10 under the
     threefry key data ``key`` (int64 [2]) at counter (lane, 0, 0, 0), then
-    roll out as B1 (B5 with ``cull``). Returns (x1 [B, 4], controls [B, 3],
-    valid bool [B])."""
+    roll out as B1 (B5 with ``cull``; ``split`` as B1's). Returns (x1
+    [B, 4], controls [B, 3], valid bool [B])."""
     return _sample_and_rollout(sample_and_rollout_cuda, system, key, x0,
                                obstacles, False, num_disc=num_disc, width=width,
                                height=height, footprint=footprint,
-                               fast_math=fast_math, cull=cull)
+                               fast_math=fast_math, cull=cull, split=split)
 
 
 def sample_and_rollout_batched_cuda(system, keys: torch.Tensor, x0: torch.Tensor,
@@ -530,29 +598,31 @@ def sample_and_rollout_batched_cuda(system, keys: torch.Tensor, x0: torch.Tensor
                                     width: float, height: float,
                                     footprint: tuple[float, float] | None = None,
                                     fast_math: bool = False,
-                                    cull: bool | int | None = None
+                                    cull: bool | int | None = None,
+                                    split: int | None = None
                                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel B6, Philox form: problem b's lane r draws its controls from
     Philox-4x32-10 under the key words keys[b] (int64 [B, 2]) at counter
     (r, 0, 0, 0), so a problem's controls depend on its key and lane only,
-    then rolls out as ``rollout_batched_cuda``. Returns (x1 [B, R, 4],
-    controls [B, R, 3], valid bool [B, R])."""
+    then rolls out as ``rollout_batched_cuda`` (``split`` as its). Returns
+    (x1 [B, R, 4], controls [B, R, 3], valid bool [B, R])."""
     return _sample_and_rollout(sample_and_rollout_batched_cuda, system, keys, x0,
                                obstacles, True, num_disc=num_disc, width=width,
                                height=height, footprint=footprint,
-                               fast_math=fast_math, cull=cull)
+                               fast_math=fast_math, cull=cull, split=split)
 
 
 def rollout_bicycle_cuda(x0: torch.Tensor, controls: torch.Tensor,
                          obstacles: torch.Tensor, *, num_disc: int, width: float,
                          height: float, agent_length: float = 1.0,
-                         fast_math: bool = False, cull: bool | int | None = None
+                         fast_math: bool = False, cull: bool | int | None = None,
+                         split: int | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """B1 (B5 with ``cull``) for the kinematic bicycle of wheelbase
     ``agent_length``: the counterpart of ``rollout_bicycle_pallas``."""
     return rollout_cuda(KinematicBicycle(agent_length=agent_length), x0, controls,
                         obstacles, num_disc=num_disc, width=width, height=height,
-                        fast_math=fast_math, cull=cull)
+                        fast_math=fast_math, cull=cull, split=split)
 
 
 def sample_and_rollout_bicycle_cuda(key: torch.Tensor, x0: torch.Tensor,
@@ -561,7 +631,8 @@ def sample_and_rollout_bicycle_cuda(key: torch.Tensor, x0: torch.Tensor,
                                     agent_length: float = 1.0,
                                     control_bounds: tuple | None = None,
                                     fast_math: bool = False,
-                                    cull: bool | int | None = None
+                                    cull: bool | int | None = None,
+                                    split: int | None = None
                                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """B2 (B5 with ``cull``) for the kinematic bicycle, its controls drawn
     from ``control_bounds`` ((lo, hi) per control, duration last) where
@@ -574,7 +645,7 @@ def sample_and_rollout_bicycle_cuda(key: torch.Tensor, x0: torch.Tensor,
             hi=tuple(b[1] for b in control_bounds)))
     return sample_and_rollout_cuda(system, key, x0, obstacles, num_disc=num_disc,
                                    width=width, height=height,
-                                   fast_math=fast_math, cull=cull)
+                                   fast_math=fast_math, cull=cull, split=split)
 
 
 WRAPPERS = (rollout_cuda, sample_and_rollout_cuda, rollout_batched_cuda,
@@ -583,6 +654,7 @@ for _wrapper in WRAPPERS:
     _wrapper.launches = 0
     _wrapper.culled = 0
     _wrapper.instantiations = collections.Counter()
+    _wrapper.splits = collections.Counter()
 
 
 def reset_launch_counts() -> None:
@@ -590,3 +662,4 @@ def reset_launch_counts() -> None:
         wrapper.launches = 0
         wrapper.culled = 0
         wrapper.instantiations.clear()
+        wrapper.splits.clear()

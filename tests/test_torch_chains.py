@@ -105,3 +105,17 @@ def test_wrappers_check_their_inputs_and_count_only_launches():
     cc.alu_chain_cuda(x, 4, program_rows=ROWS)  # the CPU twin: no launch
     cc.gather_chain_cuda(torch.ones(8, LANES), torch.zeros(4, LANES, dtype=torch.int32), 3)
     assert [w.launches for w in cc.WRAPPERS] == [0, 0, 0]
+
+
+def test_sincos_twin_on_the_cpu():
+    """The sincos check kernel's twin is torch.sin and torch.cos (the plain
+    rollout twins' calls); on CPU tensors no kernel launches. Against
+    jnp.sin/jnp.cos within a few ulps (the two libraries' own roundings)."""
+    cc.reset_launch_counts()
+    x = np.random.default_rng(5).uniform(-50, 50, 4096).astype(np.float32)
+    s, c = cc.sincos_cuda(torch.tensor(x))
+    assert torch.equal(s, torch.sin(torch.tensor(x)))
+    assert torch.equal(c, torch.cos(torch.tensor(x)))
+    np.testing.assert_allclose(s.numpy(), np.asarray(jnp.sin(jnp.asarray(x))), atol=1e-6)
+    np.testing.assert_allclose(c.numpy(), np.asarray(jnp.cos(jnp.asarray(x))), atol=1e-6)
+    assert cc.sincos_cuda.launches == 0

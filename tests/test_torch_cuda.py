@@ -112,6 +112,9 @@ def test_planner_runs_every_wave_through_the_kernel(dev, backend, kernel):
                 "sample_and_rollout_cuda": rc.sample_and_rollout_cuda.launches}
     assert launches.pop(kernel) == waves
     assert set(launches.values()) == {0}
+    # the rule's G for the wave's 2,048 lanes: 4 threads a rollout on an H100
+    G = rc.lanes_per_rollout(cfg.rollouts_per_iter, rc.sm_count(dev.index or 0))
+    assert getattr(rc, kernel).splits == {G: waves}
 
 
 def test_kernel_and_plain_backends_solve_identically(dev):
@@ -158,18 +161,68 @@ def _bitwise(a, b) -> bool:
 @pytest.mark.parametrize("name", SYSTEMS)
 def test_every_instantiation_matches_its_plain_twin(dev, name, footprint, fast_math):
     """B1 and B2 (with B3/B4 as set) against rollout_soa / the Philox twin
-    on the same card: bitwise states, equal masks, equal B2 controls."""
+    on the same card, at the rule's G and every forced G: bitwise states,
+    equal masks, equal B2 controls."""
     system, x0, c = system_batch(name, 4096, SYSTEMS.index(name), dev)
     obs = _obstacles(dev)
     opts = dict(KW, footprint=footprint, fast_math=fast_math)
-    x1, valid = rc.rollout_cuda(system, x0, c, obs, **opts)
     px1, pvalid = rc.rollout_soa(system, x0, c, obs, **opts)
-    assert torch.equal(valid, pvalid) and _bitwise(x1, px1)
-    assert 0.05 < valid.float().mean() < 0.99
+    assert 0.05 < pvalid.float().mean() < 0.99
     key = rng.key(21, dev)
-    x1, c2, valid = rc.sample_and_rollout_cuda(system, key, x0, obs, **opts)
     tx1, tc2, tvalid = rc.sample_and_rollout_torch(system, key, x0, obs, **opts)
-    assert _bitwise(c2, tc2) and torch.equal(valid, tvalid) and _bitwise(x1, tx1)
+    for G in (None, *rc.SPLITS):
+        x1, valid = rc.rollout_cuda(system, x0, c, obs, **opts, split=G)
+        assert torch.equal(valid, pvalid) and _bitwise(x1, px1), G
+        y1, c2, v2 = rc.sample_and_rollout_cuda(system, key, x0, obs, **opts, split=G)
+        assert _bitwise(c2, tc2) and torch.equal(v2, tvalid) and _bitwise(y1, tx1), G
+
+
+@pytest.mark.parametrize("R", [1, 33, 4097])
+@pytest.mark.parametrize("K", [8, 40])
+def test_thread_groups_at_ragged_widths_and_many_boxes(dev, R, K):
+    """Lanes past R inside a group's warp (R = 33, 4,097), K = 40 (no
+    multiple of G; past the register cap): both kernels at every G equal
+    their twins, for every bicycle option."""
+    system, x0, c = system_batch("bicycle", R, 44 + K, dev)
+    obs = _obstacles(dev) if K == 8 else torch.tensor(
+        ctt.Scenario.dense(40, seed=0).padded_obstacles(64)[0], device=dev)
+    assert obs.shape == (K, 4)
+    key = rng.key(R, dev)
+    for fp in (None, FP):
+        for fast in (False, True):
+            opts = dict(KW, footprint=fp, fast_math=fast)
+            px1, pvalid = rc.rollout_soa(system, x0, c, obs, **opts)
+            tx1, tc2, tvalid = rc.sample_and_rollout_torch(system, key, x0, obs, **opts)
+            for G in rc.SPLITS:
+                x1, valid = rc.rollout_cuda(system, x0, c, obs, **opts, split=G)
+                assert torch.equal(valid, pvalid) and _bitwise(x1, px1), G
+                y1, c2, v2 = rc.sample_and_rollout_cuda(system, key, x0, obs, **opts,
+                                                        split=G)
+                assert _bitwise(c2, tc2) and torch.equal(v2, tvalid), G
+                assert _bitwise(y1, tx1), G
+
+
+def test_split_counts_and_checks_on_the_card(dev):
+    """Each launch counts under the G it ran at; the culled body runs at
+    G = 1 and refuses any other."""
+    system, x0, c = system_batch("bicycle", 512, 45, dev)
+    obs = _obstacles(dev)
+    rc.reset_launch_counts()
+    for G in rc.SPLITS:
+        rc.rollout_cuda(system, x0, c, obs, **KW, split=G)
+    rc.rollout_cuda(system, x0, c, obs, **KW, cull=2)
+    rc.rollout_cuda(system, x0, c, obs, **KW)
+    G = rc.lanes_per_rollout(512, rc.sm_count(dev.index or 0))
+    assert rc.rollout_cuda.splits == {1: 2 + (G == 1), 2: 1 + (G == 2), 4: 1 + (G == 4),
+                                      8: 1 + (G == 8)}
+    with pytest.raises(ValueError, match="culled"):
+        rc.rollout_cuda(system, x0, c, obs, **KW, cull=2, split=4)
+    with pytest.raises(ValueError, match="split"):
+        rc.rollout_cuda(system, x0, c, obs, **KW, split=16)
+    # sub-lanes read their boxes as float4 from device memory
+    odd = torch.zeros(obs.numel() + 1, device=dev)[1:].view(obs.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        rc.rollout_cuda(system, x0, c, odd, **KW)
 
 
 @pytest.mark.parametrize("name", ["point2d", "double_integrator"])
@@ -265,14 +318,16 @@ def test_batched_kernel_matches_its_plain_twin(dev, name, footprint, fast_math, 
     nb, nr = shape
     system, x0, c, obs = problem_batch(name, nb, nr, 8, SYSTEMS.index(name), dev)
     opts = dict(KW, footprint=footprint, fast_math=fast_math)
-    x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **opts)
     px1, pvalid = rc.rollout_soa(system, x0, c, obs, **opts)
-    assert torch.equal(valid, pvalid) and _bitwise(x1, px1)
-    assert 0.05 < valid.float().mean() < 0.99
+    assert 0.05 < pvalid.float().mean() < 0.99
     keys = rng.split(rng.key(31, dev), nb)
-    x1, c2, valid = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs, **opts)
     tx1, tc2, tvalid = rc.sample_and_rollout_torch(system, keys, x0, obs, **opts)
-    assert _bitwise(c2, tc2) and torch.equal(valid, tvalid) and _bitwise(x1, tx1)
+    for G in (None, 2, 4):  # the rule's G and two forced ones
+        x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **opts, split=G)
+        assert torch.equal(valid, pvalid) and _bitwise(x1, px1), G
+        y1, c2, v2 = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs, **opts,
+                                                        split=G)
+        assert _bitwise(c2, tc2) and torch.equal(v2, tvalid) and _bitwise(y1, tx1), G
 
 
 def test_batched_kernel_takes_more_problems_than_a_grid_column(dev):
@@ -337,6 +392,9 @@ def test_sweeps_run_every_wave_through_b6(dev, backend, kernel):
     s = MonteCarloPlanner(cfg, impl="arena", device=dev).run(16, seed=1, num_obstacles=5)
     assert s.solve_rate >= 0.5
     assert getattr(rc, kernel).launches > 0
+    # 16 x 128 lanes a wave: the rule's G, G > 1 on an H100
+    G = rc.lanes_per_rollout(16 * 128, rc.sm_count(dev.index or 0))
+    assert getattr(rc, kernel).splits == {G: getattr(rc, kernel).launches}
     assert rc.rollout_cuda.launches == rc.sample_and_rollout_cuda.launches == 0
     rc.reset_launch_counts()
     st = StreamingMonteCarloPlanner(cfg, pool=8, device=dev).run(24, seed=2, num_obstacles=5)
@@ -475,6 +533,17 @@ def test_chains_match_their_twins(dev):
     _, tbl, idx = rf.chain_inputs(dev, 8)
     with pytest.raises(RuntimeError, match="cudaError"):
         cc.gather_chain_cuda(torch.zeros(limit + 1, 128, device=dev), idx, 4)
+
+
+def test_sincos_rounds_as_torch_sin_and_cos_for_every_float(dev):
+    """The rollout kernels take a heading's cosine and sine from one
+    sincosf; the plain twins call torch.cos and torch.sin apart. Every one
+    of the 2^32 float bit patterns gives both the same bits."""
+    from cudasbmp_torch.ops import chains_cuda as cc
+
+    cc.reset_launch_counts()
+    assert cc.sincos_differences(dev) == 0
+    assert cc.sincos_cuda.launches == 64
 
 
 def test_chain_wrappers_reject_bad_inputs(dev):
