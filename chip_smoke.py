@@ -25,11 +25,12 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
    which the host's launch rate sets where it is slower than the card);
    the per-G table (B1 exact and with the footprint at every forced G in
    {1, 2, 4, 8} at 1,024 to 2^17 lanes) and the one-warp floor of each
-   rollout row (32 lanes, G = 1);
+   rollout row (32 lanes at the G its row runs at);
 8. every instantiation of B1 and B2 (5 systems x {broad phase, footprint
    B3} x {exact, fast math B4}) bitwise against its plain twin at the
    rule's G and at every forced G, at R in {33, 4,096, 4,097, 2^17} and K
-   in {8, 40}; kernel/plain ms at B=4096 (the main path's width) for
+   in {1, 5, 8, 9, 40} (the one-thread walk pads K to a multiple of 4);
+   kernel/plain ms at B=4096 (the main path's width) for
    bicycle+footprint (B3) and bicycle+footprint+fast (B4), and at B=2^17
    for bicycle+footprint+fast and dubins+footprint;
 9. 40 boxes (Scenario.dense, max_obstacles=64), past the 32 a static
@@ -48,8 +49,9 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     plain twin at B=8 problems x R=512 lanes, at the extension rounds'
     buckets of 8 and 64 problems x R=128 and at the sweeps' B=1024 x R=128,
     at the rule's G and at every forced G, with a distinct box set per
-    problem, and at 70,000 problems x 2
-    lanes (past a grid's y extent); a wall in
+    problem, at K in {1, 5, 8, 9, 40} x R in {1, 127, 128, 129, 512} per
+    problem (8 problems, at the rule's G and G = 1), and at 70,000 problems
+    x 2 lanes (past a grid's y extent); a wall in
     problem 1 changes only problem 1; a key gives the same rows at B=4 and
     at B=8 in another slot; ms of B6, its twin, and B1 on the same lanes
     with one shared set, at the sweeps' shape B=1024 x R=128 x K=8;
@@ -58,7 +60,10 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     bench.py settings) under 'auto' (every wave through B1) and 'cuda_rng'
     (B2): solve rate, cost quantiles, solves/s, launches equal to the waves
     run, at the rule's G for 32,768 lanes, solved paths replaying within
-    1e-4 with cost = sum of durations;
+    1e-4 with cost = sum of durations; then config 4 with three goals
+    inside a box, which forces one extension round: the three re-planned in
+    a bucket of 8 x 128 lanes at the rule's G for it (4 on an H100), the
+    merged result checked against the same solve without the round;
 15. the Monte-Carlo sweep at config 5's per-chip width (1024 random
     scenarios, 8 boxes, two extensions), every wave through B6 at G = 1;
 16. the streaming sweep (4096 scenarios, pool 1024, R=128, 150 waves per
@@ -86,19 +91,24 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
 
 Then the card's name and power limit, a JSON line of the kernels and,
 last, {"ok": true, "device": {...}}. Each kernel entry has its device
-time, its plain twin's, both also by CUDA events, and its bound: the
-larger of the bytes it must move over 3.35 TB/s and its f32 operations
-over 67 TFLOP/s (probes/roofline.py); the rollout rows also the one-warp
-floor (``floor_ms``) and, for B1-B4 and B6, the G their main path ran at
-(``split``). Any failed check raises: the script
-exits non-zero and prints no result. The full record also goes to
-chiprun_out/chip_smoke.json.
+time, its plain twin's, both also by CUDA events, the regular profiler
+windows each device time is the median of (``regular_windows``,
+``plain_regular_windows``; probes/timing.py), and its bound: the larger
+of the bytes it must move over 3.35 TB/s and its f32 operations over 67
+TFLOP/s (probes/roofline.py); the rollout rows also the one-warp floor
+(``floor_ms``, 32 lanes at the row's G) and, for B1-B4 and B6, the G
+their main path ran at (``split``). A line before the JSON flags every
+time read from fewer than MIN_REGULAR regular windows; a rollout row that
+reads below its floor by more than FLOOR_SLACK fails. Any failed check
+raises: the script exits non-zero and prints no result. The full record
+also goes to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
 import json
 import math
+from collections import Counter
 import pathlib
 import re
 import subprocess
@@ -130,7 +140,17 @@ SPLIT_WIDTHS = (1024, 2048, 4096, 8192, 16_384, 32_768, B_CHECK)  # the per-G ta
 # rounds (a bucket is a power of two, at least 8: batch_kgmt.py::_extend)
 EXTENSION_BUCKETS = (8, 64)
 RAGGED = (33, 4097)  # lanes past R inside a thread group's warp
-FLOOR_LANES = 32  # one warp at G = 1: a launch and one rollout's chain
+BOX_COUNTS = (1, 5, 8, 9, 40)  # K around the one-thread walk's passes of 4 boxes
+PROBLEM_LANES = (1, 127, 128, 129, 512)  # B6's R around one 128-lane warp group
+FLOOR_LANES = 32  # a launch and one rollout's chain (one warp at G = 1)
+# a rollout row may read this far below its floor (the spread of one
+# kernel's readings within a call is under 2%: PERF.md); further fails
+FLOOR_SLACK = 0.05
+MIN_REGULAR = 3  # regular profiler windows a time should be the median of
+# calls a profiler window of a plain version holds: its thousands of records
+# a call would otherwise fill the profiler's buffers mid-window, where the
+# profiler loses records (PERF.md)
+PLAIN_CALLS = 2
 WINDOWS = (1, 2, 4, 5)  # B5's step windows, as tools/r4_cull_bench.py
 PROBE_LANES = 524_288  # the CostProp probe's width (CostPropPlanner.cu:85-88)
 
@@ -209,15 +229,37 @@ def compare(name, system, x0, ctrl, obstacles, cfg, x1, valid, px1, pvalid) -> d
     return out
 
 
-def timed(out: dict, name: str, fn, n: int | None = None) -> None:
-    """out[name_ms]: device ms per call of ``fn`` over ``n`` calls (20 by
-    default); out[name_launch_ms]: CUDA-event ms per call, which the host's
-    launch rate may set."""
+def device_time(fn, n: int | None = None, required: bool = True):
+    """probes/timing.py's Timing of ``fn`` over windows of ``n`` calls (20 by
+    default), profiled again with more windows where none was regular;
+    where still none is, fails if ``required`` (a kernel's time: there is
+    none to report), else returns the Timing without a time."""
     from cudasbmp_torch.probes import timing
 
     n = timing.TIMED if n is None else n
-    out[f"{name}_ms"] = timing.device_ms(fn, n)
-    out[f"{name}_launch_ms"] = timing.time_ms(fn, n)
+    t = timing.device_ms(fn, n)
+    if not t.regular:
+        t = timing.device_ms(fn, n, tries=24)
+    check(t.regular > 0 or not required, f"no regular profiler window in "
+          f"{t.windows}: {timing.IRREGULAR_WINDOWS[-3:]}")
+    return t
+
+
+def timed(out: dict, name: str, fn, n: int | None = None, plain: bool = False) -> None:
+    """out[name_ms]: device ms per call of ``fn`` (``device_time``), with
+    out[name_regular] its regular windows and out[name_by] "device";
+    out[name_launch_ms]: CUDA-event ms per call, which the host's launch
+    rate may set. A plain version (``plain``) whose windows are never
+    regular (the profiler lost a record in each) gets its CUDA-event time
+    as out[name_ms] instead, out[name_by] "events", out[name_regular] 0."""
+    from cudasbmp_torch.probes import timing
+
+    n = timing.TIMED if n is None else n
+    t = device_time(fn, n, required=not plain)
+    launch = timing.time_ms(fn, n)
+    out[f"{name}_ms"] = t.ms if t.regular else launch
+    out[f"{name}_by"] = "device" if t.regular else "events"
+    out[f"{name}_regular"], out[f"{name}_launch_ms"] = t.regular, launch
 
 
 def expected_waves(cfg, metrics) -> int:
@@ -339,7 +381,8 @@ def check_against_twins(name, system, x0, c, obstacles, key, kw,
 def check_instantiations(dev, obstacles, kw) -> dict:
     """Phase 8: every (system, footprint, fast math) instantiation of B1 and
     B2 against its twin at the rule's G and at every forced G, at R in
-    {33, 4,096, 4,097, 2^17} and K in {8, 40}; kernel and twin ms of B3
+    {33, 4,096, 4,097, 2^17} and K in BOX_COUNTS (the demo's 8 boxes, else
+    the first K of dense-40); kernel and twin ms of B3
     (bicycle + footprint) and B4 (and fast math) at B=4096, the width of
     their main path, and at B=2^17 for bicycle+footprint+fast and
     dubins+footprint."""
@@ -353,7 +396,8 @@ def check_instantiations(dev, obstacles, kw) -> dict:
     for i, name in enumerate(SYSTEMS):
         for R in (RAGGED[0], 4096, RAGGED[1], B_CHECK):
             system, x0, c = system_batch(name, R, 50 + i, dev)
-            for K, obs in ((obstacles.shape[0], obstacles), (40, forty)):
+            for K, obs in ((K, obstacles if K == obstacles.shape[0] else forty[:K])
+                           for K in BOX_COUNTS):
                 for fp in (None, FOOTPRINT):
                     for fast in (False, True):
                         opts = dict(kw, footprint=fp, fast_math=fast)
@@ -369,7 +413,8 @@ def check_instantiations(dev, obstacles, kw) -> dict:
         opts = dict(kw, footprint=FOOTPRINT, fast_math=fast)
         t = out["times"][tag] = {}
         timed(t, "kernel", lambda: rc.rollout_cuda(system, x0, c, obstacles, **opts))
-        timed(t, "plain", lambda: rc.rollout_soa(system, x0, c, obstacles, **opts))
+        timed(t, "plain", lambda: rc.rollout_soa(system, x0, c, obstacles, **opts),
+              PLAIN_CALLS, plain=True)
         t["valid_fraction"] = float(rc.rollout_cuda(system, x0, c, obstacles,
                                                     **opts)[1].float().mean())
     return out
@@ -380,7 +425,6 @@ def split_table(dev, obstacles, kw) -> dict:
     at every forced G and each of SPLIT_WIDTHS demo lanes (K=8), beside the
     G the rule picks there."""
     from cudasbmp_torch.ops import rollout_cuda as rc
-    from cudasbmp_torch.probes import timing
     from cudasbmp_torch.systems.bicycle import KinematicBicycle
 
     system, out = KinematicBicycle(), {}
@@ -389,39 +433,49 @@ def split_table(dev, obstacles, kw) -> dict:
         row = out[str(B)] = {"rule": rc.lanes_per_rollout(B, rc.sm_count(dev.index or 0))}
         for tag, opts in (("exact", kw), ("footprint", dict(kw, footprint=FOOTPRINT))):
             for G in rc.SPLITS:
-                row[f"{tag}_g{G}_ms"] = timing.device_ms(
+                t = device_time(
                     lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **opts, split=G))
+                row[f"{tag}_g{G}_ms"], row[f"{tag}_g{G}_regular"] = t.ms, t.regular
     return out
 
 
-def floors(dev, obstacles, kw) -> dict:
+def floors(dev, obstacles, kw, G: int) -> dict:
     """Phase 7's one-warp floors: device ms of each rollout row's kernel at
-    FLOOR_LANES lanes and G = 1, a launch and one rollout's chain: B1, B2,
-    B3 (bicycle + footprint), B4 (and fast math), both B6 forms (one problem
-    of 32 lanes) and B5 (B2 with cull=4 on dense-24)."""
+    FLOOR_LANES lanes, a launch and one rollout's chain, at the G its row
+    runs at: B1, B2, B3 (bicycle + footprint) and B4 (and fast math) at
+    ``G`` (the demo's), both B6 forms (one problem of 32 lanes) at G = 1,
+    and B5 (B2 with cull=4 on dense-24) on the first 32 of its row's
+    Morton-grouped starts, a warp as near together as the row's. With
+    ``<row>_regular`` the regular windows of each."""
     from cudasbmp_torch import rng
     from cudasbmp_torch.config import Scenario
     from cudasbmp_torch.ops import rollout_cuda as rc
-    from cudasbmp_torch.probes import timing
+    from cudasbmp_torch.probes import throughput as tp
     from cudasbmp_torch.systems.bicycle import KinematicBicycle
 
     system, key = KinematicBicycle(), rng.key(32, dev)
     x0, ctrl = demo_batch(FLOOR_LANES, 2, dev)
-    fp = dict(kw, footprint=FOOTPRINT, split=1)
+    fp = dict(kw, footprint=FOOTPRINT, split=G)
+    demo = dict(kw, split=G)
     one = dict(kw, split=1)
     bx0, bc, bobs = x0[None], ctrl[None], obstacles[None].contiguous()
     dense = torch.tensor(Scenario.dense(24).obstacles, device=dev)
-    runs = {"b1": lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **one),
-            "b2": lambda: rc.sample_and_rollout_cuda(system, key, x0, obstacles, **one),
+    near = tp.start_states(B_CHECK, dev, grouped=True)[:FLOOR_LANES].contiguous()
+    runs = {"b1": lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **demo),
+            "b2": lambda: rc.sample_and_rollout_cuda(system, key, x0, obstacles, **demo),
             "b3": lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **fp),
             "b4": lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **fp,
                                           fast_math=True),
             "b6": lambda: rc.rollout_batched_cuda(system, bx0, bc, bobs, **one),
             "b6_rng": lambda: rc.sample_and_rollout_batched_cuda(
                 system, key[None], bx0, bobs, **one),
-            "b5": lambda: rc.sample_and_rollout_cuda(system, key, x0, dense, **kw,
+            "b5": lambda: rc.sample_and_rollout_cuda(system, key, near, dense, **kw,
                                                      cull=4)}
-    return {f"{k}_ms": timing.device_ms(fn) for k, fn in runs.items()}
+    out = {}
+    for k, fn in runs.items():
+        t = device_time(fn)
+        out[f"{k}_ms"], out[f"{k}_regular"] = t.ms, t.regular
+    return out
 
 
 def check_many_boxes(dev, kw) -> dict:
@@ -555,14 +609,15 @@ def run_cli(out_dir: pathlib.Path) -> dict:
     return out
 
 
-def problem_batch(name: str, B: int, R: int, K: int, seed: int, dev):
+def problem_batch(name: str, B: int, R: int, K: int, seed: int, dev, padding: int = 2):
     """(system, x0 [B, R, 4], controls [B, R, 3], obstacles [B, K, 4]): a
-    distinct random box field per problem, two padding rows each."""
+    distinct random box field per problem, its last ``padding`` rows
+    padding boxes."""
     system, x0, c = system_batch(name, B * R, seed, dev)
     r = np.random.default_rng(seed + 1000)
     lo = r.uniform(0.0, 17.0, (B, K, 2))
     boxes = np.concatenate([lo, lo + r.uniform(0.5, 3.0, (B, K, 2))], -1)
-    boxes[:, -2:] = (1.0, 1.0, 0.0, 0.0)
+    boxes[:, K - padding:] = (1.0, 1.0, 0.0, 0.0)
     return (system, x0.reshape(B, R, 4), c.reshape(B, R, -1),
             torch.tensor(boxes.astype(np.float32), device=dev))
 
@@ -572,9 +627,10 @@ def check_b6(dev, kw) -> dict:
     plain twins (bitwise) at B=8 x R=512, at the extension rounds' buckets
     (EXTENSION_BUCKETS x R=128) and at the sweeps' launch shape
     (SWEEP_SHAPE, one block per problem at G = 1), each at the rule's G and
-    at every forced G, then at 70,000 problems (more than a grid's y extent) at the
-    rule's G and G = 8; the isolation and key checks; times at the sweeps'
-    shape."""
+    at every forced G; at 8 problems of each R in PROBLEM_LANES with each K
+    in BOX_COUNTS, at the rule's G and G = 1 (the one-thread walk); then at
+    70,000 problems (more than a grid's y extent) at the rule's G and G = 8;
+    the isolation and key checks; times at the sweeps' shape."""
     from cudasbmp_torch import rng
     from cudasbmp_torch.ops import rollout_cuda as rc
 
@@ -610,6 +666,18 @@ def check_b6(dev, kw) -> dict:
                            f"{'fast' if fast else 'exact'}")
                     against_twins(tag, system, x0, c, obs, keys,
                                   dict(kw, footprint=fp, fast_math=fast))
+    for K in BOX_COUNTS:
+        for R in PROBLEM_LANES:
+            for i, name in enumerate(SYSTEMS):
+                system, x0, c, obs = problem_batch(name, 8, R, K, 60 + K + i, dev,
+                                                   padding=min(2, K - 1))
+                keys = rng.split(rng.key(K * R + i, dev), 8)
+                for fp in (None, FOOTPRINT):
+                    for fast in (False, True):
+                        tag = (f"8x{R}/K={K}/{name}/{'footprint' if fp else 'broad'}/"
+                               f"{'fast' if fast else 'exact'}")
+                        against_twins(tag, system, x0, c, obs, keys,
+                                      dict(kw, footprint=fp, fast_math=fast), (None, 1))
     system, x0, c, obs = problem_batch("bicycle", 70_000, 2, 4, 97, dev)
     against_twins("70000x2/bicycle/broad/exact", system, x0, c, obs,
                   rng.split(rng.key(96, dev), 70_000), kw, (None, 8))
@@ -639,10 +707,11 @@ def check_b6(dev, kw) -> dict:
     flat_x0, flat_c = x0.reshape(-1, 4), c.reshape(-1, 3)
     t = out["times"]
     timed(t, "b6", lambda: rc.rollout_batched_cuda(system, x0, c, obs, **kw))
-    timed(t, "plain", lambda: rc.rollout_soa(system, x0, c, obs, **kw))
+    timed(t, "plain", lambda: rc.rollout_soa(system, x0, c, obs, **kw), PLAIN_CALLS, plain=True)
     timed(t, "b6_rng", lambda: rc.sample_and_rollout_batched_cuda(system, keys, x0, obs,
                                                                   **kw))
-    timed(t, "rng_plain", lambda: rc.sample_and_rollout_torch(system, keys, x0, obs, **kw))
+    timed(t, "rng_plain", lambda: rc.sample_and_rollout_torch(system, keys, x0, obs, **kw),
+          PLAIN_CALLS, plain=True)
     timed(t, "b1_same_lanes_shared_boxes",
           lambda: rc.rollout_cuda(system, flat_x0, flat_c, obs[0], **kw))
     t["valid_fraction"] = float(rc.rollout_batched_cuda(system, x0, c, obs, **kw)[1]
@@ -740,7 +809,7 @@ def check_b5(dev, kw) -> dict:
                   lambda: rc.sample_and_rollout_bicycle_cuda(key, x0, sc_obs, **kw, cull=W))
     x0 = tp.start_states(B_CHECK, dev, grouped=True)
     timed(t, "plain_grouped_W4", lambda: rc.sample_and_rollout_torch(
-        system, key, x0, sc_obs, **kw, cull=4), n=3)
+        system, key, x0, sc_obs, **kw, cull=4), PLAIN_CALLS, plain=True)
     out["max_abs_err"] = max(v["max_abs_err"] for v in out["twin"].values())
     return out
 
@@ -762,7 +831,7 @@ def run_probes(dev) -> dict:
                       ("cuda_fast", dict(backend="cuda", fast_math=True)),
                       ("torch", dict(backend="torch"))):
         r = tp.measure_prop_throughput(device=dev, **kw)
-        check(0.0 < r["valid_fraction"] < 1.0 and r["valid_per_sec"] > 0,
+        check(0.0 < r["valid_fraction"] < 1.0 and (r["valid_per_sec"] or 0) > 0,
               f"probe {label}: {r}")
         out["probes"][label] = r
     out["probe_launches"] = {w.__name__: w.launches for w in rc.WRAPPERS}
@@ -818,17 +887,22 @@ def run_calibration(dev, probes: dict) -> dict:
     check(out["sincos_differences"] == 0,
           f"sincosf differs from torch.sin/cos on {out['sincos_differences']} floats")
     pm = out["plain_ms"]
-    timed(pm, "alu", lambda: cc.alu_chain_torch(x, rf.ALU_CHAIN), n=2)
-    timed(pm, "cos", lambda: cc.trans_chain_torch(x, rf.TRANS_CHAIN, "cos"), n=3)
+    timed(pm, "alu", lambda: cc.alu_chain_torch(x, rf.ALU_CHAIN), PLAIN_CALLS, plain=True)
+    timed(pm, "cos", lambda: cc.trans_chain_torch(x, rf.TRANS_CHAIN, "cos"), PLAIN_CALLS, plain=True)
     _, tbl, idx = rf.chain_inputs(dev, 1024)
-    timed(pm, "gather1024", lambda: cc.gather_chain_torch(tbl, idx, rf.GATHER_CHAIN), n=3)
+    timed(pm, "gather1024", lambda: cc.gather_chain_torch(tbl, idx, rf.GATHER_CHAIN),
+          PLAIN_CALLS, plain=True)
     cc.reset_launch_counts()
     out["calibration"] = rf.calibrate(dev)
+    check(all(out["calibration"]["regular"].values()),
+          f"calibrate: no regular profiler window for {out['calibration']['regular']}")
     out["launches"] = {w.__name__: w.launches for w in cc.WRAPPERS}
     check(all(out["launches"].values()), f"calibrate: launches {out['launches']}")
     out["shares"] = rf.b2_shares(out["calibration"], dev, probes={
         "exact_demo": probes["cuda_rng"], "fast_math_demo": probes["cuda_rng_fast"],
         "exact_dense24": probes["cuda_rng_dense24"]})
+    check(all(v["kernel_ms"] for v in out["shares"].values()),
+          "B2 shares: no regular profiler window for a kernel time")
     return out
 
 
@@ -937,6 +1011,67 @@ def arena_config4(dev, backend: str) -> dict:
             "waves": waves, "launches": kernel.launches, "split": G,
             "splits": dict(kernel.splits), "budget_exhausted": int(res.budget_exhausted.sum()),
             "replay_max_err": worst}
+
+
+def arena_extension(dev) -> dict:
+    """Phase 14's extension round: config 4 ('auto') with the goals of three
+    problems inside the demo's long wall, which no rollout reaches, so they
+    exhaust their 150 windows and one extension round re-plans them with
+    300 windows in a bucket of 8 problems x 128 lanes. The merged result
+    keeps every other problem as the same solve without the round gives it
+    and marks the three exhausted after 300 iterations; the round's waves
+    launch B1 at the rule's G for 1,024 lanes, the first round's at the
+    rule's G for 32,768."""
+    from cudasbmp_torch import KGMTConfig, Scenario
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.parallel import ArenaMultiQueryPlanner
+    from cudasbmp_torch.parallel import batch_kgmt as bk
+
+    cfg = KGMTConfig(**SWEEP)
+    B, base, walled = ARENA_B, Scenario.demo(), [0, 100, 200]
+    r = np.random.default_rng(cfg.seed)
+    inits = np.tile(base.init, (B, 1)).astype(np.float32)
+    goals = np.tile(base.goal, (B, 1)).astype(np.float32)
+    goals[:, :2] += r.uniform(-1.0, 1.0, (B, 2)).astype(np.float32)
+    goals[walled, :2] = (9.0, 7.0)  # inside the box (0, 6)-(18, 8)
+    obstacles, _ = base.padded_obstacles(cfg.max_obstacles)
+    planner = ArenaMultiQueryPlanner(cfg, auto_capacity=True, device=dev)
+    plain = planner.plan_batch(inits, goals, obstacles, seed=8)
+    waves, undo = counting(bk, "arena_solve", "it")
+    rc.reset_launch_counts()
+    try:
+        res = planner.plan_batch(inits, goals, obstacles, seed=8, max_extensions=1)
+    finally:
+        undo()
+    sms = rc.sm_count(dev.index or 0)
+    G1, G2 = (rc.lanes_per_rollout(n * cfg.rollouts_per_iter, sms) for n in (B, 8))
+    windows = planner.n_windows
+    check(list(np.flatnonzero(plain.budget_exhausted)) == walled
+          and waves == [windows, 2 * windows] and set(planner._extensions) == {2 * windows},
+          f"arena extension: exhausted {np.flatnonzero(plain.budget_exhausted)}, waves "
+          f"{waves}")
+    check(rc.rollout_cuda.launches == sum(waves)
+          and dict(rc.rollout_cuda.splits) == ({G1: windows, G2: 2 * windows} if G1 != G2
+                                               else {G1: 3 * windows}),
+          f"arena extension: B1 launches {rc.rollout_cuda.launches} at G "
+          f"{dict(rc.rollout_cuda.splits)} for waves {waves}")
+    others = np.setdiff1d(np.arange(B), walled)
+    for f in ("solved", "costs", "tree_sizes", "iterations", "path_lengths"):
+        check(np.array_equal(getattr(res, f)[others], getattr(plain, f)[others]),
+              f"arena extension: {f} of the unextended problems changed")
+    L = plain.paths.shape[1]
+    check(res.paths.shape == (B, 2 * windows + 1, 7)
+          and np.array_equal(res.paths[others, :L], plain.paths[others])
+          and not res.paths[others, L:].any(),
+          f"arena extension: merged paths {res.paths.shape}")
+    check(not res.solved[walled].any() and res.budget_exhausted[walled].all()
+          and (res.iterations[walled] == 2 * windows).all()
+          and (res.path_lengths[walled] == 0).all()
+          and res.budget_exhausted.sum() == len(walled),
+          f"arena extension: walled problems {res.iterations[walled]} iterations")
+    return {"exhausted_first_round": walled, "waves": waves,
+            "splits": dict(rc.rollout_cuda.splits),
+            "solve_rate": float(res.solved.mean()), "wall_time_s": res.wall_time_s}
 
 
 def mc_sweep(dev) -> dict:
@@ -1272,11 +1407,13 @@ def main() -> int:
         t = {"valid": int(valid.sum())}
         timed(t, "b1", lambda: rc.rollout_cuda(system, x0, ctrl, obstacles, **kw))
         timed(t, "plain", lambda: rollout_batch(system, x0, ctrl, cfg.num_disc,
-                                                obstacles, cfg.width, cfg.height))
+                                                obstacles, cfg.width, cfg.height),
+              PLAIN_CALLS, plain=True)
         timed(t, "b2", lambda: rc.sample_and_rollout_cuda(system, key, x0, obstacles,
                                                           **kw))
         timed(t, "twin", lambda: rc.sample_and_rollout_torch(system, key, x0,
-                                                             obstacles, **kw))
+                                                             obstacles, **kw),
+              PLAIN_CALLS, plain=True)
         t["b1_valid_rollouts_per_s"] = t["valid"] / (t["b1_ms"] / 1e3)
         t["plain_valid_rollouts_per_s"] = t["valid"] / (t["plain_ms"] / 1e3)
         times[B] = t
@@ -1294,14 +1431,14 @@ def main() -> int:
           f"({big['twin_launch_ms']:.4f})", flush=True)
     t0 = time.perf_counter()
     table = split_table(dev, obstacles, kw)
-    floor = floors(dev, obstacles, kw)
+    floor = floors(dev, obstacles, kw, G_demo)
     record["split_table"], record["floors"] = table, floor
     print("[7 per-G] B1 device us at G=1/2/4/8 (the rule's G): " + " | ".join(
         f"{B} {tag} " + "/".join(f"{row[f'{tag}_g{G}_ms'] * 1e3:.2f}" for G in rc.SPLITS)
         + f" ({row['rule']})" for B, row in table.items()
         for tag in ("exact", "footprint"))
-        + " | one-warp floors (32 lanes, G=1) us: " + ", ".join(
-            f"{k[:-3]} {v * 1e3:.2f}" for k, v in floor.items())
+        + f" | one-warp floors (32 lanes; B1-B4 at G={G_demo}, B5/B6 at G=1) us: "
+        + ", ".join(f"{k[:-3]} {v * 1e3:.2f}" for k, v in floor.items() if k.endswith("_ms"))
         + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # 8. every instantiation of B1/B2 (B3, B4) against its twin; times
@@ -1365,7 +1502,8 @@ def main() -> int:
     bt = b6["times"]
     print(f"[13 B6] {len(b6['checks'])} x (B6, B6 Philox) bitwise equal to their twins at "
           f"B=8 x R=512, B={' and '.join(map(str, EXTENSION_BUCKETS))} x R=128 and "
-          f"B=1024 x R=128 (G: the rule's, 1, 2, 4, 8) and B=70000 x R=2 (the "
+          f"B=1024 x R=128 (G: the rule's, 1, 2, 4, 8), B=8 x R in {list(PROBLEM_LANES)} x "
+          f"K in {list(BOX_COUNTS)} (the rule's, 1) and B=70000 x R=2 (the "
           f"rule's, 8); wall in problem 1 changed {b6['isolation']['lanes_changed_in_problem_1']}"
           f" of its lanes and none elsewhere; keys slot- and B-independent | B=1024 x R=128 x "
           f"K=8, device ms (CUDA-event ms): B6 {bt['b6_ms']:.4f} ({bt['b6_launch_ms']:.4f}) "
@@ -1380,12 +1518,16 @@ def main() -> int:
     t0 = time.perf_counter()
     arena = {b: arena_config4(dev, b) for b in ("auto", "cuda_rng")}
     record["arena_config4"] = arena
+    extension = record["arena_extension"] = arena_extension(dev)
     print("[14 arena B=256] " + " | ".join(
         f"{b}: rate {v['solve_rate']:.4f} cost p10/p50/p90 "
         f"{'/'.join(f'{q:.3f}' for q in v['cost_p10_p50_p90'])} iterations p50 "
         f"{v['iterations_p50']:.0f} max {v['iterations_max']} solves/s "
         f"{v['solves_per_sec']:.1f} waves {sum(v['waves'])} launches {v['launches']}"
-        for b, v in arena.items()) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+        for b, v in arena.items())
+        + f" | extension round: problems {extension['exhausted_first_round']} exhausted, "
+        f"waves {extension['waves']} at G {extension['splits']}, merged result checked "
+        f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # 15. the Monte-Carlo sweep at config 5's per-chip width, through B6
     t0 = time.perf_counter()
@@ -1495,7 +1637,21 @@ def main() -> int:
     b6_splits = {**mc["splits"]}
     b6_splits[1] = b6_splits.get(1, 0) + stream["auto"]["launches"]
     G_b6 = max(b6_splits, key=b6_splits.get)
-    cms = cal["calibration"]["ms"]
+    cms, creg = cal["calibration"]["ms"], cal["calibration"]["regular"]
+    pm = cal["plain_ms"]
+    # B1's and B2's user paths: the demo's waves (G_demo), the arena's
+    # (G = 1 at 32,768 lanes) and, for B1, the forced extension round's
+    b1_splits = Counter({G_demo: b1_launches}) + Counter(arena["auto"]["splits"]) \
+        + Counter(extension["splits"])
+    b2_splits = Counter({G_demo: b2_main}) + Counter(arena["cuda_rng"]["splits"])
+
+    def regular(kernel: int, plain: int, floor_of: str | None = None) -> dict:
+        out = {"regular_windows": kernel, "plain_regular_windows": plain,
+               "plain_ms_by": "device" if plain else "events"}
+        if floor_of:
+            out["floor_regular_windows"] = floor[f"{floor_of}_regular"]
+        return out
+
     cb = rf.chain_bounds(rf.CAL_SHAPE[0] * rf.CAL_SHAPE[1], 1024)
     def chain_err(prefixes):
         return max(v["max_abs_err"] for k, v in cal["checks"].items()
@@ -1506,18 +1662,22 @@ def main() -> int:
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/ops/rollout_pallas.py:432",
          "systems": list(SYSTEMS),
-         "launches": b1_launches, "max_abs_err": max(b1["max_abs_err"], inst_err),
+         "launches": sum(b1_splits.values()), "splits": dict(b1_splits),
+         "max_abs_err": max(b1["max_abs_err"], inst_err),
          "ms": main["b1_ms"], "plain_ms": main["plain_ms"],
          "launch_ms": main["b1_launch_ms"], "plain_launch_ms": main["plain_launch_ms"],
+         **regular(main["b1_regular"], main["plain_regular"], "b1"),
          "split": G_demo, "floor_ms": floor["b1_ms"],
          **bounds(R, ops_per_lane("bicycle", False, False, K, nd, False), K)},
         {"name": "sample_and_rollout_kernel", "route": "cuda",
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/ops/rollout_pallas.py:593",
          "systems": list(SYSTEMS),
-         "launches": b2_main, "max_abs_err": max(b2["max_abs_err"], inst_err),
+         "launches": sum(b2_splits.values()), "splits": dict(b2_splits),
+         "max_abs_err": max(b2["max_abs_err"], inst_err),
          "ms": main["b2_ms"], "plain_ms": main["twin_ms"],
          "launch_ms": main["b2_launch_ms"], "plain_launch_ms": main["twin_launch_ms"],
+         **regular(main["b2_regular"], main["twin_regular"], "b2"),
          "split": G_demo, "floor_ms": floor["b2_ms"],
          **bounds(R, ops_per_lane("bicycle", False, False, K, nd, True), K, 1)},
         {"name": "rollout_kernel<footprint> (B3)", "route": "cuda",
@@ -1528,6 +1688,7 @@ def main() -> int:
          "ms": fp_t["kernel_ms"], "plain_ms": fp_t["plain_ms"],
          "launch_ms": fp_t["kernel_launch_ms"], "plain_launch_ms": fp_t["plain_launch_ms"],
          "timed": "bicycle + footprint, 4096 lanes",
+         **regular(fp_t["kernel_regular"], fp_t["plain_regular"], "b3"),
          "split": G_options, "floor_ms": floor["b3_ms"],
          **bounds(R, ops_per_lane("bicycle", True, False, K, nd, False), K)},
         {"name": "rollout_kernel<fast_math> (B4)", "route": "cuda",
@@ -1539,6 +1700,7 @@ def main() -> int:
          "launch_ms": fast_t["kernel_launch_ms"],
          "plain_launch_ms": fast_t["plain_launch_ms"],
          "timed": "bicycle + footprint + fast math, 4096 lanes",
+         **regular(fast_t["kernel_regular"], fast_t["plain_regular"], "b4"),
          "split": G_options, "floor_ms": floor["b4_ms"],
          **bounds(R, ops_per_lane("bicycle", True, True, K, nd, False), K)},
         {"name": "rollout_kernel, per-problem boxes (B6)", "route": "cuda",
@@ -1548,6 +1710,7 @@ def main() -> int:
          "launches": mc["launches"] + stream["auto"]["launches"],
          "max_abs_err": b6["max_abs_err"], "ms": bt["b6_ms"], "plain_ms": bt["plain_ms"],
          "launch_ms": bt["b6_launch_ms"], "plain_launch_ms": bt["plain_launch_ms"],
+         **regular(bt["b6_regular"], bt["plain_regular"], "b6"),
          "split": G_b6, "splits": b6_splits, "floor_ms": floor["b6_ms"],
          **bounds(nb * nr, ops_per_lane("bicycle", False, False, nk, nd, False), nb * nk)},
         {"name": "sample_and_rollout_kernel, per-problem boxes and keys (B6)",
@@ -1559,6 +1722,7 @@ def main() -> int:
          "max_abs_err": b6["max_abs_err"], "ms": bt["b6_rng_ms"],
          "plain_ms": bt["rng_plain_ms"], "launch_ms": bt["b6_rng_launch_ms"],
          "plain_launch_ms": bt["rng_plain_launch_ms"],
+         **regular(bt["b6_rng_regular"], bt["rng_plain_regular"], "b6_rng"),
          "split": 1, "floor_ms": floor["b6_rng_ms"],
          **bounds(nb * nr, ops_per_lane("bicycle", False, False, nk, nd, True), nb * nk,
                   nb)},
@@ -1570,38 +1734,53 @@ def main() -> int:
          "ms": b5t["grouped_W4_ms"], "plain_ms": b5t["plain_grouped_W4_ms"],
          "launch_ms": b5t["grouped_W4_launch_ms"],
          "plain_launch_ms": b5t["plain_grouped_W4_launch_ms"],
+         **regular(b5t["grouped_W4_regular"], b5t["plain_grouped_W4_regular"], "b5"),
          "cull_off_ms": b5t["grouped_W0_ms"], "floor_ms": floor["b5_ms"],
          **bounds(B_CHECK, ops_per_lane("bicycle", False, False, 24, nd, True), 24, 1)},
         {"name": "alu_chain_kernel (P1a)", "route": "cuda",
          "source": "cudasbmp_torch/csrc/chains.cu",
          "replaces": "tools/roofline.py:69",
          "launches": cal["launches"]["alu_chain_cuda"], "max_abs_err": chain_err("alu"),
-         "ms": cms["alu"], "plain_ms": cal["plain_ms"]["alu_ms"],
-         "plain_launch_ms": cal["plain_ms"]["alu_launch_ms"], **chain_row(cb["alu"])},
+         "ms": cms["alu"], "plain_ms": pm["alu_ms"],
+         "plain_launch_ms": pm["alu_launch_ms"], **regular(creg["alu"], pm["alu_regular"]),
+         **chain_row(cb["alu"])},
         {"name": "trans_chain_kernel<cos|sin|tan> (P1b)", "route": "cuda",
          "source": "cudasbmp_torch/csrc/chains.cu",
          "replaces": "tools/roofline.py:79",
          "launches": cal["launches"]["trans_chain_cuda"],
          "max_abs_err": chain_err(("cos", "sin", "tan")),
          "ms": cms["cos"], "ms_sin": cms["sin"], "ms_tan": cms["tan"],
-         "plain_ms": cal["plain_ms"]["cos_ms"],
-         "plain_launch_ms": cal["plain_ms"]["cos_launch_ms"], **chain_row(cb["trans"])},
+         "plain_ms": pm["cos_ms"], "plain_launch_ms": pm["cos_launch_ms"],
+         **regular(creg["cos"], pm["cos_regular"]), **chain_row(cb["trans"])},
         {"name": "gather_chain_kernel (P2)", "route": "cuda",
          "source": "cudasbmp_torch/csrc/chains.cu",
          "replaces": "tools/r3_probe1.py:97",
          "launches": cal["launches"]["gather_chain_cuda"], "max_abs_err": 0.0,
          "ms": cms["gather1024"], "ms_rows8": cms["gather8"],
-         "ms_rows128": cms["gather128"], "plain_ms": cal["plain_ms"]["gather1024_ms"],
-         "plain_launch_ms": cal["plain_ms"]["gather1024_launch_ms"],
-         **chain_row(cb["gather"])},
+         "ms_rows128": cms["gather128"], "plain_ms": pm["gather1024_ms"],
+         "plain_launch_ms": pm["gather1024_launch_ms"],
+         **regular(creg["gather1024"], pm["gather1024_regular"]), **chain_row(cb["gather"])},
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
+        check(k["ms"] is not None and (k["regular_windows"] > 0),
+              f"{k['name']}: no device time")
+        # a rollout row at or above the launch and one rollout's chain
+        check("floor_ms" not in k or k["ms"] >= k["floor_ms"] * (1 - FLOOR_SLACK),
+              f"{k['name']}: {k['ms']} ms, below its one-warp floor {k.get('floor_ms')} ms")
     record["kernels"] = kernels
     irregular = timing.IRREGULAR_WINDOWS
     record["profiler_irregular_windows"] = irregular
-    print(f"[times] device_ms windows whose records were not a multiple of the calls: "
-          f"{len(irregular)} {irregular[:3]}", flush=True)
+    flagged = [f"{k['name']}{'' if w == 'regular_windows' else ' ' + w}: {k[w]}"
+               for k in kernels for w in ("regular_windows", "floor_regular_windows")
+               if k.get(w, MIN_REGULAR) < MIN_REGULAR]
+    flagged += [f"{k['name']} plain_ms by CUDA events" for k in kernels
+                if k["plain_ms_by"] == "events"]
+    print(f"[times] regular profiler windows of each kernel time (floor): " + ", ".join(
+        f"{k['name'].split(' (')[-1].rstrip(')')} {k['regular_windows']}"
+        + (f" ({k['floor_regular_windows']})" if "floor_regular_windows" in k else "")
+        for k in kernels) + f" | fewer than {MIN_REGULAR}: {flagged or 'none'} | "
+        f"irregular windows {len(irregular)} {irregular[:3]}", flush=True)
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(smi.splitlines()[0])

@@ -19,9 +19,11 @@
 // float4 state and a valid byte), but computes up to 2 trig functions per
 // step (4 with a footprint on the exact path) and a 4-axis test per step
 // and obstacle, so bytes never bound it. Where the launch fills the card
-// (2^17 probe lanes, the sweeps' 1,024 x 128) ALU issue slots do. At the
-// demo's wave of 4,096 lanes, one thread per rollout in 256-thread blocks
-// is 16 blocks on 16 of the 132 SMs, and the time is the latency of one
+// (2^17 probe lanes, the sweeps' 1,024 x 128) ALU issue slots do: a step of
+// the exact bicycle at 8 boxes is some 107 instructions on one thread, 30
+// of them sincosf, 11 the division and 36 the box compares (PERF.md). At
+// the demo's wave of 4,096 lanes, one thread per rollout is 32 blocks on
+// 32 of the 132 SMs, and the time is the latency of one
 // rollout's serial chain: 10 dependent steps, each its trig and a walk over
 // the K boxes in shared memory. The design keeps the whole step loop in
 // registers, with the obstacle set in dynamic shared memory (16 B per box,
@@ -43,20 +45,25 @@
 // unconditionally (integrate_group), so a step never waits on the previous
 // step's box tests and ballot; (x1, valid) stay the one-thread body's to the
 // bit whatever G. At the demo's 8 boxes G = 4 gives each sub-lane two, in
-// registers: 64 blocks on 64 SMs, each step 2 box tests instead of 8. The
+// registers: 128 blocks on 128 SMs, each step 2 box tests instead of 8. The
 // heading's cosine and sine come from one sincosf (cos_sin), one range
 // reduction for the pair instead of two in a row; it rounds as cosf and
 // sinf apart for every float (ops/chains_cuda.py::sincos_differences).
 // With G > 1 the threads past R stay in their warp (neutral state, masked
 // loads and stores) for the ballot, and sub-lane 0 alone writes the
-// outputs. Blocks stay kThreads threads, 256 / G rollouts each, so B6's
-// problems still start on block boundaries. Where the card is full, G > 1
-// only adds work (the chain runs G times), so the wrapper's rule
-// (ops/rollout_cuda.py::lanes_per_rollout) picks G = 1 there, where the
-// one-thread body (integrate) walks the boxes in shared memory: the group
-// body at G = 1 ran 12% slower at 32,768 lanes and 20% at 2^17; the culled
-// instantiations (kCull) always run with G = 1: their warp is the unit that
-// skips boxes together, which sub-lanes would split.
+// outputs. Blocks stay kThreads threads, kThreads / G rollouts each, so
+// B6's problems still start on block boundaries. Where the card is full,
+// G > 1 only adds work (the chain runs G times), so the wrapper's rule
+// (ops/rollout_cuda.py::lanes_per_rollout) picks G = 1 there. At G = 1 the
+// same body walks the block's whole set in shared memory (WalkBoxes),
+// padded with neutral boxes to a multiple of kWalk so it reads whole passes
+// of 16-byte boxes, and the broad phase's 8 boxes (the demo's and the
+// sweeps') as one unrolled walk without a branch; no ballot. Its
+// unconditional chain lets a step's trig and division start before the
+// previous step's box tests end, which pays where a few warps share a
+// scheduler. The culled instantiations (kCull) always run with G = 1:
+// their warp is the unit that skips boxes together, which sub-lanes would
+// split.
 //
 // Floating point: every add, subtract, multiply and divide of the step, of
 // the rotation recurrence and of the footprint test is an explicit
@@ -88,10 +95,11 @@
 // streaming sweep's partition invariance needs that). Problems lie on grid.x, so no grid
 // extent caps P; P * R lanes must fit an int. B6 is bounded as B1 is, by
 // the step loop's ALU and trig work, not by bytes (the boxes add 16*K bytes
-// per block, once). At the sweeps' wave width R = 128 (bench.py's arena
-// and sweep settings) half of each 256-thread block idles, and B6 ran as
-// fast as in 128-thread blocks, to 1% (time_kernels.py, device time under
-// torch.profiler), so one block size serves every launch. Lane indices stay
+// per block, once). Blocks are 128 threads, the sweeps' wave width R =
+// 128 (bench.py's arena and sweep settings): in 256-thread blocks half of
+// each B6 block idled while holding its registers, so 1,024 problems took
+// more than one wave of blocks, and the demo's G = 4 waves used 64 SMs
+// instead of 128 (PERF.md: 5-16% slower). Lane indices stay
 // 32-bit: 64-bit ones made B1 and B2 4-13% slower on the card; with 32-bit
 // ones they run as fast as before B6 joined them, to 1-2%.
 
@@ -102,10 +110,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kStaticSmemLimit = 48 * 1024;
 constexpr int kMaxSplit = 8;   // threads a rollout, at most
 constexpr int kRegBoxes = 2;   // boxes a sub-lane holds in registers, at most
+constexpr int kWalk = 4;       // the one-thread walk's boxes a pass (K padded to it)
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -247,6 +256,11 @@ struct Params {
   int reg_boxes;          // ceil(K / G) <= kRegBoxes: boxes in registers
 };
 
+// K rounded up to a multiple of kWalk: the boxes of the block's shared set
+__host__ __device__ __forceinline__ int padded(int K) {
+  return (K + kWalk - 1) & ~(kWalk - 1);
+}
+
 __device__ __forceinline__ bool in_bounds(float nx, float ny, const Params& p) {
   return (nx > 0.0f) & (nx < p.width) & (ny > 0.0f) & (ny < p.height);
 }
@@ -341,29 +355,28 @@ struct Chain<Sys, true> {
   }
 };
 
-// The one-pass body of B1-B4 on one thread a rollout (G = 1, boxes past
-// the register cap): every step tests the workspace bounds and every box in
-// shared memory; a rollout freezes at the candidate of its first failing
-// step. integrate_group with SharedBoxes computes the same at G = 1, but
-// ran 12-20% slower on full launches (PERF.md, the G = 1 body).
-template <class Sys, bool kFootprint, bool kFast>
-__device__ __forceinline__ bool integrate(const Sys& sys, float4& s, float c0,
-                                          float c1, float dur,
-                                          const float* obs, const Params& p) {
-  const float dt = __fdiv_rn(dur, static_cast<float>(p.num_disc));
-  Chain<Sys, kFast> chain(sys, s, c0, c1, dt);
-  bool alive = true;
-  for (int i = 0; i < p.num_disc; ++i) {
-    const float4 n = chain.step(sys, s, dt);
-    float ct, st;
-    chain.template pose<kFootprint>(n, ct, st);
-    const StepTest<kFootprint> t(s.x, s.y, n.x, n.y, ct, st, p);
-    bool clear = in_bounds(n.x, n.y, p);
-    for (int o = 0; o < p.K; ++o) clear &= t.clears(obs + 4 * o, p);
-    if (alive) s = n;
-    alive &= clear;
+// One step against the block's whole set in shared memory, for one thread a
+// rollout (G = 1, more boxes than registers hold). load_boxes pads the set
+// with neutral boxes to a multiple of kWalk, so the walk reads whole passes
+// of kWalk boxes, 16 bytes a box, and has no remainder: a first pass of
+// 2 * kWalk where the set has as many (the demo's and the sweeps' 8 boxes,
+// with no loop test), then passes of kWalk.
+template <bool kFootprint>
+__device__ __forceinline__ bool walk(const StepTest<kFootprint>& t,
+                                     const float4* obs, int K,
+                                     const Params& p) {
+  bool c = true;
+  int o = 0;
+  if (K >= 2 * kWalk) {
+#pragma unroll
+    for (int j = 0; j < 2 * kWalk; ++j) c &= t.clears(obs[j], p);
+    o = 2 * kWalk;
   }
-  return alive;
+  for (; o < K; o += kWalk) {
+#pragma unroll
+    for (int j = 0; j < kWalk; ++j) c &= t.clears(obs[o + j], p);
+  }
+  return c;
 }
 
 // The AND of ``clear`` over the G sub-lanes of this thread's group (G > 1):
@@ -396,6 +409,7 @@ __device__ __forceinline__ float4 neutral_box() {
 // prologue's, and no box is live in a register across its divisions and
 // trig. No other thread reads the slots: no barrier.
 struct RegBoxes {
+  static constexpr bool kGroups = true;  // G = 1 (K <= kRegBoxes) or G > 1
   const float4* src;  // the problem's boxes in device memory
   float4* slot;       // this thread's kRegBoxes slots in shared memory
   int g;
@@ -430,6 +444,7 @@ struct RegBoxes {
 
 // Sub-lane g's boxes in shared memory: o = g, g + G, ... below K.
 struct SharedBoxes {
+  static constexpr bool kGroups = true;
   const float4* obs;
   int g;
   __device__ __forceinline__ void load(const Params&) const {}
@@ -442,13 +457,39 @@ struct SharedBoxes {
   }
 };
 
-// The same body on a group of G threads (or on one, with its boxes in
-// registers): sub-lane g tests its boxes (``boxes``), and the group ANDs
-// its verdicts. The chain runs unconditionally (u), as the culled body's
-// pass 1 does: a live rollout's state is u, and a dead one's candidates are
-// never taken, so (s, alive) are integrate's to the bit, while the next step
-// no longer waits on this step's box tests and ballot; the loop is unrolled
-// by two so the compiler can overlap them.
+// All K boxes of the block's set in shared memory, for one thread a rollout
+// (G = 1, more boxes than registers hold): the padded walk, or with kK > 0
+// exactly kK boxes, unrolled, with no branch (the broad phase at the demo's
+// and the sweeps' 8 boxes).
+template <int kK>
+struct WalkBoxes {
+  static constexpr bool kGroups = false;
+  const float4* obs;
+  __device__ __forceinline__ void load(const Params&) const {}
+  template <bool kFootprint>
+  __device__ __forceinline__ bool clear(const StepTest<kFootprint>& t,
+                                        const Params& p) const {
+    if constexpr (kK > 0) {
+      bool c = true;
+#pragma unroll
+      for (int j = 0; j < kK; ++j) c &= t.clears(obs[j], p);
+      return c;
+    } else {
+      return walk(t, obs, padded(p.K), p);
+    }
+  }
+};
+
+// The one-pass body of B1-B4 and B6, on a group of G threads or on one:
+// sub-lane g tests the workspace bounds and its boxes (``boxes``: its few in
+// registers, every G-th in shared memory, or with WalkBoxes at G = 1 the
+// whole padded set), the group ANDs its verdicts with one ballot a step
+// (kGroups), and a rollout freezes at the candidate of its first failing
+// step. The chain runs unconditionally (u), as the culled body's pass 1
+// does: a live rollout's state is u, and a dead one's candidates are never
+// taken, so (s, alive) are those of the freeze-on-failure loop to the bit,
+// while the next step's trig and division no longer wait on this step's
+// box tests; the loop is unrolled by two so the compiler can overlap them.
 template <class Sys, bool kFootprint, bool kFast, class Boxes>
 __device__ __forceinline__ bool integrate_group(const Sys& sys, float4& s,
                                                 float c0, float c1, float dur,
@@ -465,7 +506,9 @@ __device__ __forceinline__ bool integrate_group(const Sys& sys, float4& s,
     chain.template pose<kFootprint>(n, ct, st);
     const StepTest<kFootprint> t(u.x, u.y, n.x, n.y, ct, st, p);
     bool clear = in_bounds(n.x, n.y, p) & boxes.clear(t, p);
-    if (p.split > 1) clear = group_all(clear, p);
+    if constexpr (Boxes::kGroups) {
+      if (p.split > 1) clear = group_all(clear, p);
+    }
     if (alive) s = n;
     alive &= clear;
     u = n;
@@ -580,11 +623,19 @@ __device__ __forceinline__ bool run(const Sys& sys, float4& s, float c0,
     if (p.reg_boxes)
       return integrate_group<Sys, kFootprint, kFast>(sys, s, c0, c1, dur,
                                                      regs, p);
+    const float4* boxes = reinterpret_cast<const float4*>(obs);
     if (p.split > 1)
-      return integrate_group<Sys, kFootprint, kFast>(
-          sys, s, c0, c1, dur,
-          SharedBoxes{reinterpret_cast<const float4*>(obs), g}, p);
-    return integrate<Sys, kFootprint, kFast>(sys, s, c0, c1, dur, obs, p);
+      return integrate_group<Sys, kFootprint, kFast>(sys, s, c0, c1, dur,
+                                                     SharedBoxes{boxes, g}, p);
+    // the broad phase's 8 boxes as a fixed walk (with the footprint's test,
+    // 8 unrolled boxes would only add registers)
+    if constexpr (!kFootprint) {
+      if (padded(p.K) == 2 * kWalk)
+        return integrate_group<Sys, kFootprint, kFast>(
+            sys, s, c0, c1, dur, WalkBoxes<2 * kWalk>{boxes}, p);
+    }
+    return integrate_group<Sys, kFootprint, kFast>(sys, s, c0, c1, dur,
+                                                   WalkBoxes<0>{boxes}, p);
   }
 }
 
@@ -616,7 +667,10 @@ __device__ __forceinline__ RegBoxes load_boxes(const Params& p, int b, int g,
     if (runs) regs.stage(p);
     return regs;
   }
-  for (int j = threadIdx.x; j < 4 * p.K; j += blockDim.x) obs[j] = src[j];
+  // the set, then neutral boxes up to a multiple of kWalk (walk)
+  const int n = 4 * p.K;
+  for (int j = threadIdx.x; j < 4 * padded(p.K); j += blockDim.x)
+    obs[j] = j < n ? src[j] : ((j & 3) < 2 ? INFINITY : -INFINITY);
   __syncthreads();
   return regs;
 }
@@ -752,9 +806,9 @@ int allow_smem(Kernel kernel, size_t smem) {
 
 template <int kForm, class Sys, bool kFootprint, bool kFast, bool kCull>
 int launch(const Sys& sys, const Params& p, const Buffers& b) {
-  // the walk's K boxes, or each thread's kRegBoxes staging slots
+  // the walk's K boxes padded, or each thread's kRegBoxes staging slots
   const size_t smem = p.reg_boxes ? sizeof(float4) * kThreads * kRegBoxes
-                                  : sizeof(float4) * static_cast<size_t>(p.K);
+                                  : sizeof(float4) * padded(p.K);
   const auto x0 = static_cast<const float4*>(b.x0);
   const auto x1 = static_cast<float4*>(b.x1);
   const auto valid = static_cast<uint8_t*>(b.valid);
@@ -813,11 +867,12 @@ int launch_system(int system, float param, int flags, const Params& p,
   }
 }
 
+// The most boxes a block's shared memory holds, padded set included.
 int max_obstacles(int device) {
   int bytes = 0;
   const cudaError_t e = cudaDeviceGetAttribute(
       &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return e == cudaSuccess ? bytes / 16 : -static_cast<int>(e);
+  return e == cudaSuccess ? (bytes / 16) & ~(kWalk - 1) : -static_cast<int>(e);
 }
 
 // Check a launch of P problems of R lanes at G = split threads a rollout

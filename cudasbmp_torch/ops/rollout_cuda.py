@@ -76,10 +76,10 @@ FLAG_FOOTPRINT, FLAG_FAST = 1, 2
 WARP = 32  # the lanes B5 culls for together
 SPLITS = (1, 2, 4, 8)  # the threads a rollout may run on (kMaxSplit)
 # lanes_per_rollout's G for a narrow launch, and the threads an SM it may
-# fill with it: 16 warps, four for each of an SM's schedulers (PERF.md, the
-# per-G table)
+# fill with it: 8 warps, two for each of an SM's schedulers, in blocks of
+# 128 threads (PERF.md, the per-G table)
 NARROW_SPLIT = 4
-SPLIT_THREADS_PER_SM = 16 * WARP
+SPLIT_THREADS_PER_SM = 8 * WARP
 
 
 def lanes_per_rollout(lanes: int, sm_count: int) -> int:
@@ -89,12 +89,13 @@ def lanes_per_rollout(lanes: int, sm_count: int) -> int:
     thread a rollout would leave most SMs idle and wait on one rollout's
     chain, takes G = 4 (at 8 boxes two a sub-lane, in registers); a launch
     that fills the card takes G = 1, where more threads a rollout would only
-    repeat the chain. On an H100 (132 SMs) G = 4 up to 16,896 lanes: the
-    demo's 4,096 and the extension rounds' buckets of 8 to 128 problems x
-    128 lanes; G = 1 from the arena's 32,768, the sweeps' 1,024 x 128 and
-    the probe's 2^17. G = 2 (its four boxes in shared memory) lost to G = 4
-    at every width and G = 8 won by at most 2.1%, at 2,048 lanes or
-    fewer."""
+    repeat the chain. On an H100 (132 SMs) G = 4 up to 8,448 lanes: the
+    demo's 4,096 and the extension rounds' buckets of 8 to 64 problems x
+    128 lanes; G = 1 from 16,384 lanes: buckets of 128 and 256 problems,
+    the arena's 32,768, the sweeps' 1,024 x 128 and the probe's 2^17. G = 2
+    (its four boxes in shared memory) lost to G = 4 at every width and G =
+    8 won by at most 2.1%, at 2,048 lanes or fewer; in blocks of 128
+    threads G = 1 overtook G = 4 between 8,192 and 16,384 lanes."""
     fits = lanes * NARROW_SPLIT <= SPLIT_THREADS_PER_SM * sm_count
     return NARROW_SPLIT if fits else 1
 

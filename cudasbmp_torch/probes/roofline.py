@@ -140,7 +140,8 @@ def calibrate(device: torch.device | str = "cuda") -> dict:
     """The card's chain rates from device time per launch: FMA issues/s
     (one a link; ``alu_ops_per_sec_2x`` counts mul and add apart, as the
     TPU probe's convention), cos/sin/tan evaluations/s and gathers/s per
-    table size, with each launch's ms."""
+    table size, with each launch's ms and its regular profiler windows
+    (``regular``; a rate is None where no window was regular)."""
     from cudasbmp_torch.ops import chains_cuda as cc
     from cudasbmp_torch.planners.kgmt import resolve_device
     from cudasbmp_torch.probes.timing import device_ms
@@ -150,17 +151,25 @@ def calibrate(device: torch.device | str = "cuda") -> dict:
         raise ValueError("calibrate measures the card: pass a CUDA device")
     x = chain_inputs(dev)
     elems = x.numel()
-    ms = {"alu": device_ms(lambda: cc.alu_chain_cuda(x, ALU_CHAIN))}
-    out = {"alu_fma_issues_per_sec": ALU_CHAIN * elems / (ms["alu"] / 1e3)}
-    out["alu_ops_per_sec_2x"] = 2 * out["alu_fma_issues_per_sec"]
+    ms, regular, out = {}, {}, {}
+
+    def rate(name: str, links: int, fn) -> float | None:
+        ms[name], regular[name], _ = device_ms(fn)
+        return links * elems / (ms[name] / 1e3) if ms[name] else None
+
+    out["alu_fma_issues_per_sec"] = rate(
+        "alu", ALU_CHAIN, lambda: cc.alu_chain_cuda(x, ALU_CHAIN))
+    fma = out["alu_fma_issues_per_sec"]
+    out["alu_ops_per_sec_2x"] = 2 * fma if fma else None
     for op in ("cos", "sin", "tan"):
-        ms[op] = device_ms(lambda: cc.trans_chain_cuda(x, TRANS_CHAIN, op))
-        out[f"{op}_evals_per_sec"] = TRANS_CHAIN * elems / (ms[op] / 1e3)
+        out[f"{op}_evals_per_sec"] = rate(
+            op, TRANS_CHAIN, lambda: cc.trans_chain_cuda(x, TRANS_CHAIN, op))
     for rows in GATHER_ROWS:
         _, tbl, idx = chain_inputs(dev, rows)
-        ms[f"gather{rows}"] = device_ms(lambda: cc.gather_chain_cuda(tbl, idx, GATHER_CHAIN))
-        out[f"gathers_per_sec_{rows}"] = GATHER_CHAIN * elems / (ms[f"gather{rows}"] / 1e3)
-    out["ms"] = ms
+        out[f"gathers_per_sec_{rows}"] = rate(
+            f"gather{rows}", GATHER_CHAIN,
+            lambda: cc.gather_chain_cuda(tbl, idx, GATHER_CHAIN))
+    out["ms"], out["regular"] = ms, regular
     return out
 
 
@@ -225,18 +234,20 @@ def b2_shares(cal: dict, device="cuda", probes: dict | None = None) -> dict:
         K = obstacles.shape[0]
         x0 = tp.start_states(tp.BATCH, device)
         key = rng.key(1, device)
-        kernel_ms = device_ms(lambda: rc.sample_and_rollout_bicycle_cuda(
+        kernel_ms, regular, _ = device_ms(lambda: rc.sample_and_rollout_bicycle_cuda(
             key, x0, obstacles, num_disc=tp.NUM_DISC, width=tp.WIDTH,
             height=tp.HEIGHT, fast_math=fast))
         ops = ops_per_lane("bicycle", False, fast, K, tp.NUM_DISC, True)
         b_ms, by = bound_ms(tp.BATCH, ops, K, 1)
         out[label] = {
-            "K": K, "kernel_ms": kernel_ms, "bound_ms": b_ms, "bound_by": by,
-            "peak_share": b_ms / kernel_ms,
+            "K": K, "kernel_ms": kernel_ms, "kernel_regular": regular,
+            "bound_ms": b_ms, "bound_by": by,
+            "peak_share": b_ms / kernel_ms if kernel_ms else None,
             "probe": probe,
             "calibrated": analyze(tp.BATCH / (kernel_ms / 1e3),
                                   kernel_ops("bicycle", False, fast, K,
-                                             tp.NUM_DISC, True), cal)}
+                                             tp.NUM_DISC, True), cal)
+            if kernel_ms else None}
     return out
 
 

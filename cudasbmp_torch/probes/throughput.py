@@ -25,7 +25,7 @@ from cudasbmp_torch.config import Scenario
 from cudasbmp_torch.ops import rollout_cuda as rc
 from cudasbmp_torch.ops.rollout import rollout_batch
 from cudasbmp_torch.planners.kgmt import resolve_device
-from cudasbmp_torch.probes.timing import device_ms
+from cudasbmp_torch.probes.timing import TIMED, device_ms
 from cudasbmp_torch.systems.bicycle import KinematicBicycle
 
 BATCH = 1 << 17
@@ -123,7 +123,12 @@ def measure_prop_throughput(batch: int = BATCH, repeats: int | None = None,
             total += wave(first + trial * repeats + i)
         total_valid += int(total)  # the host read ends the trial
         best_dt = min(best_dt, time.perf_counter() - t0)
-    wave_ms = device_ms(lambda: wave(1)) if on_card else None
+    # a window of 2 waves where the glue launches hundreds of kernels a wave:
+    # a window of thousands of records fills the profiler's buffer, and a
+    # record at the boundary is lost (probes/timing.py)
+    calls = TIMED if backend == "cuda_rng" else 2
+    wave_ms, wave_regular, _ = (device_ms(lambda: wave(1), calls) if on_card
+                                else (None, 0, 0))
     # over every timed wave, so it depends on the inputs, not on the timing
     valid_per_wave = total_valid / (TRIALS * repeats)
     return {
@@ -132,8 +137,9 @@ def measure_prop_throughput(batch: int = BATCH, repeats: int | None = None,
         "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
         "valid_fraction": valid_per_wave / batch,
         "wave_device_ms": wave_ms,
-        "rollouts_per_sec": batch / (wave_ms / 1e3) if on_card else None,
-        "valid_per_sec": valid_per_wave / (wave_ms / 1e3) if on_card else None,
+        "wave_regular_windows": wave_regular,
+        "rollouts_per_sec": batch / (wave_ms / 1e3) if wave_ms else None,
+        "valid_per_sec": valid_per_wave / (wave_ms / 1e3) if wave_ms else None,
         "wall_seconds": best_dt,
         "wall_rollouts_per_sec": batch * repeats / best_dt,
         "wall_valid_per_sec": valid_per_wave * repeats / best_dt,
@@ -151,7 +157,8 @@ def cull_table(device: torch.device | str = "cuda", batch: int = BATCH,
                                     device=device, **kw)
         rows.append({"label": label, **{k: r[k] for k in (
             "rollouts_per_sec", "valid_per_sec", "wall_rollouts_per_sec",
-            "wall_valid_per_sec", "valid_fraction", "wave_device_ms")}})
+            "wall_valid_per_sec", "valid_fraction", "wave_device_ms",
+            "wave_regular_windows")}})
     rate = "rollouts_per_sec" if rows[0]["rollouts_per_sec"] is not None \
         else "wall_rollouts_per_sec"
     best = max((r for r in rows if r["label"].startswith("dense24_grouped")),

@@ -178,14 +178,15 @@ def test_every_instantiation_matches_its_plain_twin(dev, name, footprint, fast_m
 
 
 @pytest.mark.parametrize("R", [1, 33, 4097])
-@pytest.mark.parametrize("K", [8, 40])
+@pytest.mark.parametrize("K", [1, 5, 8, 9, 40])
 def test_thread_groups_at_ragged_widths_and_many_boxes(dev, R, K):
     """Lanes past R inside a group's warp (R = 33, 4,097), K = 40 (no
-    multiple of G; past the register cap): both kernels at every G equal
+    multiple of G; past the register cap) and K = 1, 5, 9 (no multiple of
+    the one-thread walk's 4 boxes a pass): both kernels at every G equal
     their twins, for every bicycle option."""
     system, x0, c = system_batch("bicycle", R, 44 + K, dev)
-    obs = _obstacles(dev) if K == 8 else torch.tensor(
-        ctt.Scenario.dense(40, seed=0).padded_obstacles(64)[0], device=dev)
+    obs = _obstacles(dev)[:8] if K == 8 else torch.tensor(
+        ctt.Scenario.dense(40, seed=0).padded_obstacles(64)[0][:K], device=dev)
     assert obs.shape == (K, 4)
     key = rng.key(R, dev)
     for fp in (None, FP):
@@ -294,14 +295,15 @@ def test_all_options_solve_kernel_equals_twin_and_torch(dev, monkeypatch):
     assert solve(cfg) == kernel
 
 
-def problem_batch(name: str, B: int, R: int, K: int, seed: int, dev):
+def problem_batch(name: str, B: int, R: int, K: int, seed: int, dev, padding: int = 2):
     """(system, x0 [B, R, 4], controls [B, R, 3], obstacles [B, K, 4]): a
-    distinct random box field per problem, two padding rows each."""
+    distinct random box field per problem, its last ``padding`` rows
+    padding boxes."""
     system, x0, c = system_batch(name, B * R, seed, dev)
     r = np.random.default_rng(seed + 1000)
     lo = r.uniform(0.0, 17.0, (B, K, 2))
     boxes = np.concatenate([lo, lo + r.uniform(0.5, 3.0, (B, K, 2))], -1)
-    boxes[:, -2:] = (1.0, 1.0, 0.0, 0.0)
+    boxes[:, K - padding:] = (1.0, 1.0, 0.0, 0.0)
     return (system, x0.reshape(B, R, 4), c.reshape(B, R, -1),
             torch.tensor(boxes.astype(np.float32), device=dev))
 
@@ -328,6 +330,34 @@ def test_batched_kernel_matches_its_plain_twin(dev, name, footprint, fast_math, 
         y1, c2, v2 = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs, **opts,
                                                         split=G)
         assert _bitwise(c2, tc2) and torch.equal(v2, tvalid) and _bitwise(y1, tx1), G
+
+
+@pytest.mark.parametrize("K", [1, 5, 8, 9, 40])
+def test_batched_kernel_at_any_box_count_and_problem_width(dev, K):
+    """B6, both forms, in every instantiation, at 8 problems of R in {1,
+    127, 128, 129, 512} lanes with K boxes each: at G = 1 (the one-thread
+    walk, which pads K to a multiple of 4 with neutral boxes) and at the
+    rule's G, bitwise equal to the plain twins."""
+    for R in (1, 127, 128, 129, 512):
+        for name in SYSTEMS:
+            system, x0, c, obs = problem_batch(name, 8, R, K, K + R, dev,
+                                               padding=min(2, K - 1))
+            keys = rng.split(rng.key(K * R, dev), 8)
+            for fp in (None, FP):
+                for fast in (False, True):
+                    opts = dict(KW, footprint=fp, fast_math=fast)
+                    px1, pvalid = rc.rollout_soa(system, x0, c, obs, **opts)
+                    tx1, tc2, tvalid = rc.sample_and_rollout_torch(system, keys, x0, obs,
+                                                                   **opts)
+                    for G in (None, 1):
+                        what = (R, name, fp, fast, G)
+                        x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **opts,
+                                                            split=G)
+                        assert torch.equal(valid, pvalid) and _bitwise(x1, px1), what
+                        y1, c2, v2 = rc.sample_and_rollout_batched_cuda(
+                            system, keys, x0, obs, **opts, split=G)
+                        assert _bitwise(c2, tc2) and torch.equal(v2, tvalid), what
+                        assert _bitwise(y1, tx1), what
 
 
 def test_batched_kernel_takes_more_problems_than_a_grid_column(dev):

@@ -48,6 +48,8 @@ def constant(name: str) -> int:
 
 THREADS = constant("kThreads")  # a block of either kernel
 REG_BOXES = constant("kRegBoxes")  # boxes a sub-lane holds in registers, at most
+WALK = constant("kWalk")  # the one-thread walk's boxes a pass
+NEUTRAL = (float("inf"), float("inf"), float("-inf"), float("-inf"))
 
 
 def launch_geometry(P: int, R: int, split: int) -> tuple[int, int]:
@@ -76,6 +78,15 @@ def boxes_in_registers(K: int, split: int) -> bool:
     """``prepare``'s reg_boxes: each sub-lane's boxes (at most ceil(K / G))
     fit its register slots."""
     return -(-K // split) <= REG_BOXES
+
+
+def walk_set(obstacles: torch.Tensor) -> torch.Tensor:
+    """The block's shared set of the one-thread walk, as ``load_boxes``
+    writes it: the K boxes, then neutral boxes up to a multiple of WALK
+    (``padded``)."""
+    K = obstacles.shape[-2]
+    pad = torch.tensor(NEUTRAL).expand(*obstacles.shape[:-2], -(-K // WALK) * WALK - K, 4)
+    return torch.cat([obstacles, pad], -2)
 
 
 def sublane_boxes(K: int, split: int, g: int) -> range:
@@ -109,14 +120,15 @@ def test_rule_picks_a_power_of_two_no_wider_than_the_card(sm_count):
 
 
 def test_rule_on_an_h100():
-    """4 from one warp to 16,896 lanes: the demo's wave of 4,096 (its 8 boxes
+    """4 from one warp to 8,448 lanes: the demo's wave of 4,096 (its 8 boxes
     fill 4 sub-lanes' registers), the CPU tests' 2,048 and the extension
-    rounds' buckets of 8 to 128 problems x 128 lanes; 1 at the arena's
-    256 x 128 = 32,768 flattened lanes, the sweeps' 1,024 x 128 and the
-    probe's 2^17."""
-    for lanes in (32, 1024, 2048, 4096, 8192, 16_384, 128 * 128, 16_896):
+    rounds' buckets of 8 to 64 problems x 128 lanes; 1 from the buckets of
+    128 problems (16,384 lanes), at the arena's 256 x 128 = 32,768
+    flattened lanes, the sweeps' 1,024 x 128 and the probe's 2^17."""
+    for lanes in (32, 1024, 2048, 4096, 8192, 64 * 128, 8448):
         assert rc.lanes_per_rollout(lanes, H100_SMS) == 4
-    for lanes in (16_897, 32_768, 131_072, 1024 * 128, 2 ** 17, 524_288):
+    for lanes in (8449, 16_384, 128 * 128, 32_768, 131_072, 1024 * 128, 2 ** 17,
+                  524_288):
         assert rc.lanes_per_rollout(lanes, H100_SMS) == 1
 
 
@@ -216,6 +228,52 @@ def split_twin(system, x0, controls, obstacles, G, *, num_disc, width, height,
     return torch.stack(comps, -2), alive
 
 
+def walk_twin(system, x0, controls, obstacles, *, num_disc, width, height,
+              footprint=None, fast_math=False):
+    """The one-thread body (``integrate_group`` with WalkBoxes) in PyTorch:
+    the chain runs unconditionally from u, each step tests the bounds and
+    the padded set (``walk_set``) a pass of WALK boxes at a time, and (s,
+    alive) take the candidate while the rollout lives."""
+    per_problem = obstacles.dim() == 3
+    padded = walk_set(obstacles)
+    passes = [padded[..., o:o + WALK, :] for o in range(0, padded.shape[-2], WALK)]
+    if per_problem:
+        passes = [b[:, None] for b in passes]
+    u = list(x0.unbind(-1))
+    s = list(u)
+    ctrl = list(controls[..., :-1].unbind(-1))
+    dt = div(controls[..., -1], num_disc)
+    use_fast = fast_math and hasattr(system, "soa_step_fast")
+    if use_fast:
+        carry, aux = system.soa_prepare_fast(u, ctrl, dt)
+    else:
+        aux = system.soa_prepare(ctrl)
+    heading_index = getattr(system, "heading_index", None)
+    alive = torch.ones(x0.shape[:-1], dtype=torch.bool)
+    for _ in range(num_disc):
+        if use_fast:
+            new, carry = system.soa_step_fast(u, carry, aux, dt)
+            ct, st = carry[0], carry[1]
+        else:
+            new = system.soa_step(u, aux, dt)
+            if heading_index is not None:
+                ct, st = torch.cos(new[heading_index]), torch.sin(new[heading_index])
+            else:
+                ct, st = torch.ones_like(new[0]), torch.zeros_like(new[0])
+        nx, ny = new[0], new[1]
+        clear = (nx > 0.0) & (nx < width) & (ny > 0.0) & (ny < height)
+        lo, hi = segment_aabb(torch.stack(u[:2], -1), torch.stack([nx, ny], -1))
+        for boxes in passes:
+            clear = clear & segment_clear(lo, hi, boxes)
+            if footprint is not None:
+                clear = clear & footprint_clear_cs(nx, ny, ct, st, footprint[0],
+                                                   footprint[1], boxes)
+        s = [torch.where(alive, n, c) for n, c in zip(new, s)]
+        alive = alive & clear
+        u = new
+    return torch.stack(s, -1), alive
+
+
 def lanes(name: str, B: int, seed: int):
     r = np.random.default_rng(seed)
     spec = j_get_system(name).control_spec
@@ -300,6 +358,53 @@ def test_sub_lane_partition_is_the_jax_body(name):
         np.testing.assert_array_equal(x1[..., 0].numpy().view(np.int32),
                                       jx.view(np.int32))
     assert 0.0 < jv.mean() < 1.0
+
+
+# ---- the one-thread walk, emulated ---------------------------------------
+
+def test_walk_set_pads_to_whole_passes():
+    """K boxes, then neutral ones up to a multiple of WALK, per problem."""
+    for K in (0, 1, 4, 5, 8, 9, 40):
+        boxes = torch.tensor(field(K, K)) if K else torch.zeros(0, 4)
+        padded = walk_set(boxes)
+        assert padded.shape[0] % WALK == 0 and padded.shape[0] - K < WALK
+        assert torch.equal(padded[:K], boxes)
+        assert (padded[K:] == torch.tensor(NEUTRAL)).all()
+    assert walk_set(torch.tensor(field(5, 1, P=3))).shape == (3, 8, 4)
+
+
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("footprint", [None, FP], ids=["broad", "footprint"])
+@pytest.mark.parametrize("name", NAMES)
+def test_unconditional_walk_is_the_twin_to_the_bit(name, footprint, fast_math):
+    """The one-thread body at K = 1, 5, 8, 9 (neutral boxes fill the last
+    pass) equals ``rollout_soa``, states to the bit and masks: a neutral
+    box clears every in-bounds step, and the unconditional chain is the
+    freeze-on-failure chain wherever the rollout lives."""
+    system = get_system(name)
+    x0, c = (torch.tensor(a) for a in lanes(name, 256, 30 + NAMES.index(name)))
+    opts = dict(KW, footprint=footprint, fast_math=fast_math)
+    for K in (1, 5, 8, 9):
+        obs = torch.tensor(field(K, 40 + K))
+        if K == 1:
+            obs[0] = torch.tensor([6.0, 6.0, 12.0, 12.0])  # one real box
+        want_x1, want_v = rc.rollout_soa(system, x0, c, obs, **opts)
+        x1, v = walk_twin(system, x0, c, obs, **opts)
+        assert torch.equal(v, want_v) and torch.equal(bits(x1), bits(want_x1)), K
+        assert 0.05 < want_v.float().mean() < 1.0, K
+
+
+def test_unconditional_walk_per_problem_is_the_twin():
+    """B6's form: lanes [P, R] with one set of 9 boxes per problem."""
+    system = get_system("bicycle")
+    x0, c = lanes("bicycle", 6 * 40, 7)
+    x0, c = torch.tensor(x0).reshape(6, 40, 4), torch.tensor(c).reshape(6, 40, 3)
+    obs = torch.tensor(field(9, 8, P=6))
+    for footprint in (None, FP):
+        opts = dict(KW, footprint=footprint)
+        want_x1, want_v = rc.rollout_soa(system, x0, c, obs, **opts)
+        x1, v = walk_twin(system, x0, c, obs, **opts)
+        assert torch.equal(v, want_v) and torch.equal(bits(x1), bits(want_x1))
 
 
 # ---- the wrappers' split= on the CPU -------------------------------------

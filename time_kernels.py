@@ -2,29 +2,43 @@
 
     python3 time_kernels.py [--root CHECKOUT] [--reps 5] [--no-groups]
                             [--group-lanes 4096,32768] [--group-splits 1,4]
+                            [--sass]
 
 Imports cudasbmp_torch from CHECKOUT (default: the directory of this
 script), builds its kernels, and times, on the demo's obstacles (K=8):
 B1 (``rollout_cuda``) and B2 (``sample_and_rollout_cuda``) at the demo's
-wave width (4,096 lanes) and at 2^17 lanes; B1 with the footprint (B3,
-``b3_4096``) and with footprint and fast math (B4, ``b4_4096``) at 4,096
-lanes; the one-warp floor, B1 at 32 lanes (``floor_b1_32``), and its
-parts: one step and no box (``floor_n1_k0``), ten steps and no box
-(``floor_n10_k0``), one step and the demo's boxes (``floor_n1_k8``);
-where the checkout has kernel B6 (``rollout_batched_cuda``), B6 at the
-sweeps' shape (1,024 problems x 128 lanes x 8 boxes); and where it has
-thread groups
+wave width (4,096 lanes), at the arena's 32,768 and at 2^17 lanes (B2 also
+with fast math, the probe's ``cuda_rng`` fast row, ``b2_fast_131072``); B1 with
+the footprint (B3, ``b3_4096``) and with footprint and fast math (B4,
+``b4_4096``) at 4,096 lanes; the one-warp floor, B1 at 32 lanes
+(``floor_b1_32``), and its parts: one step and no box (``floor_n1_k0``),
+ten steps and no box (``floor_n10_k0``), one step and the demo's boxes
+(``floor_n1_k8``); where the checkout has kernel B6
+(``rollout_batched_cuda``), both B6 forms at the sweeps' shape (1,024
+problems x 128 lanes x 8 boxes, ``b6_ms`` and ``b6_rng_ms``), B6 at the
+widest extension bucket (256 x 128, ``b6_256x128_ms``) and the
+all-options bicycle (footprint and fast math) at the sweeps' shape
+(``b6_options_ms``); and where it has thread groups
 (``lanes_per_rollout``), B1 exact and with the footprint at every G in
 {1, 2, 4, 8} (``--group-splits``) at each of chip_smoke.py's SPLIT_WIDTHS,
 1,024 to 2^17 lanes (``--group-lanes``), as ``g<G>_<exact|footprint>_
 <lanes>``, and B6 at the extension rounds' buckets (EXTENSION_BUCKETS
 problems x 128 lanes x 8 boxes, ``g<G>_b6_<P>x128``), with the floor at
-G = 1. Each is timed ``--reps`` times by its
-device time under torch.profiler and by CUDA events (which measure the
-host's launch rate where it is slower than the card), 20 launches a
-measurement, as chip_smoke.py times them. Prints one JSON line with the
-card's name and power limit, the checkout, the G each default launch took
-(``splits``, where the checkout counts them) and every time in ms.
+G = 1. Each is timed ``--reps`` times by its device time under
+torch.profiler (with the regular profiler windows each reading took,
+probes/timing.py) and by CUDA events (which measure the host's launch rate
+where it is slower than the card), 20 launches a measurement, as
+chip_smoke.py times them. Prints one JSON line with the card's name and
+power limit, the checkout, the G each default launch took (``splits``,
+where the checkout counts them), every time in ms, and ``flagged``: the
+rows with a reading of fewer than 3 regular windows.
+
+``--sass`` also dumps, with the toolkit's cuobjdump, the SASS of both B6
+kernels for the exact bicycle without footprint (the instantiation the
+sweeps run) to chiprun_out/sass_<checkout>.txt, and adds to the JSON line
+each loop of those kernels (a backward branch and its target): its
+instruction count and its opcodes, the counts that PERF.md attributes to
+the parts of a step.
 
 To compare two checkouts, time both on the same card one after the other,
 in the order parent, change, change, parent.
@@ -35,7 +49,9 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import os
 import pathlib
+import re
 import subprocess
 import sys
 from collections import Counter
@@ -43,6 +59,46 @@ from collections import Counter
 
 def _ints(text: str | None) -> tuple[int, ...]:
     return tuple(int(v) for v in text.split(",")) if text else ()
+
+
+# the B6 instantiations the sweeps run (demangled names of csrc/rollout.cu)
+SASS_KERNELS = tuple(f"{k}<(anonymous namespace)::Bicycle, false, false, false>"
+                     for k in ("rollout_kernel", "sample_and_rollout_kernel"))
+_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_loops(library: pathlib.Path, dump: pathlib.Path) -> dict:
+    """The SASS of SASS_KERNELS in ``library`` (written to ``dump``) and,
+    for each kernel, every loop: the range from a backward branch's target
+    to the branch, its instruction count and its opcodes (the mnemonic
+    before the first dot), innermost loops first."""
+    cuobjdump = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    chunks = re.split(r"\n\s*Function : (\S+)\n", text)
+    names = subprocess.run(["c++filt"], input="\n".join(chunks[1::2]), text=True,
+                           capture_output=True, timeout=60, check=True).stdout.splitlines()
+    out, kept = {}, []
+    for name, body in zip(names, chunks[2::2]):
+        short = name.removeprefix("void ").removeprefix("(anonymous namespace)::")
+        short = short[:short.find(">(") + 1]
+        if short not in SASS_KERNELS:
+            continue
+        kept.append(f"// {short}\n{body}")
+        ins = [(int(a, 16), op, args) for a, _, op, args in _INSTRUCTION.findall(body)]
+        loops = []
+        for addr, op, args in ins:
+            m = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+            if m and int(m[1], 16) <= addr:
+                lo = int(m[1], 16)
+                body_ops = [o.split(".")[0] for a, o, _ in ins if lo <= a <= addr]
+                loops.append({"from": hex(lo), "to": hex(addr), "instructions": len(body_ops),
+                              "opcodes": dict(Counter(body_ops).most_common())})
+        out[short] = {"instructions": len(ins),
+                      "loops": sorted(loops, key=lambda x: x["instructions"])}
+    dump.parent.mkdir(exist_ok=True)
+    dump.write_text("\n".join(kept))
+    return out
 
 
 def main() -> int:
@@ -56,6 +112,8 @@ def main() -> int:
                     "(default: chip_smoke.SPLIT_WIDTHS)")
     ap.add_argument("--group-splits", help="the per-G table's G, comma-separated "
                     "(default: every G)")
+    ap.add_argument("--sass", action="store_true",
+                    help="dump B6's SASS and count the instructions of its loops")
     args = ap.parse_args()
     import torch
 
@@ -97,12 +155,15 @@ def main() -> int:
     key = rng.key(12345, dev)
     fp = dict(kw, footprint=(0.5, 0.25))
     runs = {}
-    for B in (cfg.rollouts_per_iter, 2 ** 17):
+    for B in (cfg.rollouts_per_iter, 32_768, 2 ** 17):
         x0, ctrl = demo_batch(B, 1, dev)
         runs[f"b1_{B}_ms"] = lambda x0=x0, ctrl=ctrl: rc.rollout_cuda(
             system, x0, ctrl, obstacles, **kw)
         runs[f"b2_{B}_ms"] = lambda x0=x0: rc.sample_and_rollout_cuda(
             system, key, x0, obstacles, **kw)
+    x0, _ = demo_batch(2 ** 17, 1, dev)
+    runs["b2_fast_131072_ms"] = lambda x0=x0: rc.sample_and_rollout_cuda(
+        system, key, x0, obstacles, **kw, fast_math=True)
     groups = hasattr(rc, "lanes_per_rollout")  # thread groups and split=
     one = dict(split=1) if groups else {}
     x0, ctrl = demo_batch(cfg.rollouts_per_iter, 1, dev)
@@ -120,7 +181,14 @@ def main() -> int:
     if hasattr(rc, "rollout_batched_cuda"):
         nb, nr, nk = SWEEP_SHAPE
         bsys, bx0, bc, bobs = problem_batch("bicycle", nb, nr, nk, 98, dev)
+        bkeys = rng.split(rng.key(8, dev), nb)
         runs["b6_ms"] = lambda: rc.rollout_batched_cuda(bsys, bx0, bc, bobs, **kw)
+        runs["b6_rng_ms"] = lambda: rc.sample_and_rollout_batched_cuda(
+            bsys, bkeys, bx0, bobs, **kw)
+        runs["b6_options_ms"] = lambda: rc.rollout_batched_cuda(
+            bsys, bx0, bc, bobs, **fp, fast_math=True)
+        wide = problem_batch("bicycle", 256, nr, nk, 97, dev)
+        runs["b6_256x128_ms"] = lambda: rc.rollout_batched_cuda(*wide, **kw)
     splits = {}
     if groups:
         for name, fn in list(runs.items()):  # the G each launch takes
@@ -140,11 +208,21 @@ def main() -> int:
             for G in _ints(args.group_splits) or rc.SPLITS:
                 runs[f"g{G}_b6_{P}x{nr}_ms"] = (
                     lambda batch=batch, G=G: rc.rollout_batched_cuda(*batch, **kw, split=G))
-    times = {name: {"device_ms": [device_ms(fn) for _ in range(args.reps)],
-                    "launch_ms": [time_ms(fn) for _ in range(args.reps)]}
-             for name, fn in runs.items()}
-    print(json.dumps({"card": smi, "root": str(root), "splits": splits,
-                      "times": times}))
+    times = {}
+    for name, fn in runs.items():
+        readings = [device_ms(fn) for _ in range(args.reps)]
+        times[name] = {"device_ms": [t.ms for t in readings],
+                       "regular": [t.regular for t in readings],
+                       "launch_ms": [time_ms(fn) for _ in range(args.reps)]}
+    flagged = [name for name, t in times.items() if min(t["regular"]) < 3]
+    result = {"card": smi, "root": str(root), "splits": splits, "times": times,
+              "flagged": flagged}
+    if args.sass:
+        from cudasbmp_torch.ops import _build
+
+        result["sass"] = sass_loops(_build.build()[0],
+                                    here / "chiprun_out" / f"sass_{root.name}.txt")
+    print(json.dumps(result))
     return 0
 
 
