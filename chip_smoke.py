@@ -1,6 +1,6 @@
 """Drive the cudasbmp_torch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # phases 1-21, one GPU, no network
+    python3 chip_smoke.py            # phases 1-26, one GPU, no network
     python3 chip_smoke.py --profile  # also: torch.profiler over a demo solve,
                                      # an arena solve and a streaming sweep
 
@@ -87,7 +87,33 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     rates from device time (probes/roofline.py::calibrate), and B2's
     roofline shares, exact, fast and dense-24;
 21. the CLI's probe, naive and costprop at 524,288 lanes, as subprocesses
-    on the card.
+    on the card;
+22. both B6 forms bitwise against their twins at the new paths' shapes (64
+    problems x 4,096 lanes, 256 x 2,048, 128 x 256) and B1 at
+    shortcut_path's 256 lanes; torch's sums of score rows as a batch and
+    one row at a time, against _math.row_sum's (equal); then MultiQueryPlanner at the CLI's multi
+    default (KGMTConfig(), 64 jittered demo pairs) under 'auto' (every trip
+    one launch of B6) and 'cuda_rng' (B6's Philox form): four problems, the
+    slowest among them, equal the single-query solve on their keys
+    fold_in(key(seed), b) field by field (solved, iterations, tree size,
+    cost, path bits); every solved path replays within 1e-4 with cost = sum
+    of durations; kernel launches a trip equal at B = 8 and 64 (profiler
+    runtime-API records); one host read a trip (torch's sync debug mode);
+23. bench.py's vmap shape: 256 demo pairs, M=16,384, R=2,048, 'cuda_rng',
+    fixed waves, every trip through B6's Philox form; then config 4's 256
+    pairs and settings through the vmapped planner and the arena: trips,
+    wall and kernel launches a trip of each;
+24. MonteCarloPlanner(impl='vmap') at the CLI's sweep default (64 random
+    scenarios of 8 boxes), every trip through B6 with a distinct box set
+    per problem; the slowest scenario equals its single solve;
+25. shortcutting: shortcut_path (ShortcutConfig()) on phase 5's seed-0 demo
+    path through B1, equal to the plain twin driven on the card;
+    shortcut_batch on [22]'s paths and at the quality pipeline's shape
+    (arena 128 x R=1,024, 150 windows, 'cuda_rng', one extension, then 256
+    rounds x 256 candidates) through B6; every shortened path replays valid
+    and ends in its goal;
+26. the CLI's defaults as subprocesses on the card: multi, sweep (both
+    --impl vmap) and demo --shortcut.
 
 Then the card's name and power limit, a JSON line of the kernels and,
 last, {"ok": true, "device": {...}}. Each kernel entry has its device
@@ -153,6 +179,14 @@ MIN_REGULAR = 3  # regular profiler windows a time should be the median of
 PLAIN_CALLS = 2
 WINDOWS = (1, 2, 4, 5)  # B5's step windows, as tools/r4_cull_bench.py
 PROBE_LANES = 524_288  # the CostProp probe's width (CostPropPlanner.cu:85-88)
+MULTI_B = 64  # the CLI's multi and sweep batches (cudasbmp_tpu/cli.py:236, 246)
+MC_VMAP_N = 64
+BENCH_VMAP_B = 256  # bench.py's vmap batch (bench.py:324-329)
+QUALITY_B, QUALITY_R = 128, 1024  # tools/r5_quality_pipeline.py's arena
+SHORTCUT_CANDIDATES = 256  # ShortcutConfig().candidates
+# B6's shapes on the new paths: the CLI's multi, bench.py's vmap shape and
+# the quality pipeline's shortcut rounds (problems, lanes)
+MULTI_SHAPES = ((MULTI_B, 4096), (BENCH_VMAP_B, 2048), (QUALITY_B, SHORTCUT_CANDIDATES))
 
 
 def fail(msg: str) -> None:
@@ -953,19 +987,14 @@ def quantiles(costs: np.ndarray) -> list[float]:
 def arena_config4(dev, backend: str) -> dict:
     """Phase 14: BASELINE config 4 through the batched arena, as bench.py
     measures it (warm-up seed 7, measured seed 8 with one extension)."""
-    from cudasbmp_torch import KGMTConfig, Scenario
+    from cudasbmp_torch import KGMTConfig
     from cudasbmp_torch.ops import rollout_cuda as rc
-    from cudasbmp_torch.ops.rollout import rollout_batch
     from cudasbmp_torch.parallel import ArenaMultiQueryPlanner
     from cudasbmp_torch.parallel import batch_kgmt as bk
 
     cfg = KGMTConfig(**SWEEP, rollout_backend=backend)
-    B, base = ARENA_B, Scenario.demo()
-    r = np.random.default_rng(cfg.seed)  # the CLI's multi goal jitter
-    inits = np.tile(base.init, (B, 1)).astype(np.float32)
-    goals = np.tile(base.goal, (B, 1)).astype(np.float32)
-    goals[:, :2] += r.uniform(-1.0, 1.0, (B, 2)).astype(np.float32)
-    obstacles, _ = base.padded_obstacles(cfg.max_obstacles)
+    B = ARENA_B
+    inits, goals, obstacles = jittered_demo(B, cfg.seed)  # the CLI's multi batch
     planner = ArenaMultiQueryPlanner(cfg, auto_capacity=True, device=dev)
     planner.plan_batch(inits, goals, obstacles, seed=7)  # warm-up
     waves, undo = counting(bk, "arena_solve", "it")
@@ -983,25 +1012,10 @@ def arena_config4(dev, backend: str) -> dict:
     G = rc.lanes_per_rollout(ARENA_B * cfg.rollouts_per_iter, rc.sm_count(dev.index or 0))
     check(kernel.splits[G] >= waves[0], f"arena {backend}: G {dict(kernel.splits)}, "
           f"{waves[0]} waves at G={G}")
-    system = planner.system
-    obs_t = torch.tensor(obstacles, device=dev)
-    worst = 0.0
-    for b in np.flatnonzero(res.solved):
-        path = torch.tensor(res.paths[b, :res.path_lengths[b]], device=dev)
-        check(path.shape[0] >= 2 and bool(torch.isfinite(path).all()),
-              f"arena {backend}: problem {b} path {tuple(path.shape)}")
-        x1, valid = rollout_batch(system, path[:-1, :4].contiguous(),
-                                  path[1:, 4:].contiguous(), cfg.num_disc, obs_t,
-                                  cfg.width, cfg.height)
-        err = float((x1 - path[1:, :4]).abs().max())
-        worst = max(worst, err)
-        check(bool(valid.all()) and err < 1e-4,
-              f"arena {backend}: problem {b} replays with error {err}")
-        check(math.isclose(res.costs[b], float(path[1:, 6].sum()), rel_tol=1e-5),
-              f"arena {backend}: problem {b} cost {res.costs[b]} != sum of durations")
-        end = res.paths[b, res.path_lengths[b] - 1]
-        check(math.hypot(end[0] - goals[b, 0], end[1] - goals[b, 1]) < cfg.goal_threshold,
-              f"arena {backend}: problem {b} ends off its goal")
+    check(bool((res.path_lengths[res.solved] >= 2).all()),
+          f"arena {backend}: a solved problem without a path")
+    worst = check_paths(f"arena {backend}", planner.system, cfg, res.paths,
+                        res.path_lengths, res.costs, goals, obstacles)
     rate = float(res.solved.mean())
     check(rate >= 0.5, f"arena {backend}: solve rate {rate}")
     return {"batch": B, "solve_rate": rate, "cost_p10_p50_p90": quantiles(res.costs),
@@ -1022,19 +1036,15 @@ def arena_extension(dev) -> dict:
     and marks the three exhausted after 300 iterations; the round's waves
     launch B1 at the rule's G for 1,024 lanes, the first round's at the
     rule's G for 32,768."""
-    from cudasbmp_torch import KGMTConfig, Scenario
+    from cudasbmp_torch import KGMTConfig
     from cudasbmp_torch.ops import rollout_cuda as rc
     from cudasbmp_torch.parallel import ArenaMultiQueryPlanner
     from cudasbmp_torch.parallel import batch_kgmt as bk
 
     cfg = KGMTConfig(**SWEEP)
-    B, base, walled = ARENA_B, Scenario.demo(), [0, 100, 200]
-    r = np.random.default_rng(cfg.seed)
-    inits = np.tile(base.init, (B, 1)).astype(np.float32)
-    goals = np.tile(base.goal, (B, 1)).astype(np.float32)
-    goals[:, :2] += r.uniform(-1.0, 1.0, (B, 2)).astype(np.float32)
+    B, walled = ARENA_B, [0, 100, 200]
+    inits, goals, obstacles = jittered_demo(B, cfg.seed)
     goals[walled, :2] = (9.0, 7.0)  # inside the box (0, 6)-(18, 8)
-    obstacles, _ = base.padded_obstacles(cfg.max_obstacles)
     planner = ArenaMultiQueryPlanner(cfg, auto_capacity=True, device=dev)
     plain = planner.plan_batch(inits, goals, obstacles, seed=8)
     waves, undo = counting(bk, "arena_solve", "it")
@@ -1184,24 +1194,512 @@ def run_batch_cli() -> dict:
     return out
 
 
+def jittered_demo(B: int, seed: int, jitter: float = 1.0):
+    """The CLI's multi batch (cudasbmp_tpu/cli.py:331-341): B demo pairs,
+    goals jittered by U(-jitter, jitter) from default_rng(seed), and the
+    demo's padded boxes."""
+    from cudasbmp_torch.config import Scenario
+
+    base = Scenario.demo()
+    inits = np.tile(base.init, (B, 1)).astype(np.float32)
+    goals = np.tile(base.goal, (B, 1)).astype(np.float32)
+    goals[:, :2] += np.random.default_rng(seed).uniform(
+        -jitter, jitter, (B, 2)).astype(np.float32)
+    return inits, goals, base.padded_obstacles(8)[0]
+
+
+def check_new_shapes(dev, kw) -> dict:
+    """Phase 22's kernel checks: both B6 forms bitwise against their plain
+    twins at the shapes the new paths give them: the CLI's multi (64
+    problems x 4,096 lanes), bench.py's vmap shape (256 x 2,048) and the
+    quality pipeline's shortcut rounds (128 paths x 256 candidates), each
+    with one box set per problem, at the rule's G; and B1 against its twin
+    at shortcut_path's 256 lanes against the demo's 5 boxes. Returns the
+    largest error and B6's device ms at 64 x 4,096 beside its twin's."""
+    from cudasbmp_torch import rng
+    from cudasbmp_torch.config import Scenario
+    from cudasbmp_torch.ops import rollout_cuda as rc
+
+    out = {"checks": {}}
+    for nb, nr in MULTI_SHAPES:
+        system, x0, c, obs = problem_batch("bicycle", nb, nr, 8, 200 + nb, dev)
+        keys = rng.split(rng.key(300 + nb, dev), nb)
+        px1, pvalid = rc.rollout_soa(system, x0, c, obs, **kw)
+        ty1, tc2, tv2 = rc.sample_and_rollout_torch(system, keys, x0, obs, **kw)
+        x1, valid = rc.rollout_batched_cuda(system, x0, c, obs, **kw)
+        y1, c2, v2 = rc.sample_and_rollout_batched_cuda(system, keys, x0, obs, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(valid, pvalid) and bitwise(x1, px1),
+              f"B6 {nb}x{nr}: {int((valid != pvalid).sum())} mask mismatches")
+        check(bitwise(c2, tc2) and torch.equal(v2, tv2) and bitwise(y1, ty1),
+              f"B6 Philox {nb}x{nr}: differs from its twin")
+        out["checks"][f"{nb}x{nr}"] = {
+            "max_abs_err": max(float((x1 - px1).abs().max()), float((y1 - ty1).abs().max())),
+            "valid_fraction": float(pvalid.float().mean()),
+            "split": rc.lanes_per_rollout(nb * nr, rc.sm_count(dev.index or 0))}
+        if (nb, nr) == MULTI_SHAPES[0]:
+            t = out["times"] = {}
+            timed(t, "b6", lambda: rc.rollout_batched_cuda(system, x0, c, obs, **kw))
+            timed(t, "plain", lambda: rc.rollout_soa(system, x0, c, obs, **kw),
+                  PLAIN_CALLS, plain=True)
+            timed(t, "b6_rng", lambda: rc.sample_and_rollout_batched_cuda(
+                system, keys, x0, obs, **kw))
+            timed(t, "rng_plain", lambda: rc.sample_and_rollout_torch(
+                system, keys, x0, obs, **kw), PLAIN_CALLS, plain=True)
+    boxes = torch.tensor(Scenario.demo().obstacles, device=dev)
+    system, x0, c = system_batch("bicycle", SHORTCUT_CANDIDATES, 210, dev)
+    out["checks"]["b1_shortcut_path"] = check_against_twins(
+        "shortcut_path", system, x0, c, boxes, rng.key(211, dev), kw)
+    out["max_abs_err"] = max(v["max_abs_err"] for v in out["checks"].values())
+    return out
+
+
+def sum_orders(dev, rows: int = MULTI_B, draws: int = 100) -> dict:
+    """Why every score total is ``_math.row_sum``: rows of [rows, 256]
+    score-like values (fourth powers over 1 + count^2, 70% zeros, from a
+    seeded generator) summed by torch as one batch and one row at a time,
+    and by ``row_sum``; the rows whose library sums differ, and those whose
+    row_sum differs between the batch and the single row (none may)."""
+    from cudasbmp_torch._math import row_sum
+
+    g = torch.Generator().manual_seed(0)
+    library = pairwise = 0
+    for _ in range(draws):
+        x = (torch.rand(rows, 256, generator=g) ** 4
+             / (1 + torch.randint(0, 100, (rows, 256), generator=g).float() ** 2))
+        x[torch.rand(rows, 256, generator=g) < 0.7] = 0
+        x = x.to(dev)
+        one_at_a_time = torch.stack([r.sum() for r in x])
+        library += int((x.sum(dim=-1) != one_at_a_time).sum())
+        single = torch.cat([row_sum(r) for r in x])
+        pairwise += int((row_sum(x)[:, 0] != single).sum())
+    check(pairwise == 0, f"row_sum: {pairwise} rows differ between the batch and one row")
+    return {"rows": rows * draws, "library_rows_differing": library,
+            "row_sum_rows_differing": pairwise}
+
+
+def single_solve(cfg, planner, init, goal, obstacles, key) -> list:
+    """The single-query solve (planners/kgmt.py) of one problem on the card
+    under ``key``: [solved, iterations, tree size, cost, path] with the path
+    as its f32 bits."""
+    from cudasbmp_torch.planners import kgmt as tk
+
+    dev = key.device
+    s = tk.kgmt_solve(cfg, planner.system, planner.grid,
+                      torch.as_tensor(init, device=dev), torch.as_tensor(goal, device=dev),
+                      torch.as_tensor(np.ascontiguousarray(obstacles), device=dev), key)
+    _, samples, length = tk.extract_path(cfg, s)
+    cost = float(s.cost_to_goal)
+    return [math.isfinite(cost), s.itr, s.tree_size, cost,
+            samples[:int(length)].cpu().numpy().view(np.uint32).tolist()]
+
+
+def batched_row(res, b: int) -> list:
+    """Problem b of a MultiQueryResult in single_solve's layout."""
+    n = int(res.path_lengths[b])
+    return [bool(res.solved[b]), int(res.iterations[b]), int(res.tree_sizes[b]),
+            float(res.costs[b]), res.paths[b, :n].view(np.uint32).tolist()]
+
+
+def check_paths(tag: str, system, cfg, paths, lengths, costs, goals, obstacles) -> float:
+    """Every path of length >= 2 replays through the plain exact rollout
+    within 1e-4, every edge valid, ends inside its goal, and its cost is
+    the sum of its durations. Returns the worst replay error."""
+    from cudasbmp_torch.ops.rollout import rollout_batch
+
+    dev = torch.device("cuda", 0)
+    worst = 0.0
+    for b in np.flatnonzero(lengths >= 2):
+        path = torch.tensor(paths[b, :lengths[b]], device=dev)
+        obs = torch.tensor(np.ascontiguousarray(
+            obstacles[b] if obstacles.ndim == 3 else obstacles), device=dev)
+        x1, valid = rollout_batch(system, path[:-1, :4].contiguous(),
+                                  path[1:, 4:].contiguous(), cfg.num_disc, obs,
+                                  cfg.width, cfg.height, footprint=cfg.footprint)
+        err = float((x1 - path[1:, :4]).abs().max())
+        worst = max(worst, err)
+        check(bool(valid.all()) and err <= 1e-4, f"{tag}: path {b} replays with error {err}")
+        check(math.isclose(float(costs[b]), float(path[1:, 6].sum()), rel_tol=1e-5),
+              f"{tag}: path {b} cost {costs[b]} != the sum of its durations")
+        end = paths[b, lengths[b] - 1]
+        check(math.hypot(end[0] - goals[b, 0], end[1] - goals[b, 1]) < cfg.goal_threshold,
+              f"{tag}: path {b} ends off its goal")
+    return worst
+
+
+def trip_costs(cfg, planner, B: int, dev, trips: int = 3) -> dict:
+    """Kernel launches and host reads a trip of the vmapped loop at B
+    problems, each over ``trips`` trips: launches by ``runtime_launches``,
+    host reads by torch's synchronization warnings
+    (torch.cuda.set_sync_debug_mode)."""
+    import warnings
+
+    from cudasbmp_torch import rng
+    from cudasbmp_torch.parallel import multi_query as mq
+
+    inits, goals, obstacles = jittered_demo(B, 0)
+    g = torch.tensor(goals, device=dev)
+    o = torch.tensor(np.stack([obstacles] * B), device=dev)
+    s = mq.init_batch_state(cfg, planner.grid, torch.tensor(inits, device=dev),
+                            rng.fold_in(rng.key(0, dev), torch.arange(B, device=dev)))
+    launches = runtime_launches(
+        lambda: mq.multi_query_trip(cfg, planner.system, planner.grid, g, o, s), trips)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(trips):
+                mq.multi_query_trip(cfg, planner.system, planner.grid, g, o, s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    return {"launches_per_trip": launches, "host_reads_per_trip": len(syncs) / trips,
+            "sync_messages": syncs[:3]}
+
+
+def multi_query_default(dev) -> tuple[dict, dict]:
+    """Phase 22: MultiQueryPlanner at the CLI's default (KGMTConfig(), 64
+    jittered demo pairs) under 'auto' (every trip one launch of B6) and
+    'cuda_rng' (B6's Philox form); four problems, the slowest among them,
+    equal the single-query solve on their keys field by field; every solved
+    path replays; launches per trip equal at B=8 and B=64; one host read
+    per trip. Returns the record and the 'auto' batch (paths, lengths,
+    costs, goals, obstacles) for phase 25."""
+    from cudasbmp_torch import KGMTConfig, rng
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.parallel import MultiQueryPlanner
+
+    out = {}
+    B = MULTI_B
+    for backend, kernel in (("auto", rc.rollout_batched_cuda),
+                            ("cuda_rng", rc.sample_and_rollout_batched_cuda)):
+        cfg = KGMTConfig(rollout_backend=backend)
+        inits, goals, obstacles = jittered_demo(B, cfg.seed)
+        planner = MultiQueryPlanner(cfg, device=dev)
+        planner.plan_batch(inits[:8], goals[:8], obstacles, seed=7)  # warm-up
+        rc.reset_launch_counts()
+        res = planner.plan_batch(inits, goals, obstacles, seed=cfg.seed)
+        trips = planner.last_state.trips
+        launches = {w.__name__: w.launches for w in rc.WRAPPERS}
+        main_launches = kernel.launches
+        G = rc.lanes_per_rollout(B * cfg.rollouts_per_iter, rc.sm_count(dev.index or 0))
+        check(launches.pop(kernel.__name__) == trips and set(launches.values()) == {0}
+              and kernel.splits == {G: trips},
+              f"multi {backend}: launches {launches} {kernel.launches} at G "
+              f"{dict(kernel.splits)} for {trips} trips")
+        slowest = int(np.argmax(res.iterations))
+        picks = sorted({0, 1, B - 1, slowest})
+        for b in picks:
+            one = single_solve(cfg, planner, inits[b], goals[b], obstacles,
+                               rng.fold_in(rng.key(cfg.seed, dev), b))
+            check(one == batched_row(res, b),
+                  f"multi {backend}: problem {b} {batched_row(res, b)[:4]} != its single "
+                  f"solve {one[:4]}")
+        worst = check_paths(f"multi {backend}", planner.system, cfg, res.paths,
+                            res.path_lengths, res.costs, goals, obstacles)
+        rate = float(res.solved.mean())
+        check(rate >= 0.5, f"multi {backend}: solve rate {rate}")
+        costs = {}
+        for nb in (8, B):
+            costs[nb] = trip_costs(cfg, planner, nb, dev)
+        check(costs[8]["launches_per_trip"] == costs[B]["launches_per_trip"] > 0,
+              f"multi {backend}: launches per trip {costs}")
+        check(all(c["host_reads_per_trip"] == 1 for c in costs.values()),
+              f"multi {backend}: host reads per trip {costs}")
+        out[backend] = {
+            "batch": B, "solve_rate": rate, "cost_p10_p50_p90": quantiles(res.costs),
+            "solves_per_sec": res.solves_per_sec, "wall_time_s": res.wall_time_s,
+            "trips": trips, "iterations_max": int(res.iterations.max()),
+            "launches": main_launches, "split": G, "checked_problems": picks,
+            "replay_max_err": worst, "trip_costs": {str(k): v for k, v in costs.items()}}
+        if backend == "auto":
+            batch = {"paths": res.paths, "path_lengths": res.path_lengths,
+                     "costs": res.costs, "goals": goals, "obstacles": obstacles}
+    return out, batch
+
+
+def multi_query_bench(dev) -> dict:
+    """Phase 23: bench.py's vmap shape (bench.py:324-329): 256 demo pairs,
+    M=16,384, R=2,048, 'cuda_rng', fixed waves; warm-up seed 7, measured
+    seed 8; every trip one launch of B6's Philox form."""
+    from cudasbmp_torch import KGMTConfig
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.parallel import MultiQueryPlanner
+
+    cfg = KGMTConfig(max_tree_size=16_384, rollouts_per_iter=2048,
+                     rollout_backend="cuda_rng", adaptive_waves=False)
+    inits, goals, obstacles = jittered_demo(BENCH_VMAP_B, 0, jitter=0.0)
+    planner = MultiQueryPlanner(cfg, device=dev)
+    planner.plan_batch(inits, goals, obstacles, seed=7)  # warm-up
+    rc.reset_launch_counts()
+    res = planner.plan_batch(inits, goals, obstacles, seed=8)
+    trips = planner.last_state.trips
+    kernel = rc.sample_and_rollout_batched_cuda
+    G = rc.lanes_per_rollout(BENCH_VMAP_B * cfg.rollouts_per_iter,
+                             rc.sm_count(dev.index or 0))
+    check(kernel.launches == trips and kernel.splits == {G: trips}
+          and rc.rollout_batched_cuda.launches == 0,
+          f"bench vmap: B6 Philox {kernel.launches} at G {dict(kernel.splits)} for "
+          f"{trips} trips")
+    worst = check_paths("bench vmap", planner.system, cfg, res.paths, res.path_lengths,
+                        res.costs, goals, obstacles)
+    rate = float(res.solved.mean())
+    check(rate >= 0.5, f"bench vmap: solve rate {rate}")
+    return {"batch": BENCH_VMAP_B, "solve_rate": rate,
+            "cost_p10_p50_p90": quantiles(res.costs), "solves_per_sec": res.solves_per_sec,
+            "wall_time_s": res.wall_time_s, "trips": trips,
+            "iterations_max": int(res.iterations.max()),
+            "budget_exhausted": int(res.budget_exhausted.sum()),
+            "launches": kernel.launches, "split": G, "replay_max_err": worst}
+
+
+def runtime_launches(step, steps: int = 3) -> float:
+    """Kernel launches a call of ``step`` makes: the profiler's runtime-API
+    launch records over ``steps`` calls, after two unprofiled ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if "LaunchKernel" in e.name) / steps
+
+
+def vmap_vs_arena(dev) -> dict:
+    """Phase 23's comparison on the same problems: BASELINE config 4's 256
+    jittered demo pairs with config 4's settings (R=128, 150 iterations,
+    fixed waves), seed 8, through the vmapped planner and through the arena
+    (auto capacity, no extension): solve rate, cost quantiles, solves/s,
+    trips (the arena's global iterations), wall a trip, and the kernel
+    launches of three trips (``runtime_launches``)."""
+    from cudasbmp_torch import KGMTConfig, rng
+    from cudasbmp_torch.parallel import ArenaMultiQueryPlanner, MultiQueryPlanner
+    from cudasbmp_torch.parallel import batch_kgmt as bk
+    from cudasbmp_torch.parallel import multi_query as mq
+
+    cfg = KGMTConfig(**SWEEP)
+    inits, goals, obstacles = jittered_demo(ARENA_B, cfg.seed)
+    key = rng.key(8, dev)
+    t_inits, t_goals = (torch.tensor(a, device=dev) for a in (inits, goals))
+    t_obs = torch.tensor(obstacles, device=dev)
+    out = {}
+    vmap = MultiQueryPlanner(cfg, device=dev)
+    arena = ArenaMultiQueryPlanner(cfg, auto_capacity=True, device=dev)
+    for tag, planner in (("vmap", vmap), ("arena", arena)):
+        planner.plan_batch(inits, goals, obstacles, seed=7)  # warm-up
+        waves, undo = counting(bk, "arena_solve", "it")
+        try:
+            res = planner.plan_batch(inits, goals, obstacles, seed=8)
+        finally:
+            undo()
+        if tag == "vmap":
+            trips = planner.last_state.trips
+            s = mq.init_batch_state(cfg, planner.grid, t_inits,
+                                    rng.fold_in(key, torch.arange(ARENA_B, device=dev)))
+            per_obs = t_obs.expand(ARENA_B, *t_obs.shape).contiguous()
+            launches = runtime_launches(lambda: mq.multi_query_trip(
+                cfg, planner.system, planner.grid, t_goals, per_obs, s))
+        else:
+            trips = waves[0]
+            s = bk.arena_init(cfg, planner.grid, t_inits, key, planner.M, planner.R,
+                              planner.system.state_dim)
+            launches = runtime_launches(lambda: bk.arena_iteration(
+                cfg, planner.system, planner.grid, t_obs, t_goals, planner.R, s))
+        out[tag] = {"solve_rate": float(res.solved.mean()),
+                    "cost_p10_p50_p90": quantiles(res.costs),
+                    "solves_per_sec": res.solves_per_sec, "wall_time_s": res.wall_time_s,
+                    "trips": trips, "ms_per_trip": res.wall_time_s / trips * 1e3,
+                    "launches_per_trip": launches}
+    return out
+
+
+def mc_vmap(dev) -> dict:
+    """Phase 24: MonteCarloPlanner(impl='vmap') at the CLI's sweep default
+    (KGMTConfig(), 64 random scenarios of 8 boxes, seed 0): every trip one
+    launch of B6 with a distinct box set per problem; the slowest scenario
+    equals its single solve on its own box set."""
+    from cudasbmp_torch import KGMTConfig, rng
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.parallel import MonteCarloPlanner, random_scenarios
+
+    cfg = KGMTConfig()
+    mc = MonteCarloPlanner(cfg, device=dev)
+    mc.run(8, seed=5, num_obstacles=8)  # warm-up
+    rc.reset_launch_counts()
+    s = mc.run(MC_VMAP_N, seed=cfg.seed, num_obstacles=8)
+    trips = mc.planner.last_state.trips
+    kernel = rc.rollout_batched_cuda
+    G = rc.lanes_per_rollout(MC_VMAP_N * cfg.rollouts_per_iter, rc.sm_count(dev.index or 0))
+    check(kernel.launches == trips and kernel.splits == {G: trips}
+          and rc.rollout_cuda.launches == 0,
+          f"Monte-Carlo vmap: B6 {kernel.launches} at G {dict(kernel.splits)} for "
+          f"{trips} trips")
+    inits, goals, obstacles = random_scenarios(rng.key(cfg.seed), MC_VMAP_N, cfg, 8)
+    check(len({tuple(o.ravel()) for o in obstacles}) == MC_VMAP_N,
+          "Monte-Carlo vmap: box sets repeat")
+    b = int(np.argmax(mc.planner.last_state.itr.cpu().numpy()))
+    one = single_solve(cfg, mc.planner, inits[b], goals[b], obstacles[b],
+                       rng.fold_in(rng.key(cfg.seed + 1, dev), b))
+    row = [bool(s.solved[b]), int(mc.planner.last_state.itr[b]),
+           int(mc.planner.last_state.tree_size[b]), float(s.costs[b])]
+    check(one[:4] == row, f"Monte-Carlo vmap: scenario {b} {row} != its single solve "
+          f"{one[:4]}")
+    check(s.solve_rate >= 0.5, f"Monte-Carlo vmap: solve rate {s.solve_rate}")
+    return {"scenarios": MC_VMAP_N, "solve_rate": s.solve_rate,
+            "cost_p10_p50_p90": quantiles(s.costs), "solves_per_sec": s.solves_per_sec,
+            "wall_time_s": s.wall_time_s, "trips": trips,
+            "budget_exhausted": s.num_budget_exhausted, "launches": kernel.launches,
+            "split": G, "checked_scenario": b}
+
+
+def shortcutting(dev, m: dict) -> dict:
+    """Phase 25: shortcut_path (ShortcutConfig()) on phase 5's seed-0 demo
+    path through B1, the card's result equal to the plain twin's driven on
+    the card; shortcut_batch on phase 22's solved paths through B6; then
+    the quality pipeline's shape (tools/r5_quality_pipeline.py:97-118):
+    arena B=128, R=1,024, 150 windows, 'cuda_rng', one extension, then 256
+    rounds x 256 candidates. Every shortened path replays valid and ends in
+    its goal."""
+    from cudasbmp_torch import KGMT, KGMTConfig, Scenario
+    from cudasbmp_torch import shortcut as sc
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.parallel import ArenaMultiQueryPlanner
+
+    out = {}
+    cfg, demo = KGMTConfig(), Scenario.demo()
+    planner = KGMT(cfg, device=dev)
+    path = planner.plan(demo, seed=0).path
+    rc.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = sc.shortcut_path(planner.system, cfg, path, demo.goal, demo.obstacles,
+                            device=dev)
+    wall = time.perf_counter() - t0
+    b1 = rc.rollout_cuda.launches
+    G1 = rc.lanes_per_rollout(SHORTCUT_CANDIDATES, rc.sm_count(dev.index or 0))
+    check(b1 > 0 and rc.rollout_cuda.splits == {G1: b1}
+          and rc.rollout_batched_cuda.launches == 0,
+          f"shortcut_path: B1 {b1} at G {dict(rc.rollout_cuda.splits)}")
+    saved = sc.rollout_cuda
+    sc.rollout_cuda = rc.rollout_soa  # the kernel's plain twin, on the card
+    try:
+        twin = sc.shortcut_path(planner.system, cfg, path, demo.goal, demo.obstacles,
+                                device=dev)
+    finally:
+        sc.rollout_cuda = saved
+    check(card["n_edges"] == twin["n_edges"]
+          and np.array_equal(card["path"].view(np.uint32), twin["path"].view(np.uint32)),
+          f"shortcut_path: the card's {card['n_edges']} edges differ from the twin's "
+          f"{twin['n_edges']}")
+    one = card["path"]
+    check_paths("shortcut_path", planner.system, cfg, one[None], np.array([len(one)]),
+                [card["cost_after"]], demo.goal[None], demo.obstacles)
+    out["path"] = {"edges_before": len(path) - 1, "edges_after": card["n_edges"],
+                   "cost_before": card["cost_before"], "cost_after": card["cost_after"],
+                   "wall_time_s": wall, "b1_launches": b1, "split": G1}
+
+    rc.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch = sc.shortcut_batch(planner.system, cfg, m["paths"], m["path_lengths"],
+                              m["goals"], m["obstacles"], device=dev)
+    wall = time.perf_counter() - t0
+    out["multi"] = shortcut_record("shortcut_batch on [22]", planner.system, cfg, batch,
+                                   m, wall, dev)
+
+    qcfg = KGMTConfig(rollouts_per_iter=QUALITY_R, num_iterations=150,
+                      rollout_backend="cuda_rng", adaptive_waves=False)
+    arena = ArenaMultiQueryPlanner(qcfg, auto_capacity=True, device=dev)
+    inits, goals, obstacles = jittered_demo(QUALITY_B, 0, jitter=0.0)
+    arena.plan_batch(inits, goals, obstacles, seed=7)  # warm-up
+    t0 = time.perf_counter()
+    res = arena.plan_batch(inits, goals, obstacles, seed=8, max_extensions=1)
+    solve_wall = time.perf_counter() - t0
+    scfg = sc.ShortcutConfig(rounds=256, candidates=SHORTCUT_CANDIDATES)
+    sc.shortcut_batch(planner.system, qcfg, res.paths, res.path_lengths, goals, obstacles,
+                      scfg, seed=3, device=dev)  # warm-up
+    rc.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch = sc.shortcut_batch(planner.system, qcfg, res.paths, res.path_lengths, goals,
+                              obstacles, scfg, seed=4, device=dev)
+    wall = time.perf_counter() - t0
+    q = {"paths": res.paths, "path_lengths": res.path_lengths, "costs": res.costs,
+         "goals": goals, "obstacles": obstacles}
+    out["quality"] = shortcut_record("shortcut_batch, quality pipeline", planner.system,
+                                     qcfg, batch, q, wall, dev)
+    out["quality"].update(arena_solve_rate=float(res.solved.mean()),
+                          arena_wall_time_s=solve_wall)
+    return out
+
+
+def shortcut_record(tag: str, system, cfg, batch: dict, before: dict, wall: float,
+                    dev) -> dict:
+    """Check a shortcut_batch result (every shortened path valid, in its
+    goal, no costlier than before, unsolved rows untouched; every rollout
+    through B6) and summarise it."""
+    from cudasbmp_torch.ops import rollout_cuda as rc
+
+    lengths = batch["path_lengths"]
+    solved = before["path_lengths"] >= 2
+    check(np.array_equal(lengths[~solved], before["path_lengths"][~solved])
+          and bool((lengths[solved] <= before["path_lengths"][solved]).all()),
+          f"{tag}: path lengths {lengths}")
+    check(bool((batch["cost_after"][solved] <= batch["cost_before"][solved] + 1e-5).all()),
+          f"{tag}: a path got costlier")
+    worst = check_paths(tag, system, cfg, batch["paths"], lengths, batch["cost_after"],
+                        before["goals"], before["obstacles"])
+    b6 = rc.rollout_batched_cuda.launches
+    G = rc.lanes_per_rollout(len(lengths) * SHORTCUT_CANDIDATES, rc.sm_count(dev.index or 0))
+    check(b6 > 0 and rc.rollout_cuda.launches == 0 and rc.rollout_batched_cuda.splits == {G: b6},
+          f"{tag}: B6 {b6} at G {dict(rc.rollout_batched_cuda.splits)}, B1 "
+          f"{rc.rollout_cuda.launches}")
+    return {"paths": int(solved.sum()), "cost_before_p10_p50_p90":
+            quantiles(batch["cost_before"][solved]),
+            "cost_after_p10_p50_p90": quantiles(batch["cost_after"][solved]),
+            "edges_before_mean": float(before["path_lengths"][solved].mean() - 1),
+            "edges_after_mean": float(lengths[solved].mean() - 1),
+            "wall_time_s": wall, "b6_launches": b6, "split": G, "replay_max_err": worst}
+
+
+def run_vmap_cli() -> dict:
+    """Phase 26: the CLI's default multi and sweep (--impl vmap) and demo
+    --shortcut, as subprocesses on the card."""
+    runs = {"multi": ["multi"], "sweep": ["sweep"], "demo_shortcut": ["demo", "--shortcut"]}
+    out = {}
+    for tag, args in runs.items():
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "cudasbmp_torch.cli", *args],
+                           cwd=ROOT, capture_output=True, text=True, timeout=300)
+        check(p.returncode == 0, f"cli {tag}: exit {p.returncode}\n{p.stdout[-2000:]}"
+              f"\n{p.stderr[-2000:]}")
+        rec = {"seconds": time.perf_counter() - t0}
+        if tag == "demo_shortcut":
+            line = p.stdout.splitlines()[3]
+            check(re.fullmatch(r"shortcut: cost \d+\.\d{3} -> \d+\.\d{3} \(\d+ -> \d+ "
+                               r"edges\)", line) is not None, f"cli {tag}: {line!r}")
+            rec["line"] = line
+        else:
+            summary = json.loads(p.stdout[p.stdout.index("{"):p.stdout.rindex("}") + 1])
+            check(summary["solve_rate"] > 0.5, f"cli {tag}: {summary}")
+            rec["summary"] = summary
+        out[tag] = rec
+    return out
+
+
 def profile_batched(dev, out_dir: pathlib.Path) -> dict:
     """torch.profiler over one arena solve at config 4's width ('auto', no
     extension) and one streaming sweep of 1024 scenarios in a pool of 1024:
     device busy time against the wall, and kernel launches per wave."""
     from torch.profiler import ProfilerActivity, profile
 
-    from cudasbmp_torch import KGMTConfig, Scenario
+    from cudasbmp_torch import KGMTConfig
     from cudasbmp_torch.parallel import ArenaMultiQueryPlanner, StreamingMonteCarloPlanner
     from cudasbmp_torch.parallel import batch_kgmt as bk
     from cudasbmp_torch.parallel import streaming_mc as sm
 
     cfg = KGMTConfig(**SWEEP)
-    base = Scenario.demo()
-    inits = np.tile(base.init, (ARENA_B, 1)).astype(np.float32)
-    goals = np.tile(base.goal, (ARENA_B, 1)).astype(np.float32)
-    goals[:, :2] += np.random.default_rng(0).uniform(-1.0, 1.0, (ARENA_B, 2)).astype(
-        np.float32)
-    obstacles = base.padded_obstacles(cfg.max_obstacles)[0]
+    inits, goals, obstacles = jittered_demo(ARENA_B, 0)
     arena = ArenaMultiQueryPlanner(cfg, auto_capacity=True, device=dev)
     stream = StreamingMonteCarloPlanner(cfg, pool=STREAM_POOL, device=dev)
     arena.plan_batch(inits, goals, obstacles, seed=7)
@@ -1610,6 +2108,82 @@ def main() -> int:
         f"{k}: {v['kernel_ms']:.3f} ms, {v['rollouts_per_sec']:.4g} rollouts/s "
         f"({v['seconds']:.1f} s)" for k, v in pcli.items()), flush=True)
 
+    # 22. the vmapped multi-query planner at the CLI's default: B6, B6 Philox
+    t0 = time.perf_counter()
+    shapes = check_new_shapes(dev, kw)
+    orders = record["sum_orders"] = sum_orders(dev)
+    multi, multi_batch = multi_query_default(dev)
+    record["new_shapes"], record["multi_query"] = shapes, multi
+    st = shapes["times"]
+    print(f"[22 multi B={MULTI_B}] B6 and B6 Philox bitwise equal to their twins at "
+          f"{', '.join(k for k in shapes['checks'] if 'x' in k)} (problems x lanes), B1 at "
+          f"{SHORTCUT_CANDIDATES} lanes; at {MULTI_SHAPES[0][0]}x{MULTI_SHAPES[0][1]} device "
+          f"ms B6 {st['b6_ms']:.4f} plain {st['plain_ms']:.4f} Philox {st['b6_rng_ms']:.4f} "
+          f"plain {st['rng_plain_ms']:.4f} | sums of {orders['rows']} rows of 256: torch's "
+          f"batched and one-row sums differ in {orders['library_rows_differing']}, "
+          f"row_sum's in {orders['row_sum_rows_differing']} | " + " | ".join(
+              f"{b}: rate {v['solve_rate']:.4f} cost p10/p50/p90 "
+              f"{'/'.join(f'{q:.3f}' for q in v['cost_p10_p50_p90'])} solves/s "
+              f"{v['solves_per_sec']:.2f} trips {v['trips']} launches {v['launches']} at "
+              f"G={v['split']}; problems {v['checked_problems']} equal their single "
+              f"solves; launches a trip at B=8/{MULTI_B} "
+              f"{v['trip_costs']['8']['launches_per_trip']:.0f}/"
+              f"{v['trip_costs'][str(MULTI_B)]['launches_per_trip']:.0f}, host reads a "
+              f"trip {v['trip_costs'][str(MULTI_B)]['host_reads_per_trip']:.0f}"
+              for b, v in multi.items()) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 23. bench.py's vmap shape, B6 Philox
+    t0 = time.perf_counter()
+    bench = record["multi_query_bench"] = multi_query_bench(dev)
+    print(f"[23 vmap B={BENCH_VMAP_B}] rate {bench['solve_rate']:.4f} cost p10/p50/p90 "
+          f"{'/'.join(f'{q:.3f}' for q in bench['cost_p10_p50_p90'])} solves/s "
+          f"{bench['solves_per_sec']:.2f} trips {bench['trips']} launches "
+          f"{bench['launches']} at G={bench['split']} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    t0 = time.perf_counter()
+    versus = record["vmap_vs_arena"] = vmap_vs_arena(dev)
+    print(f"[23 vmap vs arena, config 4's {ARENA_B} pairs] " + " | ".join(
+        f"{k}: rate {v['solve_rate']:.4f} cost p10/p50/p90 "
+        f"{'/'.join(f'{q:.3f}' for q in v['cost_p10_p50_p90'])} solves/s "
+        f"{v['solves_per_sec']:.2f} trips {v['trips']} at {v['ms_per_trip']:.2f} ms and "
+        f"{v['launches_per_trip']:.0f} launches a trip" for k, v in versus.items())
+        + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 24. the Monte-Carlo sweep through the vmapped planner, B6
+    t0 = time.perf_counter()
+    mcv = record["monte_carlo_vmap"] = mc_vmap(dev)
+    print(f"[24 Monte-Carlo vmap {MC_VMAP_N}] rate {mcv['solve_rate']:.4f} cost "
+          f"p10/p50/p90 {'/'.join(f'{q:.3f}' for q in mcv['cost_p10_p50_p90'])} solves/s "
+          f"{mcv['solves_per_sec']:.2f} trips {mcv['trips']} B6 launches {mcv['launches']} "
+          f"at G={mcv['split']}; scenario {mcv['checked_scenario']} equals its single "
+          f"solve ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 25. shortcutting: B1 on one path, B6 on batches
+    t0 = time.perf_counter()
+    short = record["shortcut"] = shortcutting(dev, multi_batch)
+    sp = short["path"]
+    print(f"[25 shortcut] path: cost {sp['cost_before']:.3f} -> {sp['cost_after']:.3f} "
+          f"({sp['edges_before']} -> {sp['edges_after']} edges) in {sp['wall_time_s']:.2f} s, "
+          f"B1 {sp['b1_launches']} at G={sp['split']}, equal to the twin on the card | "
+          + " | ".join(
+              f"{k} ({v['paths']} paths): cost p10/p50/p90 "
+              f"{'/'.join(f'{q:.3f}' for q in v['cost_before_p10_p50_p90'])} -> "
+              f"{'/'.join(f'{q:.3f}' for q in v['cost_after_p10_p50_p90'])}, edges "
+              f"{v['edges_before_mean']:.1f} -> {v['edges_after_mean']:.1f} in "
+              f"{v['wall_time_s']:.2f} s, B6 {v['b6_launches']} at G={v['split']}"
+              for k, v in short.items() if k != "path")
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 26. the CLI's defaults: multi, sweep, demo --shortcut
+    t0 = time.perf_counter()
+    vcli = record["vmap_cli"] = run_vmap_cli()
+    print("[26 cli] " + " | ".join(
+        f"{k}: " + (v["line"] if "line" in v else
+                    f"rate {v['summary']['solve_rate']:.4f} solves/s "
+                    f"{v['summary']['solves_per_sec']:.2f}") + f" ({v['seconds']:.1f} s)"
+        for k, v in vcli.items()) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
     if "--profile" in sys.argv[1:]:
         out_dir.mkdir(exist_ok=True)
         record["profile_tree_auto"] = profile_solve(cfg, dev, out_dir)
@@ -1633,16 +2207,24 @@ def main() -> int:
 
     ops_per_lane = rf.ops_per_lane
     G_options = opts["tree_auto"]["split"]
-    # B6's G: the most launches of its main paths (the sweeps at full width)
-    b6_splits = {**mc["splits"]}
-    b6_splits[1] = b6_splits.get(1, 0) + stream["auto"]["launches"]
+    # B6's user paths: the arena sweep's, the streaming sweep's, the vmapped
+    # planner's ([22] auto, [24]) and the shortcut batches' ([25]); its G
+    # the one of most launches
+    b6_splits = Counter(mc["splits"]) + Counter({1: stream["auto"]["launches"]}) \
+        + Counter({multi["auto"]["split"]: multi["auto"]["launches"]}) \
+        + Counter({mcv["split"]: mcv["launches"]}) \
+        + sum((Counter({v["split"]: v["b6_launches"]}) for k, v in short.items()
+               if k != "path"), Counter())
     G_b6 = max(b6_splits, key=b6_splits.get)
+    rng_splits = Counter({1: stream["cuda_rng"]["launches"]}) \
+        + Counter({multi["cuda_rng"]["split"]: multi["cuda_rng"]["launches"]}) \
+        + Counter({bench["split"]: bench["launches"]})
     cms, creg = cal["calibration"]["ms"], cal["calibration"]["regular"]
     pm = cal["plain_ms"]
     # B1's and B2's user paths: the demo's waves (G_demo), the arena's
     # (G = 1 at 32,768 lanes) and, for B1, the forced extension round's
     b1_splits = Counter({G_demo: b1_launches}) + Counter(arena["auto"]["splits"]) \
-        + Counter(extension["splits"])
+        + Counter(extension["splits"]) + Counter({sp["split"]: sp["b1_launches"]})
     b2_splits = Counter({G_demo: b2_main}) + Counter(arena["cuda_rng"]["splits"])
 
     def regular(kernel: int, plain: int, floor_of: str | None = None) -> dict:
@@ -1707,8 +2289,13 @@ def main() -> int:
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/parallel/batch_kgmt.py:227",
          "systems": list(SYSTEMS),
-         "launches": mc["launches"] + stream["auto"]["launches"],
-         "max_abs_err": b6["max_abs_err"], "ms": bt["b6_ms"], "plain_ms": bt["plain_ms"],
+         "launches": sum(b6_splits.values()),
+         "max_abs_err": max(b6["max_abs_err"], shapes["max_abs_err"]),
+         "ms": bt["b6_ms"], "plain_ms": bt["plain_ms"],
+         "ms_64x4096": st["b6_ms"], "plain_ms_64x4096": st["plain_ms"],
+         "bound_ms_64x4096": rf.bound_ms(
+             MULTI_B * R, ops_per_lane("bicycle", False, False, nk, nd, False),
+             MULTI_B * nk)[0],
          "launch_ms": bt["b6_launch_ms"], "plain_launch_ms": bt["plain_launch_ms"],
          **regular(bt["b6_regular"], bt["plain_regular"], "b6"),
          "split": G_b6, "splits": b6_splits, "floor_ms": floor["b6_ms"],
@@ -1718,12 +2305,17 @@ def main() -> int:
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/parallel/batch_kgmt.py:208",
          "systems": list(SYSTEMS),
-         "launches": stream["cuda_rng"]["launches"],
-         "max_abs_err": b6["max_abs_err"], "ms": bt["b6_rng_ms"],
+         "launches": sum(rng_splits.values()), "splits": dict(rng_splits),
+         "max_abs_err": max(b6["max_abs_err"], shapes["max_abs_err"]),
+         "ms_64x4096": st["b6_rng_ms"], "plain_ms_64x4096": st["rng_plain_ms"],
+         "bound_ms_64x4096": rf.bound_ms(
+             MULTI_B * R, ops_per_lane("bicycle", False, False, nk, nd, True),
+             MULTI_B * nk, MULTI_B)[0],
+         "ms": bt["b6_rng_ms"],
          "plain_ms": bt["rng_plain_ms"], "launch_ms": bt["b6_rng_launch_ms"],
          "plain_launch_ms": bt["rng_plain_launch_ms"],
          **regular(bt["b6_rng_regular"], bt["rng_plain_regular"], "b6_rng"),
-         "split": 1, "floor_ms": floor["b6_rng_ms"],
+         "split": max(rng_splits, key=rng_splits.get), "floor_ms": floor["b6_rng_ms"],
          **bounds(nb * nr, ops_per_lane("bicycle", False, False, nk, nd, True), nb * nk,
                   nb)},
         {"name": "sample_and_rollout_kernel<cull> (B5)", "route": "cuda",

@@ -1,9 +1,9 @@
 """Command-line entry point of the port (counterpart of cudasbmp_tpu/cli.py):
 
-    python -m cudasbmp_torch.cli demo [--device cuda|cpu] [config flags]
+    python -m cudasbmp_torch.cli demo [--device cuda|cpu] [--shortcut] [config flags]
     python -m cudasbmp_torch.cli plan --configurations DIR [--device ...] [...]
-    python -m cudasbmp_torch.cli multi --impl arena [--batch B] [...]
-    python -m cudasbmp_torch.cli sweep --impl arena|stream [--scenarios N] [...]
+    python -m cudasbmp_torch.cli multi [--impl vmap|arena] [--batch B] [...]
+    python -m cudasbmp_torch.cli sweep [--impl vmap|arena|stream] [--scenarios N] [...]
     python -m cudasbmp_torch.cli probe [--planner naive|costprop] [--width W]
                                        [--rows R] [--device cuda|cpu]
 
@@ -13,16 +13,19 @@ flags are the JAX CLI's; a flag given on the command line overrides
 ``--config FILE`` even at its default value. Output: the reference's parity
 lines (``Goal: ...``, ``time inside KGMT is ...``, ``Iteration ..., Tree
 size ...``), then a JSON summary; ``--verbose`` adds the per-iteration
-table, ``--out-dir`` the 13 artifact CSVs. Exit code 0 when solved, 1 when
-not, 2 on a usage error.
+table, ``--out-dir`` the 13 artifact CSVs, ``--shortcut`` the shortcut
+line of the solved path (``shortcut: cost A -> B (N -> M edges)``,
+shortcut.py::shortcut_path). Exit code 0 when solved, 1 when not, 2 on a
+usage error.
 
-``multi --impl arena`` plans ``--batch`` copies of the demo with the goal
-jittered per problem in one batched arena; ``sweep --impl arena`` plans
-``--scenarios`` random scenarios in one batched arena, ``sweep --impl
-stream`` streams them through a pool of ``--pool`` slots. Each prints the
-JAX CLI's JSON summary and exits 0. ``--impl vmap``, the JAX CLI's default,
-is not yet ported (exit 2), nor is ``--no-need-path`` meaningful there
-(exit 2, as in the JAX CLI).
+``multi`` plans ``--batch`` copies of the demo with the goal jittered per
+problem: by default (``--impl vmap``) each with the whole single-query
+solve in the vmapped multi-query planner, with ``--impl arena`` in one
+batched arena. ``sweep`` plans ``--scenarios`` random scenarios, each
+against its own box set: in the vmapped planner (the default), in one
+batched arena (``--impl arena``) or streamed through a pool of ``--pool``
+slots (``--impl stream``). Each prints the JAX CLI's JSON summary and exits
+0; ``--no-need-path`` is refused there (exit 2, as in the JAX CLI).
 
 ``probe`` runs the reference's raw propagation-throughput probes (the
 Naive and CostProp planners, no collision checks) on the demo's root and
@@ -34,9 +37,8 @@ through the hand-written CUDA kernels; without a CUDA device the CLI stops
 with an error instead of moving to the CPU. ``--device cpu`` runs the plain
 PyTorch versions.
 
-Not yet ported (exit 2): ``--shortcut``, ``--refine``, ``--plot``,
-``--impl vmap`` and the subcommands ``viz``, ``record``, ``profile`` and
-``sharded``.
+Not yet ported (exit 2): ``--refine``, ``--plot`` and the subcommands
+``viz``, ``record``, ``profile`` and ``sharded``.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ import json
 import sys
 
 NOT_PORTED_COMMANDS = ("viz", "record", "profile", "sharded")
-NOT_PORTED_FLAGS = ("shortcut", "refine", "plot")
+NOT_PORTED_FLAGS = ("refine", "plot")
 
 
 def _add_config_args(p: argparse.ArgumentParser) -> None:
@@ -115,6 +117,9 @@ def _add_plan_args(p: argparse.ArgumentParser) -> None:
     """The single-query subcommands' output flags."""
     p.add_argument("--out-dir", help="dump the artifact CSVs here")
     p.add_argument("--verbose", action="store_true")
+    p.add_argument("--shortcut", action="store_true",
+                   help="post-process the solution with kinodynamic "
+                   "shortcutting")
     for flag in NOT_PORTED_FLAGS:
         p.add_argument(f"--{flag}", action="store_true",
                        help="not yet ported (exits 2)")
@@ -171,13 +176,24 @@ def _run_plan(args: argparse.Namespace, scenario) -> int:
         return rc
     device = args.device
     cfg = _config_from_args(args)
-    if not cfg.need_path and args.out_dir:
-        return _error("--no-need-path keeps no tree; incompatible with --out-dir")
+    if not cfg.need_path and (args.out_dir or args.shortcut):
+        wants = [f for f, v in (("--shortcut", args.shortcut),
+                                ("--out-dir", args.out_dir)) if v]
+        return _error("--no-need-path keeps no tree/path; incompatible with "
+                      + ", ".join(wants))
     planner = KGMT(cfg, device=device)
     print(f"Goal: {scenario.goal[0]:f}, {scenario.goal[1]:f}")
     result = planner.plan(scenario)
     print(f"time inside KGMT is {result.wall_time_s}")
     print(f"Iteration {result.iterations}, Tree size {result.tree_size}")
+    if args.shortcut and result.solved:
+        from cudasbmp_torch.shortcut import shortcut_path
+
+        out = shortcut_path(planner.system, cfg, result.path, scenario.goal,
+                            scenario.obstacles, device=device)
+        print(f"shortcut: cost {out['cost_before']:.3f} -> "
+              f"{out['cost_after']:.3f} ({len(result.path) - 1} -> "
+              f"{out['n_edges']} edges)")
     print(json.dumps(summarize_result(result), indent=2))
     if args.verbose:
         print(iteration_metrics_table(result.metrics))
@@ -189,10 +205,6 @@ def _run_plan(args: argparse.Namespace, scenario) -> int:
 
 def _batch_usage_error(args: argparse.Namespace) -> int:
     """The checks ``multi`` and ``sweep`` make before any work."""
-    if args.impl == "vmap":
-        return _error("--impl vmap: the vmapped multi-query planner is not yet "
-                      "ported to cudasbmp_torch (ROADMAP item 22); use "
-                      "--impl arena")
     if args.need_path is False:
         return _error("--no-need-path applies to the single-query planner "
                       "(demo/plan); the streaming sweep (sweep --impl "
@@ -204,7 +216,7 @@ def _run_multi(args: argparse.Namespace) -> int:
     import numpy as np
 
     from cudasbmp_torch.config import Scenario
-    from cudasbmp_torch.parallel import ArenaMultiQueryPlanner
+    from cudasbmp_torch.parallel import ArenaMultiQueryPlanner, MultiQueryPlanner
 
     if rc := _batch_usage_error(args):
         return rc
@@ -217,7 +229,8 @@ def _run_multi(args: argparse.Namespace) -> int:
     goals[:, :2] += rng.uniform(-args.goal_jitter, args.goal_jitter,
                                 (B, 2)).astype(np.float32)
     obstacles, _ = base.padded_obstacles(cfg.max_obstacles)
-    planner = ArenaMultiQueryPlanner(cfg, device=args.device)
+    cls = ArenaMultiQueryPlanner if args.impl == "arena" else MultiQueryPlanner
+    planner = cls(cfg, device=args.device)
     res = planner.plan_batch(inits, goals, obstacles, seed=cfg.seed)
     print(json.dumps({
         "batch": B,
@@ -310,15 +323,16 @@ def main(argv: list[str] | None = None) -> int:
                         help="directory in the reference configurations/ "
                         "layout")
     p_multi = sub.add_parser("multi", help="multi-query batch: B init/goal "
-                             "pairs planned together in one batched arena")
+                             "pairs planned together")
     _add_config_args(p_multi)
     p_multi.add_argument("--batch", type=int, default=64)
     p_multi.add_argument("--goal-jitter", type=float, default=1.0,
                          help="uniform jitter applied to the demo goal per "
                          "problem")
     p_multi.add_argument("--impl", choices=["vmap", "arena"], default="vmap",
-                         help="'arena' = the batched arena (fixed wave "
-                         "width); 'vmap' is not yet ported (exits 2)")
+                         help="'vmap' = every problem with the whole "
+                         "single-query solve (adaptive waves supported); "
+                         "'arena' = the batched arena (fixed wave width)")
     p_sweep = sub.add_parser("sweep", help="Monte-Carlo sweep over random "
                              "obstacle scenarios")
     _add_config_args(p_sweep)
@@ -326,10 +340,11 @@ def main(argv: list[str] | None = None) -> int:
     p_sweep.add_argument("--obstacles", type=int, default=8)
     p_sweep.add_argument("--impl", choices=["vmap", "arena", "stream"],
                          default="vmap",
-                         help="'arena' = one batched arena over every "
-                         "scenario; 'stream' = slot-refilling streaming sweep "
-                         "(per-scenario results, no tree storage); 'vmap' is "
-                         "not yet ported (exits 2)")
+                         help="'vmap' = every scenario with the whole "
+                         "single-query solve; 'arena' = one batched arena "
+                         "over every scenario; 'stream' = slot-refilling "
+                         "streaming sweep (per-scenario results, no tree "
+                         "storage)")
     p_sweep.add_argument("--pool", type=int, default=1024,
                          help="resident slot count for --impl stream")
     p_probe = sub.add_parser("probe", help="raw propagation-throughput probes "

@@ -11,7 +11,8 @@ TPU kernels of cudasbmp_tpu/ops/rollout_pallas.py, and their plain twins:
 - ``rollout_batched_cuda`` and ``sample_and_rollout_batched_cuda`` (kernel
   B6: the same two kernels launched with one obstacle set, and one key, per
   problem) replace ``jax.vmap`` of those two over per-problem obstacle sets
-  (parallel/batch_kgmt.py:200-211, 226-230): lanes [B, R], obstacles
+  (parallel/batch_kgmt.py:200-211, 226-230, and under ``vmap`` of the whole
+  solve, parallel/multi_query.py:80-86): lanes [B, R], obstacles
   [B, K, 4], and for the Philox form keys [B, 2];
 - all take the footprint narrow phase (B3) and fast math (B4) as options,
   for every system of the registry, and ``cull=W``, the culled broad phase
@@ -566,8 +567,7 @@ def sample_and_rollout_torch(system, key: torch.Tensor, x0: torch.Tensor,
     (``rollout_culled_soa`` over warps with ``cull``). Returns (x1,
     controls, valid)."""
     spec = system.control_spec
-    lo = torch.tensor(spec.lo, dtype=torch.float32, device=x0.device)
-    hi = torch.tensor(spec.hi, dtype=torch.float32, device=x0.device)
+    lo, hi = spec.bounds(x0.device)
     u = rng.philox_uniform_lanes(key, x0.shape[-2], spec.dim)
     controls = lo + u * (hi - lo)
     x1, valid = _plain_rollout(system, x0, controls, obstacles, num_disc=num_disc,

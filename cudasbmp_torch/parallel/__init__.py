@@ -1,11 +1,16 @@
 from cudasbmp_torch.parallel.batch_kgmt import ArenaMultiQueryPlanner
 from cudasbmp_torch.parallel.monte_carlo import MonteCarloPlanner, random_scenarios
-from cudasbmp_torch.parallel.multi_query import MultiQueryResult, stack_scenarios
+from cudasbmp_torch.parallel.multi_query import (
+    MultiQueryPlanner,
+    MultiQueryResult,
+    stack_scenarios,
+)
 from cudasbmp_torch.parallel.streaming_mc import StreamingMonteCarloPlanner
 
 __all__ = [
     "ArenaMultiQueryPlanner",
     "MonteCarloPlanner",
+    "MultiQueryPlanner",
     "MultiQueryResult",
     "StreamingMonteCarloPlanner",
     "random_scenarios",

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from cudasbmp_torch import rng
-from cudasbmp_torch._math import div
+from cudasbmp_torch._math import div, row_sum
 from cudasbmp_torch.config import SAMPLE_DIM, KGMTConfig, Scenario
 from cudasbmp_torch.geometry.grid import RegionGrid
 from cudasbmp_torch.ops.rollout import rollout_batch
@@ -100,20 +100,6 @@ def _region_local(grid: RegionGrid, x: Tensor, y: Tensor,
     return torch.where(inside, cy * n + cx, 0), inside
 
 
-def _row_sum(x: Tensor) -> Tensor:
-    """Sum over the last axis in one fixed order, a pairwise tree of
-    elementwise adds (zero-padded to a power of two), so a problem's total
-    does not depend on the batch size or the device the way a library
-    reduction's order can."""
-    n = x.shape[-1]
-    width = 1 << max(n - 1, 0).bit_length()
-    if width != n:
-        x = torch.nn.functional.pad(x, (0, width - n))
-    while x.shape[-1] > 1:
-        x = x[..., 0::2] + x[..., 1::2]
-    return x
-
-
 def _scores(cfg: KGMTConfig, r1_total: Tensor, r1_valid: Tensor,
             r2_valid: Tensor) -> Tensor:
     """Exploration-guidance scores per R1 cell (updateR1, KGMT.cu:487-538),
@@ -127,7 +113,7 @@ def _scores(cfg: KGMTConfig, r1_total: Tensor, r1_valid: Tensor,
     fv2 = free_vol * free_vol
     score = (fv2 * fv2) / ((1.0 + cov_r) * (1.0 + r1_total * r1_total))
     score = torch.where(avail, score, 0.0)
-    total = _row_sum(score)
+    total = row_sum(score)
     return torch.where(avail, torch.where(total > 0, score / total, 1.0), 1.0)
 
 

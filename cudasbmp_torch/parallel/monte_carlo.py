@@ -4,9 +4,12 @@ of cudasbmp_tpu/parallel/monte_carlo.py; BASELINE config 5 per chip).
 Scenario generation is deterministic from a threefry key (bitwise the JAX
 package's draws, op by op): a random box field, then a start and a goal
 that each take the first of 32 candidates lying outside every box. The
-sweep plans them all in one batched arena (``impl="arena"``), every wave
-through kernel B6 (one obstacle set per problem). ``impl="vmap"``, the JAX
-package's vmapped whole-solve batch, is not yet ported (ROADMAP item 22).
+sweep plans them all at once, each scenario against its own box set, so
+every wave runs kernel B6 (or its Philox form under ``cuda_rng``): by
+default (``impl="vmap"``, as in the JAX package) in the vmapped multi-query
+planner, every scenario with the whole single-query solve; with
+``impl="arena"`` in one batched arena, whose ``max_extensions`` re-plans
+the scenarios that exhausted their window budget.
 """
 
 from __future__ import annotations
@@ -95,32 +98,41 @@ class MonteCarloSummary:
 
 
 class MonteCarloPlanner:
-    """Sweep many random scenarios through the batched arena on one device
-    (``cuda`` unless the caller asks for ``cpu``); honours cfg.goal_bias.
-    ``impl="vmap"`` (the JAX default) and ``mesh`` are not yet ported
-    (ROADMAP items 22 and 23)."""
+    """Sweep many random scenarios on one device (``cuda`` unless the caller
+    asks for ``cpu``): ``impl="vmap"`` through ``MultiQueryPlanner``,
+    ``impl="arena"`` through ``ArenaMultiQueryPlanner`` (fixed-width
+    waves; honours cfg.goal_bias). ``mesh`` is not yet ported (ROADMAP item
+    23)."""
 
     def __init__(self, config: KGMTConfig | None = None, mesh=None,
                  impl: str = "vmap", auto_capacity: bool = False,
                  device: torch.device | str = "cuda"):
         from cudasbmp_torch.parallel.batch_kgmt import ArenaMultiQueryPlanner
+        from cudasbmp_torch.parallel.multi_query import MultiQueryPlanner
 
-        if impl != "arena":
-            raise NotImplementedError(
-                f"MonteCarloPlanner(impl={impl!r}): the vmapped multi-query "
-                "planner is not yet ported (ROADMAP item 22); use impl='arena'")
         self.config = config or KGMTConfig()
-        self.planner = ArenaMultiQueryPlanner(
-            self.config, mesh=mesh, auto_capacity=auto_capacity, device=device)
+        if impl == "arena":
+            self.planner = ArenaMultiQueryPlanner(
+                self.config, mesh=mesh, auto_capacity=auto_capacity, device=device)
+        else:
+            self.planner = MultiQueryPlanner(self.config, mesh=mesh, device=device)
 
     def run(self, num_scenarios: int, seed: int = 0, num_obstacles: int = 8,
             max_extensions: int = 0) -> MonteCarloSummary:
         inits, goals, obstacles = random_scenarios(
             rng.key(seed), num_scenarios, self.config,
             num_obstacles=num_obstacles)
+        kw = {}
+        if max_extensions:
+            from cudasbmp_torch.parallel.batch_kgmt import ArenaMultiQueryPlanner
+
+            if not isinstance(self.planner, ArenaMultiQueryPlanner):
+                raise ValueError(
+                    "max_extensions requires impl='arena' (the vmap "
+                    "multi-query planner has no restart mechanism)")
+            kw = {"max_extensions": max_extensions}
         t0 = time.perf_counter()
-        res = self.planner.plan_batch(inits, goals, obstacles, seed=seed + 1,
-                                      max_extensions=max_extensions)
+        res = self.planner.plan_batch(inits, goals, obstacles, seed=seed + 1, **kw)
         wall = time.perf_counter() - t0
         solved = res.solved
         return MonteCarloSummary(

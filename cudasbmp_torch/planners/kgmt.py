@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from cudasbmp_torch import rng
-from cudasbmp_torch._math import div
+from cudasbmp_torch._math import div, row_sum
 from cudasbmp_torch.config import SAMPLE_DIM, KGMTConfig, Scenario
 from cudasbmp_torch.geometry.grid import RegionGrid
 from cudasbmp_torch.ops.rollout import rollout_batch
@@ -246,7 +246,10 @@ def update_region_scores(cfg: KGMTConfig, s: KGMTState | PathlessState
     """Exploration scores per R1 cell (updateR1, KGMT.cu:487-538):
     freeVol^4 / ((1 + covR) * (1 + count^2)) on available cells, normalised
     by their sum; untouched cells score 1. The powers are products, as XLA's
-    integer_pow computes them (x^4 = (x*x)*(x*x))."""
+    integer_pow computes them (x^4 = (x*x)*(x*x)). The sum is ``row_sum``'s
+    fixed pairwise order, so the batched planner's per-problem sums
+    (parallel/multi_query.py) equal it on every device (XLA sums in an order
+    of its own, an ulp away at times)."""
     n2 = cfg.n * cfg.n
     avail = s.r1_avail != 0
     cov_r = div(s.r2_avail.reshape(cfg.num_r1, n2).sum(dim=1).to(torch.float32), n2)
@@ -257,7 +260,7 @@ def update_region_scores(cfg: KGMTConfig, s: KGMTState | PathlessState
     fv2 = free_vol * free_vol
     score = (fv2 * fv2) / ((1.0 + cov_r) * (1.0 + count_f * count_f))
     score = torch.where(avail, score, 0.0)
-    total = score.sum()
+    total = row_sum(score)[0]
     active = avail.sum().clamp(min=1)
     r1_threshold = total / active.to(torch.float32)
     r1_score = torch.where(avail, torch.where(total > 0, score / total, 1.0), 1.0)

@@ -10,6 +10,8 @@ draws exactly the controls and acceptance numbers of the JAX planner:
 - ``random_bits``         = 32-bit jax.random.bits
 - ``uniform``             = jax.random.uniform (f32, with its ``minval`` and
   ``maxval``, as op-by-op JAX rounds them)
+- ``randint``             = jax.random.randint (int32, ``minval`` and
+  ``maxval`` scalars or tensors)
 
 and Philox-4x32-10 (Random123), the generator the ``cuda_rng`` rollout kernel
 draws its controls from; ``philox4x32`` here is that kernel's plain twin.
@@ -19,7 +21,8 @@ the JAX key data; a batch of keys ([B, 2]) gives what ``jax.vmap`` of the
 same function over [B] keys gives, with the batch shape leading. torch has
 no full uint32 arithmetic, so every word is carried in int64 and masked to
 32 bits after each add, multiply or shift. Every function runs on the device
-of the key it is given.
+of the key it is given, and a Python number becomes a tensor there by a
+fill, not by a copy from the host, so no function here waits for the card.
 """
 
 from __future__ import annotations
@@ -59,10 +62,20 @@ def key(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
     return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
 
 
+def _on(value: float | int | torch.Tensor, dtype: torch.dtype,
+        device: torch.device) -> torch.Tensor:
+    """``value`` as a ``dtype`` tensor on ``device``: a tensor is cast, a
+    Python number filled in place (``torch.tensor(x, device='cuda')`` copies
+    from pageable host memory, which waits for the stream)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=dtype)
+    return torch.full((), value, dtype=dtype, device=device)
+
+
 def fold_in(k: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
     """``jax.random.fold_in``: the hash of the counter (0, data mod 2^32).
     ``data`` broadcasts against the key batch; returns [..., 2]."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & MASK32
+    d = _on(data, torch.int64, k.device) & MASK32
     a, b = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
     return torch.stack([a, b], dim=-1)
 
@@ -84,7 +97,7 @@ def random_bits(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
         n *= s
     i = torch.arange(n, dtype=torch.int64, device=k.device)
     a, b = threefry2x32(k[..., 0, None], k[..., 1, None], i >> 32, i & MASK32)
-    return (a ^ b).reshape(*k.shape[:-1], *shape)
+    return (a ^ b).reshape((*k.shape[:-1], *shape))
 
 
 def uniform(k: torch.Tensor, shape: tuple[int, ...],
@@ -98,9 +111,40 @@ def uniform(k: torch.Tensor, shape: tuple[int, ...],
     the scaling is exact and the result is u. Returns [..., *shape]."""
     bits = (random_bits(k, shape) >> 9) | 0x3F800000
     u = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.as_tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.as_tensor(maxval, dtype=torch.float32, device=k.device)
+    lo = _on(minval, torch.float32, k.device)
+    hi = _on(maxval, torch.float32, k.device)
     return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding a uint32 bit pattern -> the int32 value it means."""
+    return torch.where(x >= 2**31, x - 2**32, x)
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b mod 2^32 for uint32 values held in int64, with b split into
+    16-bit halves so no product leaves int64."""
+    return (a * (b & 0xFFFF) + ((a * (b >> 16)) & 0xFFFF) * 65536) & MASK32
+
+
+def randint(k: torch.Tensor, shape: tuple[int, ...],
+            minval: int | torch.Tensor, maxval: int | torch.Tensor) -> torch.Tensor:
+    """int32 ``jax.random.randint``: two 32-bit draws under ``split(k)``'s
+    keys, ``hi`` and ``lo``, give ``((hi % span) * m + lo % span) % span``
+    in uint32 arithmetic, with ``span = maxval - minval`` (1 where maxval <=
+    minval) and ``m = (2^16 % span)^2 % span`` (the square wraps at 2^32,
+    so m is 0 for spans past 2^16), added to ``minval``: not a plain modulo
+    of one draw. ``minval`` and ``maxval`` (int32 values)
+    broadcast against [..., *shape] for keys [..., 2], as ``fold_in``'s
+    data does against the keys. Returns int32 [..., *shape]."""
+    lo_v = _on(minval, torch.int64, k.device)
+    hi_v = _on(maxval, torch.int64, k.device)
+    k1, k2 = split(k).unbind(-2)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = torch.where(hi_v <= lo_v, 1, (hi_v - lo_v) & MASK32)
+    mult = _mul32(2**16 % span, 2**16 % span) % span
+    offset = (_mul32(higher % span, mult) + lower % span) & MASK32
+    return _wrap32((lo_v + offset % span) & MASK32).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ rest is system-specific. Controls carry the edge duration LAST.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Protocol, runtime_checkable
 
 import torch
@@ -26,13 +27,25 @@ class ControlSpec:
     def dim(self) -> int:
         return len(self.lo)
 
+    def bounds(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(lo, hi) as f32 tensors on ``device``, made once per device: a
+        copy from the host each draw would wait for the card."""
+        return _bounds(self.lo, self.hi, torch.device(device))
+
     def sample(self, key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
         """Controls ``lo + u*(hi - lo)`` with u the threefry uniform stream
-        of ``key`` (bitwise the JAX draw); [..., dim] on the key's device."""
-        lo = torch.tensor(self.lo, dtype=torch.float32, device=key.device)
-        hi = torch.tensor(self.hi, dtype=torch.float32, device=key.device)
+        of ``key`` (bitwise the JAX draw); [..., dim] on the key's device, a
+        batch of keys [..., 2] giving [..., *shape, dim]."""
+        lo, hi = self.bounds(key.device)
         u = rng.uniform(key, tuple(shape) + (self.dim,))
         return lo + u * (hi - lo)
+
+
+@functools.lru_cache(maxsize=None)
+def _bounds(lo: tuple[float, ...], hi: tuple[float, ...],
+            device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.tensor(lo, dtype=torch.float32, device=device),
+            torch.tensor(hi, dtype=torch.float32, device=device))
 
 
 @runtime_checkable

@@ -2,8 +2,9 @@
 ``--device cpu`` at small sizes: the reference parity lines, a JSON summary
 equal to KGMT.plan's, the flag-over-file override rule of the JAX CLI, the
 artifact dump, the batch subcommands ``multi`` and ``sweep`` (the JAX CLI's
-JSON keys, values equal to the library call's), the throughput probe
-``probe``, and exit code 2 for what is not yet ported."""
+JSON keys, values equal to the library call's; the vmapped multi-query
+planner by default), ``--shortcut``, the throughput probe ``probe``, and
+exit code 2 for what is not yet ported."""
 
 import argparse
 import json
@@ -105,8 +106,7 @@ def test_flag_overrides_config_file_as_in_the_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["viz", "--artifacts", "x"], ["record", "--out-dir", "x"],
-    ["profile", "--trace-dir", "x"], ["multi", "--batch", "2"], ["sweep"],
-    ["sharded"], ["demo", "--device", "cpu", "--shortcut"],
+    ["profile", "--trace-dir", "x"], ["sharded"],
     ["demo", "--device", "cpu", "--refine"], ["demo", "--device", "cpu", "--plot"],
 ])
 def test_not_yet_ported_exits_2(capsys, argv):
@@ -201,12 +201,104 @@ def test_batch_subcommands_print_the_jax_clis_summary(capsys, name):
         assert got["solve_rate"] > 0
 
 
-@pytest.mark.parametrize("argv", [
-    ["multi", "--impl", "vmap"], ["sweep", "--impl", "vmap", "--scenarios", "2"]])
-def test_batch_subcommands_refuse_vmap_naming_arena(capsys, argv):
+# the JAX CLI's JSON keys (cudasbmp_tpu/cli.py:345-352, 380-388), the same
+# for every --impl of a subcommand (test_batch_subcommands_print_the_jax_clis_summary
+# reads them from the JAX CLI for --impl arena)
+MULTI_KEYS = ["batch", "solved", "solve_rate", "mean_cost", "wall_time_s",
+              "solves_per_sec"]
+SWEEP_KEYS = ["scenarios", "solve_rate", "mean_cost_solved", "mean_tree_size",
+              "wall_time_s", "solves_per_sec", "num_budget_exhausted"]
+VMAP_SMALL = ["--num-iterations", "40", "--rollouts-per-iter", "512",
+              "--max-tree-size", "8192", "--seed", "1"]
+# the demo's pairs need small_config's trees; random scenarios solve in less
+DEMO_SMALL = ["--max-tree-size", "16384", "--rollouts-per-iter", "2048", "--seed", "1"]
+VMAP_RUNS = {
+    "multi": ["multi", "--batch", "4", *DEMO_SMALL],
+    "multi_vmap": ["multi", "--impl", "vmap", "--batch", "3", "--goal-jitter", "0.5",
+                   *DEMO_SMALL],
+    "sweep": ["sweep", "--scenarios", "4", "--obstacles", "5", *VMAP_SMALL],
+    "sweep_vmap": ["sweep", "--impl", "vmap", "--scenarios", "3", "--obstacles", "6",
+                   *VMAP_SMALL],
+}
+
+
+@pytest.mark.parametrize("name", list(VMAP_RUNS))
+def test_batch_subcommands_default_to_the_vmapped_planner(capsys, name):
+    """multi and sweep with no --impl, or --impl vmap, exit 0 with the JAX
+    CLI's keys and the values of MultiQueryPlanner / MonteCarloPlanner."""
+    import numpy as np
+
+    from cudasbmp_torch import parallel
+
+    argv = VMAP_RUNS[name]
     rc, out, err = run(capsys, *argv, "--device", "cpu")
-    assert rc == 2 and "--impl arena" in err and "ROADMAP item 22" in err
-    assert out == ""
+    assert rc == 0 and err == ""
+    got = json_of(out)
+    if argv[0] == "multi":
+        cfg = ct.KGMTConfig(rollouts_per_iter=2048, max_tree_size=16384, seed=1)
+        assert list(got) == MULTI_KEYS
+        B, jitter = int(argv[argv.index("--batch") + 1]), 1.0
+        if "--goal-jitter" in argv:
+            jitter = float(argv[argv.index("--goal-jitter") + 1])
+        base = ct.Scenario.demo()
+        inits = np.tile(base.init, (B, 1)).astype(np.float32)
+        goals = np.tile(base.goal, (B, 1)).astype(np.float32)
+        goals[:, :2] += np.random.default_rng(1).uniform(
+            -jitter, jitter, (B, 2)).astype(np.float32)
+        res = parallel.MultiQueryPlanner(cfg, device="cpu").plan_batch(
+            inits, goals, base.padded_obstacles(cfg.max_obstacles)[0], seed=1)
+        want = {"batch": B, "solved": int(res.solved.sum()),
+                "mean_cost": float(res.costs[res.solved].mean())}
+    else:
+        cfg = ct.KGMTConfig(num_iterations=40, rollouts_per_iter=512,
+                            max_tree_size=8192, seed=1)
+        assert list(got) == SWEEP_KEYS
+        n = int(argv[argv.index("--scenarios") + 1])
+        s = parallel.MonteCarloPlanner(cfg, device="cpu").run(
+            n, seed=1, num_obstacles=int(argv[argv.index("--obstacles") + 1]))
+        want = {"scenarios": n, "solve_rate": s.solve_rate,
+                "mean_cost_solved": s.mean_cost_solved,
+                "mean_tree_size": s.mean_tree_size,
+                "num_budget_exhausted": s.num_budget_exhausted}
+    assert {k: got[k] for k in want} == want
+    assert got["solve_rate"] > 0.5 and got["solves_per_sec"] > 0
+
+
+def test_demo_shortcut_prints_the_jax_clis_line(capsys):
+    """demo --shortcut: the JAX CLI's line (cudasbmp_tpu/cli.py:141-143)
+    after the parity lines, equal to shortcut_path on the solved path."""
+    from cudasbmp_torch.shortcut import shortcut_path
+
+    rc, out, err = run(capsys, "demo", "--device", "cpu", *DEMO_SMALL, "--shortcut")
+    lines = out.splitlines()
+    assert rc == 0 and err == ""
+    m = re.fullmatch(r"shortcut: cost (\d+\.\d{3}) -> (\d+\.\d{3}) \((\d+) -> (\d+) edges\)",
+                     lines[3])
+    assert m, lines[3]
+    cfg = ct.KGMTConfig(max_tree_size=16384, rollouts_per_iter=2048, seed=1)
+    planner = ct.KGMT(cfg, device="cpu")
+    r = planner.plan(ct.Scenario.demo())
+    sc = shortcut_path(planner.system, cfg, r.path, ct.Scenario.demo().goal,
+                       ct.Scenario.demo().obstacles, device="cpu")
+    assert m.groups() == (f"{sc['cost_before']:.3f}", f"{sc['cost_after']:.3f}",
+                          str(len(r.path) - 1), str(sc["n_edges"]))
+    assert summary_of(out)["cost"] == pytest.approx(r.cost)
+    rc, out, err = run(capsys, "demo", "--device", "cpu", "--no-need-path",
+                       "--shortcut", *SMALL)
+    assert rc == 2 and "--shortcut" in err and out == ""
+
+
+def test_sweep_vmap_refuses_max_extensions():
+    """The planner sweep --impl vmap builds has no restart mechanism:
+    max_extensions is the arena's (cudasbmp_tpu/parallel/monte_carlo.py:
+    119-131)."""
+    from cudasbmp_torch import parallel
+
+    mc = parallel.MonteCarloPlanner(ct.KGMTConfig(rollouts_per_iter=64,
+                                                  max_tree_size=640),
+                                    impl="vmap", device="cpu")
+    with pytest.raises(ValueError, match="max_extensions requires impl='arena'"):
+        mc.run(2, max_extensions=1)
 
 
 @pytest.mark.parametrize("argv", [

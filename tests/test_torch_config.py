@@ -103,8 +103,8 @@ def test_package_source_never_mentions_jax_imports():
 def test_package_imports_and_solves_with_jax_blocked():
     """Every module of the port, parallel/ and probes/ included, imports
     with JAX and the JAX package blocked, and the single query, the arena
-    sweep, the streaming sweep, the probe planners and the throughput probe
-    run."""
+    sweep, the streaming sweep, the vmap sweep and multi-query planner, the
+    shortcut, the probe planners and the throughput probe run."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -123,6 +123,18 @@ def test_package_imports_and_solves_with_jax_blocked():
         "s = parallel.StreamingMonteCarloPlanner(cfg, pool=2, device='cpu').run(\n"
         "    4, num_obstacles=5)\n"
         "assert s.iters.shape == (4,), s\n"
+        "s = parallel.MonteCarloPlanner(cfg, device='cpu').run(3, num_obstacles=5)\n"
+        "assert s.costs.shape == (3,), s\n"
+        "import numpy as np\n"
+        "sc = cudasbmp_torch.Scenario.demo()\n"
+        "m = parallel.MultiQueryPlanner(cfg, device='cpu').plan_scenarios([sc, sc])\n"
+        "assert m.paths.shape == (2, 3, 7), m\n"
+        "from cudasbmp_torch.shortcut import ShortcutConfig, shortcut_batch\n"
+        "o = shortcut_batch(cudasbmp_torch.KGMT(cfg, device='cpu').system, cfg,\n"
+        "                   m.paths, m.path_lengths, np.stack([sc.goal] * 2),\n"
+        "                   sc.obstacles, ShortcutConfig(rounds=2, candidates=8),\n"
+        "                   device='cpu')\n"
+        "assert o['paths'].shape == (2, 3, 7), o\n"
         "from cudasbmp_torch.planners import CostPropPlanner, NaivePlanner\n"
         "for P in (NaivePlanner, CostPropPlanner):\n"
         "    assert P(width_rollouts=64, rows=2, device='cpu').plan(\n"

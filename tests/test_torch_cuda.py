@@ -594,3 +594,70 @@ def test_chain_wrappers_reject_bad_inputs(dev):
         cc.gather_chain_cuda(tbl[:, :64].contiguous(), idx, 4)
     with pytest.raises(ValueError, match="idx"):
         cc.gather_chain_cuda(tbl, idx[:, :100].contiguous(), 4)
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda_rng"])
+def test_multi_query_problems_equal_their_single_solves(dev, backend):
+    """The vmapped planner on the card: every trip one launch of B6 (or its
+    Philox form), and each problem equals the single solve on its key
+    (B1/B2 at the single solve's width), bit for bit."""
+    from cudasbmp_torch.parallel import MultiQueryPlanner
+    from cudasbmp_torch.planners import kgmt as tk
+
+    cfg = ctt.KGMTConfig(num_iterations=100, max_tree_size=16384,
+                         rollouts_per_iter=2048, rollout_backend=backend)
+    base = Scenario.demo()
+    B = 6
+    inits = np.tile(base.init, (B, 1)).astype(np.float32)
+    goals = np.tile(base.goal, (B, 1)).astype(np.float32)
+    goals[:, :2] += np.random.default_rng(2).uniform(-1, 1, (B, 2)).astype(np.float32)
+    obstacles = base.padded_obstacles(8)[0]
+    planner = MultiQueryPlanner(cfg, device=dev)
+    rc.reset_launch_counts()
+    res = planner.plan_batch(inits, goals, obstacles, seed=11)
+    kernel = (rc.sample_and_rollout_batched_cuda if backend == "cuda_rng"
+              else rc.rollout_batched_cuda)
+    assert kernel.launches == planner.last_state.trips > 0
+    for b in range(B):
+        s = tk.kgmt_solve(cfg, planner.system, planner.grid,
+                          torch.tensor(inits[b], device=dev),
+                          torch.tensor(goals[b], device=dev),
+                          torch.tensor(obstacles, device=dev),
+                          rng.fold_in(rng.key(11, dev), b))
+        _, samples, length = tk.extract_path(cfg, s)
+        assert (res.iterations[b], res.tree_sizes[b], res.path_lengths[b]) == (
+            s.itr, s.tree_size, int(length))
+        assert res.costs[b] == float(s.cost_to_goal)
+        np.testing.assert_array_equal(res.paths[b].view(np.uint32),
+                                      samples.cpu().numpy().view(np.uint32))
+
+
+def test_shortcut_on_the_card_equals_its_twin(dev, monkeypatch):
+    """shortcut_batch through B6 and shortcut_path through B1 give what the
+    plain twin gives driven on the card."""
+    from cudasbmp_torch import shortcut as sc
+
+    cfg = ctt.KGMTConfig(num_iterations=100, max_tree_size=16384, rollouts_per_iter=2048)
+    planner = ctt.KGMT(cfg, device=dev)
+    base = Scenario.demo()
+    path = planner.plan(base, seed=1).path
+    scfg = sc.ShortcutConfig(rounds=16, candidates=256)
+    paths = np.stack([path] * 4)
+    lengths = np.array([len(path)] * 4)
+    goals = np.tile(base.goal, (4, 1)).astype(np.float32)
+    obstacles = base.padded_obstacles(8)[0]
+    rc.reset_launch_counts()
+    card = (sc.shortcut_path(planner.system, cfg, path, base.goal, base.obstacles,
+                             scfg, seed=3, device=dev),
+            sc.shortcut_batch(planner.system, cfg, paths, lengths, goals, obstacles,
+                              scfg, seed=3, device=dev))
+    assert rc.rollout_cuda.launches > 0 and rc.rollout_batched_cuda.launches > 0
+    monkeypatch.setattr(sc, "rollout_cuda", rc.rollout_soa)
+    monkeypatch.setattr(sc, "rollout_batched_cuda", rc.rollout_soa)
+    twin = (sc.shortcut_path(planner.system, cfg, path, base.goal, base.obstacles,
+                             scfg, seed=3, device=dev),
+            sc.shortcut_batch(planner.system, cfg, paths, lengths, goals, obstacles,
+                              scfg, seed=3, device=dev))
+    for a, b in zip(card, twin):
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)

@@ -1,7 +1,8 @@
 """The Monte-Carlo sweep (cudasbmp_torch/parallel/monte_carlo.py) on the
 CPU: ``random_scenarios`` bit for bit against the JAX package's, run op by
 op (jax.disable_jit; jitted, XLA:CPU may fuse the uniform draws'
-multiply-add), and the sweep over the batched arena."""
+multiply-add), the sweep over the batched arena, and the default vmap
+sweep, each scenario against the single-query solve on its own box set."""
 
 import jax
 import numpy as np
@@ -11,11 +12,13 @@ import torch
 from cudasbmp_torch import rng
 from cudasbmp_torch.config import KGMTConfig
 from cudasbmp_torch.parallel import MonteCarloPlanner, random_scenarios
+from cudasbmp_torch.planners.kgmt import kgmt_solve
 from cudasbmp_tpu import KGMTConfig as JConfig
 from cudasbmp_tpu.parallel.monte_carlo import random_scenarios as j_random_scenarios
 
 torch.set_num_threads(2)
 ARENA = dict(rollouts_per_iter=128, max_tree_size=128 * 31, num_iterations=30)
+VMAP = dict(rollouts_per_iter=512, max_tree_size=8192, num_iterations=40)
 
 
 @pytest.mark.parametrize("seed,batch,num_obstacles", [(0, 16, 8), (3, 5, 5), (11, 9, 12)])
@@ -49,9 +52,30 @@ def test_arena_sweep_over_random_scenarios():
     np.testing.assert_array_equal(again.costs, s.costs)
 
 
-def test_vmap_impl_and_mesh_are_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 22"):
-        MonteCarloPlanner(KGMTConfig(**ARENA), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-        MonteCarloPlanner(KGMTConfig(**ARENA), impl="arena", mesh=object(),
-                          device="cpu")
+def test_vmap_sweep_equals_single_solves_on_each_box_set():
+    """impl='vmap' (the default): every scenario with the whole single-query
+    solve on its own box set and the key fold_in(key(seed + 1), b), bit for
+    bit; max_extensions belongs to the arena."""
+    cfg = KGMTConfig(**VMAP)
+    mc = MonteCarloPlanner(cfg, device="cpu")
+    s = mc.run(num_scenarios=5, seed=3, num_obstacles=5)
+    assert s.costs.shape == (5,) and s.solve_rate >= 0.6, s.costs
+    assert s.num_budget_exhausted == int((~s.solved).sum())
+    inits, goals, obstacles = random_scenarios(rng.key(3), 5, cfg, num_obstacles=5)
+    planner = mc.planner
+    for b in range(5):
+        one = kgmt_solve(cfg, planner.system, planner.grid, torch.tensor(inits[b]),
+                         torch.tensor(goals[b]), torch.tensor(obstacles[b]),
+                         rng.fold_in(rng.key(4), b))
+        assert s.costs[b:b + 1].view(np.uint32) == one.cost_to_goal.reshape(1).numpy().view(
+            np.uint32), b
+        assert planner.last_state.tree_size[b] == one.tree_size, b
+    with pytest.raises(ValueError, match="max_extensions requires impl='arena'"):
+        mc.run(num_scenarios=2, seed=3, num_obstacles=5, max_extensions=1)
+
+
+def test_mesh_is_not_yet_ported():
+    for impl in ("vmap", "arena"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
+            MonteCarloPlanner(KGMTConfig(**ARENA), impl=impl, mesh=object(),
+                              device="cpu")

@@ -106,3 +106,47 @@ def test_philox_uniform_lanes():
     assert torch.equal(u[:100], rng.philox_uniform_lanes(k, 100, 3))
     with pytest.raises(ValueError):
         rng.philox_uniform_lanes(k, 8, 5)
+
+
+RANGES = ((0, 1), (0, 5), (3, 9), (-7, 100), (5, 5), (9, 3), (0, 65535), (0, 65536),
+          (0, 65537), (-1000, 2**30 + 12345), (0, 2**31 - 1), (-2**31, 2**31 - 1))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:16])
+def test_randint_bitwise(seed):
+    """jax.random.randint's two draws and span arithmetic, at spans on both
+    sides of 2^16 (where its multiplier wraps to 0), empty and reversed
+    ranges and the whole int32 range."""
+    jk, tk = jax.random.key(seed), rng.key(seed)
+    for lo, hi in RANGES:
+        for shape in ((), (33,), (4, 5)):
+            want = np.asarray(jax.random.randint(jk, shape, lo, hi))
+            got = rng.randint(tk, shape, lo, hi)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_randint_dynamic_ranges_under_batched_keys():
+    """The shortcut's draws: a batch of keys with per-key tensor bounds, j's
+    range depending on the drawn i, as vmap of jax.random.randint gives."""
+    B = 64
+    n_edges = np.random.default_rng(0).integers(0, 200, B).astype(np.int32)
+    jkeys = jax.vmap(lambda b: jax.random.fold_in(jax.random.key(9), b))(jnp.arange(B))
+    tkeys = rng.fold_in(rng.key(9), torch.arange(B))
+    np.testing.assert_array_equal(_kd(jkeys), tkeys.numpy())
+
+    def draw(k, n):
+        ki, kj = jax.random.split(k)
+        i = jax.random.randint(ki, (), 0, jnp.maximum(n - 1, 1))
+        return i, jax.random.randint(kj, (), i + 2, jnp.maximum(n + 1, i + 3))
+
+    wi, wj = jax.vmap(draw)(jkeys, jnp.asarray(n_edges))
+    n = torch.as_tensor(n_edges, dtype=torch.int64)
+    ki, kj = rng.split(tkeys).unbind(-2)
+    gi = rng.randint(ki, (), 0, torch.clamp(n - 1, min=1))
+    gj = rng.randint(kj, (), gi.long() + 2, torch.maximum(n + 1, gi.long() + 3))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gj.numpy(), np.asarray(wj))
+    big = rng.randint(tkeys, (7,), torch.zeros(B, 1, dtype=torch.int64), 2**31 - 1)
+    want = jax.vmap(lambda k: jax.random.randint(k, (7,), 0, 2**31 - 1))(jkeys)
+    np.testing.assert_array_equal(big.numpy(), np.asarray(want))
