@@ -3,6 +3,8 @@
     python3 chip_smoke.py            # phases 1-26, one GPU, no network
     python3 chip_smoke.py --profile  # also: torch.profiler over a demo solve,
                                      # an arena solve and a streaming sweep
+    python3 chip_smoke.py --compare OLD.json NEW.json  # two runs' records:
+                                     # do their solves agree? (no GPU needed)
 
 Run from the root of a checkout. The CUDA kernels build from
 cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
@@ -75,14 +77,19 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
 18. B5 (both kernels with cull=W, the culled broad phase) bitwise against
     cull off in every instantiation at W in {1, 2, 4, 5}, on the dense-24
     field and tests/test_pallas.py's 16-box field, at 2^17 lanes random and
-    Morton-grouped, at R=33 and 4,097 and at 100 boxes; against its plain
-    twin; device ms of B2 with cull off and at each W beside the twin's;
+    Morton-grouped, at R=33 and 4,097 and at 100 boxes, at 25 steps (windows
+    past the kernel's cap of 10 steps, cut by the wrapper's plan) and at the
+    culled box cap (one box more raises); against its plain twin; device ms
+    of B2 with cull off and at each W beside the twin's, and its one-warp
+    floor; the culled instantiations' registers and spills;
 19. the throughput probe (probes/throughput.py, bench.py's 2^17 lanes):
     valid rollouts/s by device time and, labelled, by wall for cuda,
     cuda_rng, fast math, dense-24 and torch; then the cull table of
     tools/r4_cull_bench.py, B5's main path;
-20. the calibration chains P1a (FMA), P1b (cos, sin, tan) and P2 (gathers
-    at 8, 128 and 1,024 rows) against their plain twins, the rollout
+20. the calibration chains P1a (FMA), P1b (cos, sin, tan; bitwise) and P2
+    (gathers at 8, 128 and 1,024 rows) against their plain twins, P1b's
+    launch geometry (the occupancy query's blocks an SM, its grid) and
+    registers, its device ms for each op, the rollout
     kernels' sincosf against torch.sin/torch.cos at every float, their
     rates from device time (probes/roofline.py::calibrate), and B2's
     roofline shares, exact, fast and dense-24;
@@ -178,6 +185,7 @@ MIN_REGULAR = 3  # regular profiler windows a time should be the median of
 # profiler loses records (PERF.md)
 PLAIN_CALLS = 2
 WINDOWS = (1, 2, 4, 5)  # B5's step windows, as tools/r4_cull_bench.py
+CUT_STEPS = 25  # past B5's cap of steps a window: W = 1 runs as 3 windows
 PROBE_LANES = 524_288  # the CostProp probe's width (CostPropPlanner.cu:85-88)
 MULTI_B = 64  # the CLI's multi and sweep batches (cudasbmp_tpu/cli.py:236, 246)
 MC_VMAP_N = 64
@@ -773,8 +781,10 @@ def check_b5(dev, kw) -> dict:
     """Phase 18: B5 (both kernels with cull=W) bitwise against cull off, in
     every instantiation at W in WINDOWS on the dense-24 and the 16-box
     fields, at 2^17 lanes random and Morton-grouped, at ragged R and at 100
-    boxes; against its plain twin; device ms of B2 off and at each W beside
-    the culled twin at the cull table's shape."""
+    boxes, at CUT_STEPS steps (windows past the kernel's cap, cut by the
+    wrapper's plan) and at the culled box cap (one more box raises);
+    against its plain twin; device ms of B2 off and at each W beside the
+    culled twin at the cull table's shape, and at its one-warp floor."""
     from cudasbmp_torch import rng
     from cudasbmp_torch.config import Scenario
     from cudasbmp_torch.ops import rollout_cuda as rc
@@ -818,6 +828,36 @@ def check_b5(dev, kw) -> dict:
         for fp in (None, FOOTPRINT):
             against_b1(system, *grouped(x0, c), obs, dict(kw, footprint=fp),
                        f"R={R} K={K}")
+    # windows longer than the kernel keeps: the wrapper's plan cuts them
+    _, x0, c = system_batch("bicycle", B_CHECK, 191, dev)
+    obs = culled_field(24, dev)
+    check(len(rc.cull_plan(1, CUT_STEPS)) > 2, f"{CUT_STEPS} steps: no window cut")
+    for fp in (None, FOOTPRINT):
+        for fast in (False, True):
+            against_b1(system, *grouped(x0, c), obs,
+                       dict(kw, num_disc=CUT_STEPS, footprint=fp, fast_math=fast),
+                       f"{CUT_STEPS} steps {fp} {fast}")
+    # the culled box cap: the window store's bytes less than cull off's
+    out["box_cap"] = {}
+    _, x0, c = system_batch("bicycle", 4097, 192, dev)
+    for fp in (None, FOOTPRINT):
+        limit = rc.max_kernel_obstacles(dev.index or 0, culled=True,
+                                        footprint=fp is not None)
+        check(rc.max_kernel_obstacles(dev.index or 0) - limit
+              == rc.cull_state_bytes(fp is not None) // 16,
+              f"culled box cap {limit}: not the window store's bytes below cull off's")
+        r = np.random.default_rng(limit)
+        lo = r.uniform(0, 19.8, (limit, 2))
+        big = torch.tensor(np.concatenate([lo, lo + r.uniform(0.01, 0.2, (limit, 2))], -1)
+                           .astype(np.float32), device=dev)
+        against_b1(system, *grouped(x0, c), big, dict(kw, footprint=fp), f"K={limit}")
+        try:
+            rc.rollout_cuda(system, x0, c, torch.cat([big, big[:1]]), **kw, footprint=fp,
+                            cull=4)
+            fail(f"B5 at {limit + 1} boxes: launched past the culled cap")
+        except ValueError:
+            pass
+        out["box_cap"]["footprint" if fp else "broad"] = limit
     # the plain culled twin on the card, at warps of 32 lanes
     obs = culled_field(24, dev)
     _, x0, c = system_batch("bicycle", B_CHECK, 199, dev)
@@ -844,6 +884,9 @@ def check_b5(dev, kw) -> dict:
     x0 = tp.start_states(B_CHECK, dev, grouped=True)
     timed(t, "plain_grouped_W4", lambda: rc.sample_and_rollout_torch(
         system, key, x0, sc_obs, **kw, cull=4), PLAIN_CALLS, plain=True)
+    near = x0[:FLOOR_LANES].contiguous()
+    timed(t, "floor_W4", lambda: rc.sample_and_rollout_cuda(system, key, near, sc_obs,
+                                                           **kw, cull=4))
     out["max_abs_err"] = max(v["max_abs_err"] for v in out["twin"].values())
     return out
 
@@ -890,6 +933,7 @@ def run_calibration(dev, probes: dict) -> dict:
     and read after ``calibrate``), and B2's roofline shares, exact, fast and
     dense-24."""
     from cudasbmp_torch.ops import chains_cuda as cc
+    from cudasbmp_torch.ops import rollout_cuda as rc
     from cudasbmp_torch.probes import roofline as rf
 
     x = rf.chain_inputs(dev)
@@ -900,6 +944,8 @@ def run_calibration(dev, probes: dict) -> dict:
         check(err <= rtol, f"P1a at {chain} links: relative error {err} > {rtol}")
         out["checks"][f"alu_{chain}"] = {"max_rel_err": err, "rtol": rtol,
                                          "max_abs_err": float((a - b).abs().max())}
+    # P1b within 1e-5 of its twin, and bitwise: the kernel runs each
+    # element's chain as the twin does, cosf/sinf/tanf as torch's kernels
     for op, chain in (("cos", rf.TRANS_CHAIN), ("sin", rf.TRANS_CHAIN), ("tan", 2)):
         a, b = cc.trans_chain_cuda(x, chain, op), cc.trans_chain_torch(x, chain, op)
         err = float(((a - b).abs() / b.abs()).max())
@@ -910,6 +956,15 @@ def run_calibration(dev, probes: dict) -> dict:
     out["checks"][f"tan_{rf.TRANS_CHAIN}"] = {
         "bitwise": bitwise(a, cc.trans_chain_torch(x, rf.TRANS_CHAIN, "tan")),
         "finite": bool(torch.isfinite(a).all())}
+    for k in ("cos_2048", "sin_2048", "tan_2", "tan_2048"):
+        check(out["checks"][k]["bitwise"], f"P1b {k}: no longer bitwise equal to its twin")
+    out["p1b_geometry"] = {}
+    for op in cc.TRANS_OPS:
+        threads, elems, per_sm = cc.trans_geometry(dev.index or 0, op)
+        out["p1b_geometry"][op] = {
+            "threads": threads, "elements_a_thread": elems, "blocks_per_sm": per_sm,
+            "grid": cc.trans_plan(x.numel(), rc.sm_count(dev.index or 0), per_sm,
+                                  threads, elems)}
     for rows in rf.GATHER_ROWS:
         _, tbl, idx = rf.chain_inputs(dev, rows)
         check(bitwise(cc.gather_chain_cuda(tbl, idx, rf.GATHER_CHAIN),
@@ -1731,6 +1786,15 @@ def profile_batched(dev, out_dir: pathlib.Path) -> dict:
     return out
 
 
+def ptxas_summary(ptxas: dict, keep) -> str:
+    """Registers and spill bytes of the kernels whose names ``keep`` takes."""
+    rows = [v for k, v in ptxas.items() if keep(k)]
+    regs = [v["registers"] for v in rows]
+    spills = sum(v["spill_stores"] + v["spill_loads"] for v in rows)
+    return (f"{len(rows)} kernels, registers {min(regs, default=0)}-{max(regs, default=0)}, "
+            f"spill bytes {spills}")
+
+
 def ptxas_table(log: str) -> dict:
     """{kernel instantiation: registers and spill bytes} from nvcc's
     -Xptxas -v output (names demangled with c++filt where it exists)."""
@@ -1777,7 +1841,52 @@ def profile_solve(cfg, dev, out_dir: pathlib.Path) -> dict:
             "kernel_names": sum(t > 0 for t in dev_us)}
 
 
+# the phases whose solves two runs of the same kernels' results must share
+SOLVE_PHASES = ("tree_auto", "tree_cuda_rng", "pathless_auto", "forty_boxes",
+                "all_options", "other_systems", "arena_config4", "arena_extension",
+                "monte_carlo", "streaming", "multi_query", "multi_query_bench",
+                "monte_carlo_vmap", "shortcut")
+
+
+def compare_records(old: dict, new: dict) -> tuple[int, list[str]]:
+    """The fields of SOLVE_PHASES (phases 5-16 and 22-25: solve rates,
+    costs, iterations, tree sizes, launches, path checks) in two records of
+    this script, times left out (names starting ``tts`` or ending ``_s``,
+    ``_ms`` or holding ``per_sec`` or ``wall``): how many were compared,
+    and each that differs."""
+    def leaves(o, path):
+        if isinstance(o, dict):
+            for k, v in o.items():
+                yield from leaves(v, f"{path}/{k}")
+        elif isinstance(o, list):
+            for i, v in enumerate(o):
+                yield from leaves(v, f"{path}[{i}]")
+        else:
+            yield path, o
+
+    def timed_field(path: str) -> bool:
+        name = path.rsplit("/", 1)[-1].split("[")[0]
+        return (name.startswith("tts") or name.endswith(("_s", "_ms"))
+                or "per_sec" in name or "wall" in name)
+
+    compared, differ = 0, []
+    for phase in SOLVE_PHASES:
+        a, b = dict(leaves(old.get(phase), phase)), dict(leaves(new.get(phase), phase))
+        for path in sorted(a.keys() | b.keys()):
+            if not timed_field(path):
+                compared += 1
+                if a.get(path) != b.get(path):
+                    differ.append(f"{path}: {a.get(path)!r} -> {b.get(path)!r}")
+    return compared, differ
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--compare"]:
+        old, new = (json.loads(pathlib.Path(f).read_text()) for f in sys.argv[2:4])
+        compared, differ = compare_records(old, new)
+        print(f"{compared} solve fields of {len(SOLVE_PHASES)} phases compared, "
+              f"{len(differ)} differ", *differ, sep="\n")
+        return 1 if differ else 0
     out_dir = ROOT / "chiprun_out"
     record: dict = {}
     # 1. device
@@ -2065,11 +2174,14 @@ def main() -> int:
     b5t = b5["times"]
     print(f"[18 B5] {b5['checks']} culled launches (W in {list(WINDOWS)}, 20 instantiations x "
           f"2 kernels, dense-24 and 16 boxes, 2^17 random and grouped; R=33, 4097 and 2^17 at "
-          f"24 and 100 boxes) bitwise equal to cull off; twin bitwise at W=4 | B2 at 2^17 on "
+          f"24 and 100 boxes; {CUT_STEPS} steps, windows cut; the culled box caps "
+          f"{b5['box_cap']}) bitwise equal to cull off; twin bitwise at W=4 | culled "
+          f"instantiations: {ptxas_summary(ptxas, lambda k: k.endswith(', true>'))} | B2 at 2^17 on "
           f"dense-24, device ms random/grouped: " + ", ".join(
               f"W={W} {b5t[f'random_W{W}_ms']:.4f}/{b5t[f'grouped_W{W}_ms']:.4f}"
               for W in (0, *WINDOWS))
-          + f"; plain culled twin (grouped, W=4) {b5t['plain_grouped_W4_ms']:.2f} "
+          + f"; floor (32 grouped lanes, W=4) {b5t['floor_W4_ms']:.4f}; plain culled twin "
+          f"(grouped, W=4) {b5t['plain_grouped_W4_ms']:.2f} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # 19. the throughput probe and the cull table (B5's main path)
@@ -2094,7 +2206,10 @@ def main() -> int:
           f"evals/s {rates['cos_evals_per_sec']:.4g}/{rates['sin_evals_per_sec']:.4g}/"
           f"{rates['tan_evals_per_sec']:.4g}, gathers/s at 8/128/1024 rows "
           f"{rates['gathers_per_sec_8']:.4g}/{rates['gathers_per_sec_128']:.4g}/"
-          f"{rates['gathers_per_sec_1024']:.4g}; chains agree with their twins; sincosf "
+          f"{rates['gathers_per_sec_1024']:.4g}; P1b device ms cos/sin/tan "
+          f"{rates['ms']['cos']:.4f}/{rates['ms']['sin']:.4f}/{rates['ms']['tan']:.4f} on "
+          f"{cal['p1b_geometry']['cos']} ({ptxas_summary(ptxas, lambda k: k.startswith('trans_chain'))}); chains agree "
+          f"with their twins, P1b bitwise; sincosf "
           f"differs from torch.sin/cos on {cal['sincos_differences']} of 2^32 floats | B2 share of "
           f"the peaks: " + ", ".join(f"{k} {v['peak_share']:.4f} ({v['kernel_ms']:.4f} ms)"
                                       for k, v in cal["shares"].items())
@@ -2342,6 +2457,7 @@ def main() -> int:
          "launches": cal["launches"]["trans_chain_cuda"],
          "max_abs_err": chain_err(("cos", "sin", "tan")),
          "ms": cms["cos"], "ms_sin": cms["sin"], "ms_tan": cms["tan"],
+         "geometry": cal["p1b_geometry"]["cos"],
          "plain_ms": pm["cos_ms"], "plain_launch_ms": pm["cos_launch_ms"],
          **regular(creg["cos"], pm["cos_regular"]), **chain_row(cb["trans"])},
         {"name": "gather_chain_kernel (P2)", "route": "cuda",

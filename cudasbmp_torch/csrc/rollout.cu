@@ -30,7 +30,8 @@
 // loaded once per block), so device memory is touched once on the way in
 // and once on the way out. Shared memory caps K at what one block can hold
 // (cudaDevAttrMaxSharedMemoryPerBlockOptin / 16: 14,528 boxes at 227 KB on
-// an H100).
+// an H100; B5 gives up its window store: 13,248, or 12,608 with a
+// footprint).
 //
 // Thread groups (Params::split, G in {1, 2, 4, 8}, a runtime value, so no
 // instantiation of its own) shorten that chain at narrow widths. G adjacent
@@ -107,6 +108,7 @@
 #include <cmath>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -115,6 +117,8 @@ constexpr int kStaticSmemLimit = 48 * 1024;
 constexpr int kMaxSplit = 8;   // threads a rollout, at most
 constexpr int kRegBoxes = 2;   // boxes a sub-lane holds in registers, at most
 constexpr int kWalk = 4;       // the one-thread walk's boxes a pass (K padded to it)
+constexpr int kCullSteps = 10; // B5: the most steps of a window, kept in shared memory
+constexpr int kMaxPlan = 256;  // B5: the most windows a launch's plan holds
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -250,11 +254,29 @@ struct Params {
   int blocks_per_problem;  // ceil(R * split / kThreads)
   float width, height;
   float hl, hw;  // footprint half length / half width
-  int windows;   // B5: step windows of the culled broad phase (0: off)
+  int windows;   // B5: windows of the culled broad phase's plan (0: off)
   float pad;     // B5: how far the body reaches from (x, y): hl + hypot(hl, hw)
   int split, split_log2;  // G threads a rollout (1 with windows) and log2 G
   int reg_boxes;          // ceil(K / G) <= kRegBoxes: boxes in registers
 };
+
+// B5's window plan, by value among the culled kernels' parameters: n
+// windows of steps[w] steps each (1 to kCullSteps), in order, covering
+// num_disc. The other kernels take NoPlan.
+struct Plan {
+  int n;
+  unsigned char steps[kMaxPlan];
+};
+struct NoPlan {};
+template <bool kCull>
+using PlanOf = typename std::conditional<kCull, Plan, NoPlan>::type;
+
+// The shared memory B5 keeps a block's window in: kCullSteps candidate
+// states (float4) a thread and, with a footprint, as many poses (float2).
+__host__ __device__ constexpr size_t cull_state_bytes(bool footprint) {
+  return static_cast<size_t>(kThreads) * kCullSteps *
+         (sizeof(float4) + (footprint ? sizeof(float2) : 0));
+}
 
 // K rounded up to a multiple of kWalk: the boxes of the block's shared set
 __host__ __device__ __forceinline__ int padded(int K) {
@@ -520,93 +542,143 @@ __device__ __forceinline__ bool integrate_group(const Sys& sys, float4& s,
 // Replaces _integrate_culled (cudasbmp_tpu/ops/rollout_pallas.py:143-328),
 // the cull=W body of both TPU kernels. A TPU program of 8,192 lanes can only
 // skip a box for all its lanes at once; here the unit is the warp, 32 lanes
-// that branch together. For each of W step windows (Python's
-// round(w * num_disc / W), halves to even, as the JAX body splits them):
-//   pass 1 integrates the window's steps from the lane's state at the
-//   window's start, on a copy of its chain, and takes the union box of the
-//   positions over the warp's live lanes (fminf/fmaxf through
-//   __shfl_xor_sync, exact in any order), padded by the body's reach;
-//   pass 2 is B1's one-pass loop over the window, testing at each step only
-//   the boxes that overlap that union box: a ballot over chunks of 32 boxes
-//   (one box a lane), so no list sized by K is kept.
-// A lane alive at step i has in pass 2 the position pass 1 computed (the
-// same instructions on the same values), so a skipped box is separated from
-// its swept box and its body: (x1, valid) are B1's to the bit, whatever the
-// grouping of lanes, which only decides how much is skipped. Lanes dead at
-// a window's start add nothing to its box. num_disc stays a runtime value:
-// pass 1 recomputes the window's steps instead of keeping them (twice the
-// step work, trig included, for fewer box tests). Lanes past R stay in the
-// warp with neutral boxes, so every shuffle and ballot has all 32 threads;
-// B6's problems start on block boundaries, so no warp spans two problems.
+// that branch together. The wrapper's plan (ops/rollout_cuda.py::cull_plan)
+// gives the windows: Python's round(w * num_disc / W) (halves to even, as
+// the JAX body splits the steps), each cut into sub-windows of at most
+// kCullSteps steps. For each window:
+//   the lane integrates the window's steps once, on the unconditional chain
+//   (as integrate_group does), keeping each step's candidate state (and,
+//   with a footprint, its pose) in the block's shared memory, the bounds
+//   failures in a bit mask and the union box of its positions; the warp
+//   takes the union over its live lanes (warp_union: one redux a side,
+//   exact in any order), padded by the body's reach;
+//   then the boxes that overlap that union box, found once a window by a
+//   ballot over chunks of 32 boxes (one box a lane, so no list sized by K
+//   is kept), each against every stored step of the window, OR their
+//   failures into the mask. Its first set bit is the first failing step:
+//   the lane takes that step's candidate and dies, or, with none, the
+//   window's last state.
+// A skipped box is separated from every swept box and body of the window,
+// so (x1, valid) are B1's to the bit, whatever the grouping of lanes and
+// whatever the windows, which only decide how much is skipped. Lanes dead
+// at a window's start add nothing to its box and test nothing.
+//
+// What bounds it on this card: at the cull table's 2^17 lanes the ALU issue
+// of one integration (its trig and true division) plus the culled box
+// tests; one warp alone (the floor) waits on one lane's chain of steps,
+// then on each window's reductions and ballots. So each step is
+// integrated once (not once for the union box and again for the tests),
+// the near boxes are balloted once a window (not once a step), and no
+// step's trig waits on the previous step's box tests. Boxes
+// outer, steps inner: on grouped lanes a warp has few near boxes a window,
+// each tested against the window's steps in one short loop; the other
+// order (each step against all near boxes, or either order chosen by the
+// near count) ran slower there, and faster only on lanes far apart, where
+// culling does not pay (PERF.md). The states cost shared memory,
+// cull_state_bytes (20 KB a block, 30 KB with a footprint's poses), which
+// the culled box cap gives up (max_obstacles): at the cull table's 24
+// boxes eight blocks still fit an SM, so its 1,024 blocks run in one wave.
+// kCullSteps = 10 is the repo's num_disc, so no window of any W is cut
+// there. Lanes past R stay in the warp with neutral boxes, so every
+// reduction and ballot has all 32 threads; B6's problems start on block
+// boundaries, so no warp spans two problems.
 
-// Python's round(w * n / W) for 0 <= w <= W: the first step of window w
-__device__ __forceinline__ int window_start(int w, int n, int W) {
-  const int t = w * n, q = t / W, r2 = 2 * (t % W);
-  return q + ((r2 > W) | ((r2 == W) & (q & 1)));
+// A float's bits as an int that orders as the float does (-0 below +0),
+// and back: the map is its own inverse.
+__device__ __forceinline__ int ordered(float v) {
+  const int i = __float_as_int(v);
+  return i >= 0 ? i : i ^ 0x7fffffff;
 }
 
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int d = 16; d; d >>= 1) v = fminf(v, __shfl_xor_sync(kFullWarp, v, d));
-  return v;
+__device__ __forceinline__ float unordered(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int d = 16; d; d >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullWarp, v, d));
-  return v;
+// The warp's union box of its lanes' boxes, padded by `pad`: one redux a
+// side (__reduce_min_sync/__reduce_max_sync on the ordered bits, exact),
+// in place of five shuffles and five fminf/fmaxf a side. A NaN position
+// widens its side to NaN, so every box counts as near: conservative, and
+// such a step fails the bounds test anyway.
+__device__ __forceinline__ void warp_union(float& mnx, float& mxx, float& mny,
+                                           float& mxy, float pad) {
+  mnx = sub(unordered(__reduce_min_sync(kFullWarp, ordered(mnx))), pad);
+  mxx = add(unordered(__reduce_max_sync(kFullWarp, ordered(mxx))), pad);
+  mny = sub(unordered(__reduce_min_sync(kFullWarp, ordered(mny))), pad);
+  mxy = add(unordered(__reduce_max_sync(kFullWarp, ordered(mxy))), pad);
 }
 
+// ``store`` is the block's window store (cull_state_bytes): this thread's
+// candidate of step j at store[j * kThreads + threadIdx.x], then the poses.
 template <class Sys, bool kFootprint, bool kFast>
 __device__ __forceinline__ bool integrate_culled(const Sys& sys, float4& s,
                                                  float c0, float c1, float dur,
-                                                 const float* obs,
+                                                 const float4* obs,
+                                                 float4* store,
+                                                 const Plan& plan,
                                                  const Params& p, bool active) {
+  constexpr bool kPose = kFootprint && Sys::kHeading;
   const float dt = __fdiv_rn(dur, static_cast<float>(p.num_disc));
   Chain<Sys, kFast> chain(sys, s, c0, c1, dt);
-  bool alive = active;
+  float4* const window = store + threadIdx.x;
+  float2* const pose =
+      reinterpret_cast<float2*>(store + kThreads * kCullSteps) + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  for (int w = 0, lo = 0; w < p.windows; ++w) {
-    const int hi = window_start(w + 1, p.num_disc, p.windows);
-    // pass 1: the warp's union box of the window's positions
-    Chain<Sys, kFast> ahead = chain;
-    float4 u = s;
-    float mnx = u.x, mxx = u.x, mny = u.y, mxy = u.y;
-    for (int i = lo; i < hi; ++i) {
-      u = ahead.step(sys, u, dt);
-      mnx = fminf(mnx, u.x);
-      mxx = fmaxf(mxx, u.x);
-      mny = fminf(mny, u.y);
-      mxy = fmaxf(mxy, u.y);
+  bool alive = active;
+  float4 u = s;
+  for (int w = 0; w < plan.n; ++w) {
+    const int len = plan.steps[w];
+    const float x = u.x, y = u.y;
+    float mnx = x, mxx = x, mny = y, mxy = y;
+    unsigned fail = 0;  // bit j: step j of the window fails
+    for (int j = 0; j < len; ++j) {
+      const float4 n = chain.step(sys, u, dt);
+      if constexpr (kPose) {
+        float ct, st;
+        chain.template pose<kFootprint>(n, ct, st);
+        pose[j * kThreads] = make_float2(ct, st);
+      }
+      window[j * kThreads] = n;
+      fail |= static_cast<unsigned>(!in_bounds(n.x, n.y, p)) << j;
+      mnx = fminf(mnx, n.x);
+      mxx = fmaxf(mxx, n.x);
+      mny = fminf(mny, n.y);
+      mxy = fmaxf(mxy, n.y);
+      u = n;
     }
     if (!alive) {
       mnx = mny = INFINITY;
       mxx = mxy = -INFINITY;
     }
-    mnx = sub(warp_min(mnx), p.pad);
-    mxx = add(warp_max(mxx), p.pad);
-    mny = sub(warp_min(mny), p.pad);
-    mxy = add(warp_max(mxy), p.pad);
-    // pass 2: B1's steps against the boxes that overlap it
-    for (int i = lo; i < hi; ++i) {
-      const float4 n = chain.step(sys, s, dt);
-      float ct, st;
-      chain.template pose<kFootprint>(n, ct, st);
-      const StepTest<kFootprint> t(s.x, s.y, n.x, n.y, ct, st, p);
-      bool clear = in_bounds(n.x, n.y, p);
-      for (int base = 0; base < p.K; base += 32) {
-        bool near = false;
-        if (base + lane < p.K) {
-          const float* o = obs + 4 * (base + lane);
-          near = !((mxx <= o[0]) | (o[2] <= mnx) | (mxy <= o[1]) | (o[3] <= mny));
-        }
-        for (unsigned m = __ballot_sync(kFullWarp, near); m; m &= m - 1)
-          clear &= t.clears(obs + 4 * (base + __ffs(m) - 1), p);
+    warp_union(mnx, mxx, mny, mxy, p.pad);
+    for (int base = 0; base < p.K; base += 32) {
+      bool near = false;
+      if (base + lane < p.K) {
+        const float4 o = obs[base + lane];
+        near = !((mxx <= o.x) | (o.z <= mnx) | (mxy <= o.y) | (o.w <= mny));
       }
-      if (alive) s = n;
-      alive &= clear;
+      for (unsigned m = __ballot_sync(kFullWarp, near); m; m &= m - 1) {
+        if (!alive) continue;
+        const float4 o = obs[base + __ffs(m) - 1];
+        float px = x, py = y;
+        for (int j = 0; j < len; ++j) {
+          const float4 n = window[j * kThreads];
+          float ct = 1.0f, st = 0.0f;  // no heading: an axis-aligned body
+          if constexpr (kPose) {
+            const float2 cs = pose[j * kThreads];
+            ct = cs.x;
+            st = cs.y;
+          }
+          const StepTest<kFootprint> t(px, py, n.x, n.y, ct, st, p);
+          fail |= static_cast<unsigned>(!t.clears(o, p)) << j;
+          px = n.x;
+          py = n.y;
+        }
+      }
     }
-    lo = hi;
+    if (alive) {
+      s = window[(fail ? __ffs(fail) - 1 : len - 1) * kThreads];
+      alive = !fail;
+    }
   }
   return alive;
 }
@@ -614,16 +686,17 @@ __device__ __forceinline__ bool integrate_culled(const Sys& sys, float4& s,
 template <class Sys, bool kFootprint, bool kFast, bool kCull>
 __device__ __forceinline__ bool run(const Sys& sys, float4& s, float c0,
                                     float c1, float dur, const RegBoxes& regs,
-                                    const float* obs, const Params& p,
-                                    bool active, int g) {
+                                    float* obs, const PlanOf<kCull>& plan,
+                                    const Params& p, bool active, int g) {
+  float4* const boxes = reinterpret_cast<float4*>(obs);
   if constexpr (kCull) {
-    return integrate_culled<Sys, kFootprint, kFast>(sys, s, c0, c1, dur, obs,
-                                                    p, active);
+    // the window store follows the padded set
+    return integrate_culled<Sys, kFootprint, kFast>(
+        sys, s, c0, c1, dur, boxes, boxes + padded(p.K), plan, p, active);
   } else {
     if (p.reg_boxes)
       return integrate_group<Sys, kFootprint, kFast>(sys, s, c0, c1, dur,
                                                      regs, p);
-    const float4* boxes = reinterpret_cast<const float4*>(obs);
     if (p.split > 1)
       return integrate_group<Sys, kFootprint, kFast>(sys, s, c0, c1, dur,
                                                      SharedBoxes{boxes, g}, p);
@@ -677,7 +750,8 @@ __device__ __forceinline__ RegBoxes load_boxes(const Params& p, int b, int g,
 
 template <class Sys, bool kFootprint, bool kFast, bool kCull>
 __global__ void __launch_bounds__(kThreads)
-    rollout_kernel(Sys sys, Params p, const float4* __restrict__ x0,
+    rollout_kernel(Sys sys, Params p, PlanOf<kCull> plan,
+                   const float4* __restrict__ x0,
                    const float* __restrict__ controls,
                    float4* __restrict__ x1, uint8_t* __restrict__ valid) {
   extern __shared__ float4 smem[];  // the boxes, 16-byte aligned
@@ -698,7 +772,7 @@ __global__ void __launch_bounds__(kThreads)
   const RegBoxes regs = load_boxes(p, b, g, obs, runs);
   if (!runs) return;
   const bool alive = run<Sys, kFootprint, kFast, kCull>(
-      sys, s, c0, c1, dur, regs, obs, p, active, g);
+      sys, s, c0, c1, dur, regs, obs, plan, p, active, g);
   if (active && g == 0) {
     x1[i] = s;
     valid[i] = alive;
@@ -740,7 +814,8 @@ struct Bounds { float lo0, lo1, lo2, hi0, hi1, hi2; };
 // and sub-lane 0 writes them.
 template <class Sys, bool kFootprint, bool kFast, bool kCull>
 __global__ void __launch_bounds__(kThreads)
-    sample_and_rollout_kernel(Sys sys, Params p, Bounds bounds,
+    sample_and_rollout_kernel(Sys sys, Params p, PlanOf<kCull> plan,
+                              Bounds bounds,
                               const int64_t* __restrict__ keys, int key_stride,
                               const float4* __restrict__ x0,
                               float4* __restrict__ x1,
@@ -765,7 +840,7 @@ __global__ void __launch_bounds__(kThreads)
   const RegBoxes regs = load_boxes(p, b, g, obs, runs);
   if (!runs) return;
   const bool alive = run<Sys, kFootprint, kFast, kCull>(
-      sys, s, c0, c1, dur, regs, obs, p, active, g);
+      sys, s, c0, c1, dur, regs, obs, plan, p, active, g);
   if (active && g == 0) {
     float* c = controls + 3 * i;
     c[0] = c0;
@@ -789,6 +864,7 @@ struct Buffers {
   const void* keys;    // sample: [2], or [P, 2] with key_stride 2
   int key_stride;      // sample: 0 or 2
   Bounds bounds;       // sample
+  Plan plan;           // B5 (p.windows > 0)
   int blocks;          // P * blocks_per_problem
   cudaStream_t stream;
 };
@@ -806,9 +882,15 @@ int allow_smem(Kernel kernel, size_t smem) {
 
 template <int kForm, class Sys, bool kFootprint, bool kFast, bool kCull>
 int launch(const Sys& sys, const Params& p, const Buffers& b) {
-  // the walk's K boxes padded, or each thread's kRegBoxes staging slots
-  const size_t smem = p.reg_boxes ? sizeof(float4) * kThreads * kRegBoxes
-                                  : sizeof(float4) * padded(p.K);
+  // the walk's K boxes padded (B5: and its window store), or each
+  // thread's kRegBoxes staging slots
+  size_t smem = p.reg_boxes ? sizeof(float4) * kThreads * kRegBoxes
+                            : sizeof(float4) * padded(p.K);
+  PlanOf<kCull> plan{};
+  if constexpr (kCull) {
+    smem += cull_state_bytes(kFootprint);
+    plan = b.plan;
+  }
   const auto x0 = static_cast<const float4*>(b.x0);
   const auto x1 = static_cast<float4*>(b.x1);
   const auto valid = static_cast<uint8_t*>(b.valid);
@@ -817,13 +899,13 @@ int launch(const Sys& sys, const Params& p, const Buffers& b) {
     auto kernel = sample_and_rollout_kernel<Sys, kFootprint, kFast, kCull>;
     if ((err = allow_smem(kernel, smem))) return err;
     kernel<<<b.blocks, kThreads, smem, b.stream>>>(
-        sys, p, b.bounds, static_cast<const int64_t*>(b.keys), b.key_stride,
-        x0, x1, static_cast<float*>(b.controls_out), valid);
+        sys, p, plan, b.bounds, static_cast<const int64_t*>(b.keys),
+        b.key_stride, x0, x1, static_cast<float*>(b.controls_out), valid);
   } else {
     auto kernel = rollout_kernel<Sys, kFootprint, kFast, kCull>;
     if ((err = allow_smem(kernel, smem))) return err;
     kernel<<<b.blocks, kThreads, smem, b.stream>>>(
-        sys, p, x0, static_cast<const float*>(b.controls), x1, valid);
+        sys, p, plan, x0, static_cast<const float*>(b.controls), x1, valid);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -867,12 +949,20 @@ int launch_system(int system, float param, int flags, const Params& p,
   }
 }
 
-// The most boxes a block's shared memory holds, padded set included.
-int max_obstacles(int device) {
+// The shared memory a block may opt in to, in bytes, or -cudaError_t.
+int smem_optin(int device) {
   int bytes = 0;
   const cudaError_t e = cudaDeviceGetAttribute(
       &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  return e == cudaSuccess ? (bytes / 16) & ~(kWalk - 1) : -static_cast<int>(e);
+  return e == cudaSuccess ? bytes : -static_cast<int>(e);
+}
+
+// The most boxes a block's shared memory holds beside `state_bytes` (B5's
+// window store), padded set included (ops/rollout_cuda.py::box_cap).
+int max_obstacles(int optin, size_t state_bytes) {
+  const long long room =
+      static_cast<long long>(optin) - static_cast<long long>(state_bytes);
+  return room > 0 ? static_cast<int>(room / 16) & ~(kWalk - 1) : 0;
 }
 
 // Check a launch of P problems of R lanes at G = split threads a rollout
@@ -881,17 +971,31 @@ int max_obstacles(int device) {
 // Returns 0 or a cudaError_t.
 int prepare(int device, int flags, const void* obstacles, int K,
             int per_problem, int P, int R, int num_disc, float width,
-            float height, float hl, float hw, int windows, float pad,
-            int split, Params* p, Buffers* b) {
+            float height, float hl, float hw, int windows,
+            const unsigned char* plan, float pad, int split, Params* p,
+            Buffers* b) {
   const cudaError_t invalid = cudaErrorInvalidValue;
   if (P < 0 || R < 0 || K < 0 || num_disc < 1 || (flags & ~3) ||
-      (per_problem & ~1) || windows < 0 || windows > num_disc ||
-      split < 1 || split > kMaxSplit || (split & (split - 1)) ||
-      (windows && split != 1))
+      (per_problem & ~1) || windows < 0 || windows > kMaxPlan ||
+      (windows && !plan) || split < 1 || split > kMaxSplit ||
+      (split & (split - 1)) || (windows && split != 1))
     return static_cast<int>(invalid);
+  // B5's plan: windows of 1 to kCullSteps steps that cover num_disc
+  int steps = 0;
+  for (int w = 0; w < windows; ++w) {
+    if (plan[w] < 1 || plan[w] > kCullSteps) return static_cast<int>(invalid);
+    b->plan.steps[w] = plan[w];
+    steps += plan[w];
+  }
+  if (windows && steps != num_disc) return static_cast<int>(invalid);
+  b->plan.n = windows;
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (K > max_obstacles(device)) return static_cast<int>(invalid);
+  const int optin = smem_optin(device);
+  if (optin < 0) return -optin;
+  if (K > max_obstacles(optin, windows ? cull_state_bytes(flags & kFlagFootprint)
+                                       : 0))
+    return static_cast<int>(invalid);
   const long long per =
       (static_cast<long long>(R) * split + kThreads - 1) / kThreads;
   if (static_cast<long long>(P) * R > INT_MAX || P * per > INT_MAX)
@@ -915,15 +1019,14 @@ int prepare(int device, int flags, const void* obstacles, int K,
 // obstacles f32 [P, K, 4] and keys int64 [P, 2] (per_problem 1: B6).
 // `system` is a SystemId, `param` the bicycle's wheelbase L (unused by the
 // other systems), `flags` ORs 1 = footprint (half extents hl, hw) and 2 =
-// fast math; `windows` > 0 runs the culled broad phase B5 with that many
-// step windows (at most num_disc) and the union boxes padded by `pad`;
-// `split` is G, the threads a rollout (1, 2, 4 or 8; 1 with windows).
-// Each launches on `stream` without synchronising and returns 0 or a
-// cudaError_t.
+// fast math; `windows` > 0 runs the culled broad phase B5 on the plan of
+// that many windows (at most kMaxPlan) at `plan`, host memory, one byte a
+// window: its steps (1 to kCullSteps, summing to num_disc), with the union
+// boxes padded by `pad`; `split` is G, the threads a rollout (1, 2, 4 or
+// 8; 1 with windows). Each launches on `stream` without synchronising and
+// returns 0 or a cudaError_t.
 
-extern "C" int cudasbmp_max_obstacles(int device) {
-  return max_obstacles(device);
-}
+extern "C" int cudasbmp_smem_optin(int device) { return smem_optin(device); }
 
 extern "C" int cudasbmp_rollout(int device, int system, int flags,
                                 const void* x0, const void* controls,
@@ -931,13 +1034,14 @@ extern "C" int cudasbmp_rollout(int device, int system, int flags,
                                 void* x1, void* valid, int P, int R,
                                 int num_disc, float width, float height,
                                 float param, float hl, float hw,
-                                int windows, float pad, int split,
-                                void* stream) {
+                                int windows, const void* plan, float pad,
+                                int split, void* stream) {
   Params p;
   Buffers b{};
   const int err = prepare(device, flags, obstacles, K, per_problem, P, R,
-                          num_disc, width, height, hl, hw, windows, pad,
-                          split, &p, &b);
+                          num_disc, width, height, hl, hw, windows,
+                          static_cast<const unsigned char*>(plan), pad, split,
+                          &p, &b);
   if (err || b.blocks == 0) return err;
   b.x0 = x0;
   b.controls = controls;
@@ -951,14 +1055,15 @@ extern "C" int cudasbmp_sample_and_rollout(
     int device, int system, int flags, const void* keys, const void* x0,
     const void* obstacles, int K, int per_problem, void* x1, void* controls,
     void* valid, int P, int R, int num_disc, float width, float height,
-    float param, float hl, float hw, int windows, float pad, float lo0,
-    float lo1, float lo2, float hi0, float hi1, float hi2, int split,
-    void* stream) {
+    float param, float hl, float hw, int windows, const void* plan,
+    float pad, float lo0, float lo1, float lo2, float hi0, float hi1,
+    float hi2, int split, void* stream) {
   Params p;
   Buffers b{};
   const int err = prepare(device, flags, obstacles, K, per_problem, P, R,
-                          num_disc, width, height, hl, hw, windows, pad,
-                          split, &p, &b);
+                          num_disc, width, height, hl, hw, windows,
+                          static_cast<const unsigned char*>(plan), pad, split,
+                          &p, &b);
   if (err || b.blocks == 0) return err;
   b.x0 = x0;
   b.x1 = x1;

@@ -41,24 +41,26 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     # device
-    "cudasbmp_max_obstacles": (_I,),
+    "cudasbmp_smem_optin": (_I,),
     # device, system, flags, x0, controls, obstacles, K, per_problem, x1,
-    # valid, P, R, num_disc, width, height, param, hl, hw, windows, pad,
-    # split, stream
+    # valid, P, R, num_disc, width, height, param, hl, hw, windows, plan
+    # (host bytes), pad, split, stream
     "cudasbmp_rollout": (_I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _I, _F, _I, _P),
+                         _F, _F, _F, _F, _F, _I, _P, _F, _I, _P),
     # device, system, flags, keys, x0, obstacles, K, per_problem, x1,
     # controls, valid, P, R, num_disc, width, height, param, hl, hw,
-    # windows, pad, lo0, lo1, lo2, hi0, hi1, hi2, split, stream
+    # windows, plan, pad, lo0, lo1, lo2, hi0, hi1, hi2, split, stream
     "cudasbmp_sample_and_rollout": (_I, _I, _I, _P, _P, _P, _I, _I, _P, _P,
                                     _P, _I, _I, _I, _F, _F, _F, _F, _F, _I,
-                                    _F, _F, _F, _F, _F, _F, _F, _I, _P),
+                                    _P, _F, _F, _F, _F, _F, _F, _F, _I, _P),
     # device, x, s, c, n, stream
     "cudasbmp_sincos": (_I, _P, _P, _P, _I, _P),
     # device, x, y, n, program, chain, stream
     "cudasbmp_alu_chain": (_I, _P, _P, _I, _I, _I, _P),
-    # device, op, x, y, n, program, chain, stream
-    "cudasbmp_trans_chain": (_I, _I, _P, _P, _I, _I, _I, _P),
+    # device, op, x, y, n, program, chain, grid, stream
+    "cudasbmp_trans_chain": (_I, _I, _P, _P, _I, _I, _I, _I, _P),
+    # device, op, &threads, &elements a thread, &blocks an SM
+    "cudasbmp_trans_geometry": (_I, _I, _P, _P, _P),
     # device, tbl, rows, idx, y, n_rows, chain, stream
     "cudasbmp_gather_chain": (_I, _P, _I, _P, _P, _I, _I, _P),
 }

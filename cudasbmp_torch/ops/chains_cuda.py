@@ -5,7 +5,9 @@ probes of tools/roofline.py and tools/r3_probe1.py, and their plain twins:
   one FMA a link, with m = x0*1e-9 + 0.999931 and x0 the first element of
   the element's program (``program_rows`` rows of x; 256 on the TPU);
 - ``trans_chain_cuda`` (P1b, ``_trans_kernel``): y <- op(y) + eps for op in
-  ``TRANS_OPS``, with eps = x0*1e-12 per program;
+  ``TRANS_OPS``, with eps = x0*1e-12 per program, on a grid of at most the
+  card's resident blocks (``trans_plan``, from ``trans_geometry``), a few
+  elements a thread;
 - ``gather_chain_cuda`` (P2, ``_gather_kernel``): y <- y + tbl[(idx + i) %
   rows, lane] for i < chain from y = 0, tbl [rows, 128], idx int32 [N, 128].
 
@@ -24,10 +26,14 @@ the kernel or raise. Each wrapper counts its launches in
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from cudasbmp_torch.ops import _build
-from cudasbmp_torch.ops.rollout_cuda import _check, _device_of, _index, _raise_on
+from cudasbmp_torch.ops.rollout_cuda import (_check, _device_of, _index, _raise_on,
+                                             sm_count)
 
 TRANS_OPS = {"cos": 0, "sin": 1, "tan": 2}
 LANES = 128  # the gather table's width (the TPU's lane axis)
@@ -64,6 +70,26 @@ def gather_chain_torch(tbl: torch.Tensor, idx: torch.Tensor, chain: int
     for i in range(chain):
         y = y + torch.gather(tbl, 0, (idx + i) % rows)
     return y
+
+
+def trans_plan(n: int, sms: int, blocks_per_sm: int, threads: int,
+               elems: int) -> int:
+    """P1b's grid: the blocks the card holds at once (``sms`` x
+    ``blocks_per_sm``), or fewer where n elements at ``elems`` a thread of
+    ``threads`` a block need fewer."""
+    need = -(-n // (threads * elems))
+    return max(1, min(sms * blocks_per_sm, need))
+
+
+@functools.cache
+def trans_geometry(device_index: int, op: str) -> tuple[int, int, int]:
+    """(threads a block, elements a thread, blocks an SM holds) of op's P1b
+    kernel on this card, from the occupancy query, once per device and op."""
+    threads, elems, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _raise_on(_build.load().cudasbmp_trans_geometry(
+        device_index, TRANS_OPS[op], ctypes.byref(threads), ctypes.byref(elems),
+        ctypes.byref(blocks)), "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+    return threads.value, elems.value, blocks.value
 
 
 def _chain_args(x: torch.Tensor, chain: int, program_rows: int
@@ -104,9 +130,11 @@ def trans_chain_cuda(x: torch.Tensor, chain: int, op: str,
     if dev is None:
         return trans_chain_torch(x, chain, op, program_rows)
     y = torch.empty_like(x)
+    threads, elems, per_sm = trans_geometry(dev, op)
+    grid = trans_plan(x.numel(), sm_count(dev), per_sm, threads, elems)
     rc = _build.load().cudasbmp_trans_chain(
         dev, TRANS_OPS[op], x.data_ptr(), y.data_ptr(), x.numel(), program, chain,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        grid, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "trans_chain_kernel")
     trans_chain_cuda.launches += 1
     return y

@@ -17,8 +17,9 @@ TPU kernels of cudasbmp_tpu/ops/rollout_pallas.py, and their plain twins:
 - all take the footprint narrow phase (B3) and fast math (B4) as options,
   for every system of the registry, and ``cull=W``, the culled broad phase
   (kernel B5, ``_integrate_culled``, rollout_pallas.py:143-328): the same
-  (x1, valid) to the bit, with each warp of 32 lanes testing at each step
-  only the boxes near its union box of the step's window. It pays where
+  (x1, valid) to the bit, with each warp of 32 lanes testing each window's
+  steps only against the boxes near its union box of the window
+  (``cull_plan``: windows of at most CULL_STEPS steps). It pays where
   neighbouring lanes are near each other (grouped lanes) on dense fields;
 - ``rollout_bicycle_cuda`` and ``sample_and_rollout_bicycle_cuda`` are the
   bicycle entry points of the JAX module (rollout_pallas.py:445-458,
@@ -75,6 +76,10 @@ SYSTEM_IDS = {KinematicBicycle: 0, Point2D: 1, DoubleIntegrator2D: 2,
               Unicycle: 3, DubinsCar: 4}
 FLAG_FOOTPRINT, FLAG_FAST = 1, 2
 WARP = 32  # the lanes B5 culls for together
+THREADS = 128  # a block's threads (kThreads)
+WALK = 4  # the one-thread walk pads K to a multiple of it (kWalk)
+CULL_STEPS = 10  # B5: the most steps of a window, in shared memory (kCullSteps)
+MAX_PLAN = 256  # B5: the most windows of a launch's plan (kMaxPlan)
 SPLITS = (1, 2, 4, 8)  # the threads a rollout may run on (kMaxSplit)
 # lanes_per_rollout's G for a narrow launch, and the threads an SM it may
 # fill with it: 8 warps, two for each of an SM's schedulers, in blocks of
@@ -113,6 +118,20 @@ def window_bounds(windows: int, num_disc: int) -> list[int]:
     even) of w * num_disc / W, as _integrate_culled splits the steps; the
     kernel computes the same integers."""
     return [round(w * num_disc / windows) for w in range(windows + 1)]
+
+
+def cull_plan(windows: int, num_disc: int, cap: int = CULL_STEPS) -> list[int]:
+    """B5's windows as the kernel runs them: ``window_bounds``, each window
+    longer than ``cap`` steps cut into ceil(len / cap) sub-windows of near
+    equal length (the kernel keeps at most ``cap`` steps a window in shared
+    memory). The first step of each and the end. Cutting a window changes
+    which boxes are skipped, never the result."""
+    bounds = window_bounds(windows, num_disc)
+    plan = [0]
+    for lo, hi in zip(bounds, bounds[1:]):
+        pieces = -(-(hi - lo) // cap)
+        plan += [lo + k * (hi - lo) // pieces for k in range(1, pieces + 1)]
+    return plan
 
 
 def footprint_pad(footprint: tuple[float, float] | None) -> float:
@@ -199,7 +218,8 @@ def rollout_culled_soa(system, x0: torch.Tensor, controls: torch.Tensor,
                        obstacles: torch.Tensor, *, cull: bool | int, group: int,
                        num_disc: int, width: float, height: float,
                        footprint: tuple[float, float] | None = None,
-                       fast_math: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                       fast_math: bool = False, plan: list[int] | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of kernel B5: ``_integrate_culled`` (rollout_pallas.py:
     143-328) operator by operator, with each consecutive ``group`` of lanes
     along the last axis in the place of a TPU program (the kernel's warp:
@@ -210,7 +230,9 @@ def rollout_culled_soa(system, x0: torch.Tensor, controls: torch.Tensor,
     where the group's boxes overlap it (masks in the place of ``lax.cond``);
     then the first-failure freeze is rebuilt. Lanes [B] or [B, R] as
     ``rollout_soa``, with obstacles [K, 4] or [B, K, 4]; the result is
-    ``rollout_soa``'s to the bit, whatever ``group``."""
+    ``rollout_soa``'s to the bit, whatever ``group``. ``plan`` (the first
+    step of each window and the end, as ``cull_plan`` gives the kernel's)
+    replaces the windows of ``cull``, with the same result."""
     if not supports_system(system):
         raise NotImplementedError(f"system {system.name!r} has no SoA hooks")
     W = cull_windows(cull, num_disc)
@@ -272,9 +294,10 @@ def rollout_culled_soa(system, x0: torch.Tensor, controls: torch.Tensor,
                 _group_reduce(chain(torch.maximum, [b[3] for b in step_boxes]),
                               group, "max") + pad)
 
-    bounds = window_bounds(W, num_disc)
-    windows = [range(bounds[w], bounds[w + 1]) for w in range(W)
-               if bounds[w] < bounds[w + 1]]
+    bounds = plan if plan is not None else window_bounds(W, num_disc)
+    if bounds[0] != 0 or bounds[-1] != num_disc or sorted(bounds) != bounds:
+        raise ValueError(f"plan {bounds}: expected 0 = b0 <= ... <= {num_disc}")
+    windows = [range(lo, hi) for lo, hi in zip(bounds, bounds[1:]) if lo < hi]
     win_boxes = [union_box([bboxes[i] for i in win]) for win in windows]
     whole = tuple(chain(torch.minimum if j % 2 == 0 else torch.maximum,
                         [b[j] for b in win_boxes]) for j in range(4))
@@ -352,14 +375,31 @@ def _index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
+def cull_state_bytes(footprint: bool) -> int:
+    """B5's window store in a block's shared memory (cull_state_bytes in
+    csrc/rollout.cu): CULL_STEPS candidate states (float4) a thread and,
+    with a footprint, as many poses (float2)."""
+    return THREADS * CULL_STEPS * (16 + (8 if footprint else 0))
+
+
 @functools.cache
-def max_kernel_obstacles(device_index: int) -> int:
-    """The most boxes one block's shared memory holds on this card (16 B
-    each): 14,528 at 227 KB on an H100."""
-    n = _build.load().cudasbmp_max_obstacles(device_index)
+def smem_optin(device_index: int) -> int:
+    """The shared memory one block may opt in to on this card, in bytes
+    (232,448 on an H100)."""
+    n = _build.load().cudasbmp_smem_optin(device_index)
     if n < 0:
         raise RuntimeError(f"cudaDeviceGetAttribute failed: cudaError {-n}")
     return n
+
+
+def max_kernel_obstacles(device_index: int, culled: bool = False,
+                         footprint: bool = False) -> int:
+    """The most boxes (16 B each, the set padded to a multiple of WALK) one
+    block's shared memory holds on this card: 14,528 at 227 KB on an H100;
+    the culled body (B5) keeps its window store beside them,
+    ``cull_state_bytes(footprint)``, so 13,248 (12,608 with a footprint)."""
+    room = smem_optin(device_index) - (cull_state_bytes(footprint) if culled else 0)
+    return max(room, 0) // 16 & ~(WALK - 1)
 
 
 @functools.cache
@@ -385,11 +425,13 @@ def _split(split: int | None, lanes: int, windows: int, dev: int) -> int:
 
 
 def _kernel_args(system, x0: torch.Tensor, obstacles: torch.Tensor,
-                 footprint, fast_math: bool, per_problem: bool) -> tuple:
+                 footprint, fast_math: bool, per_problem: bool, windows: int = 0
+                 ) -> tuple:
     """Check the inputs; return (device index, system id, flags, P, R, K,
     param, hl, hw), the arguments the C entry points share. Lanes x0 [R, S]
     take one set of obstacles [K, 4] (P = 1); with ``per_problem`` (kernel
-    B6) lanes [P, R, S] take one set per problem, [P, K, 4]."""
+    B6) lanes [P, R, S] take one set per problem, [P, K, 4]; with
+    ``windows`` (B5) fewer boxes fit a block."""
     sid = SYSTEM_IDS.get(type(system))
     if sid is None:
         raise NotImplementedError(
@@ -407,10 +449,11 @@ def _kernel_args(system, x0: torch.Tensor, obstacles: torch.Tensor,
     if obstacles.data_ptr() % 16:
         raise ValueError("obstacles: rows are read as float4, need 16-byte alignment")
     dev = _index(x0.device)
-    limit = max_kernel_obstacles(dev)
+    limit = max_kernel_obstacles(dev, bool(windows), footprint is not None)
     if K > limit:
         raise ValueError(f"{K} obstacles > {limit}, the most one block's "
-                         "shared memory holds on this card")
+                         "shared memory holds on this card"
+                         f"{' beside the culled window store' if windows else ''}")
     flags = (FLAG_FOOTPRINT if footprint is not None else 0) | (
         FLAG_FAST if fast_math else 0)
     hl, hw = footprint if footprint is not None else (0.0, 0.0)
@@ -438,10 +481,25 @@ def _raise_on(rc: int, name: str) -> None:
 def _plain_rollout(system, x0, controls, obstacles, *, cull, **kw):
     """The plain twin of the kernel the wrapper would launch: B5's with
     ``cull``, over warps of lanes, else B1's."""
-    if cull_windows(cull, kw["num_disc"]):
+    W = cull_windows(cull, kw["num_disc"])
+    if W:
         return rollout_culled_soa(system, x0, controls, obstacles, cull=cull,
-                                  group=WARP, **kw)
+                                  group=WARP, plan=cull_plan(W, kw["num_disc"]),
+                                  **kw)
     return rollout_soa(system, x0, controls, obstacles, **kw)
+
+
+def _plan_arg(cull, num_disc: int) -> tuple[int, bytes | None]:
+    """B5's plan as the C entry points take it: (windows, one byte a window,
+    its steps), or (0, None) with ``cull`` off."""
+    W = cull_windows(cull, num_disc)
+    if not W:
+        return 0, None
+    plan = cull_plan(W, num_disc)
+    if len(plan) - 1 > MAX_PLAN:
+        raise ValueError(f"cull={cull!r} at num_disc={num_disc}: {len(plan) - 1} "
+                         f"windows of at most {CULL_STEPS} steps > {MAX_PLAN}")
+    return len(plan) - 1, bytes(hi - lo for lo, hi in zip(plan, plan[1:]))
 
 
 def _rollout(wrapper, system, x0: torch.Tensor, controls: torch.Tensor,
@@ -459,21 +517,21 @@ def _rollout(wrapper, system, x0: torch.Tensor, controls: torch.Tensor,
             raise ValueError(f"obstacles: expected {'[B, K' if per_problem else '[K'},"
                              f" 4], got {tuple(obstacles.shape)}")
         return _plain_rollout(system, x0, controls, obstacles, cull=cull, **kw)
+    windows, plan = _plan_arg(cull, num_disc)
     dev, sid, flags, P, R, K, param, hl, hw = _kernel_args(
-        system, x0, obstacles, footprint, fast_math, per_problem)
+        system, x0, obstacles, footprint, fast_math, per_problem, windows)
     _check("controls", controls, (*x0.shape[:-1], system.control_spec.dim),
            torch.float32)
     x1 = torch.empty_like(x0)
     valid = torch.empty(x0.shape[:-1], dtype=torch.bool, device=device)
     if P * R == 0:
         return x1, valid
-    windows = cull_windows(cull, num_disc)
     G = _split(split, P * R, windows, dev)
     rc = _build.load().cudasbmp_rollout(
         dev, sid, flags, x0.data_ptr(), controls.data_ptr(),
         obstacles.data_ptr(), K, int(per_problem), x1.data_ptr(),
         valid.data_ptr(), P, R, num_disc, width, height, param, hl, hw,
-        windows, footprint_pad(footprint) if windows else 0.0, G,
+        windows, plan, footprint_pad(footprint) if windows else 0.0, G,
         torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, "rollout_kernel")
     _count(wrapper, system, flags, windows, G)
@@ -497,8 +555,9 @@ def _sample_and_rollout(wrapper, system, keys: torch.Tensor, x0: torch.Tensor,
                              f"{tuple(obstacles.shape)}: expected "
                              f"{'[B, 2], [B, K, 4]' if per_problem else '[2], [K, 4]'}")
         return sample_and_rollout_torch(system, keys, x0, obstacles, **kw)
+    windows, plan = _plan_arg(cull, num_disc)
     dev, sid, flags, P, R, K, param, hl, hw = _kernel_args(
-        system, x0, obstacles, footprint, fast_math, per_problem)
+        system, x0, obstacles, footprint, fast_math, per_problem, windows)
     _check("keys", keys, (P, 2) if per_problem else (2,), torch.int64)
     spec = system.control_spec
     x1 = torch.empty_like(x0)
@@ -507,13 +566,12 @@ def _sample_and_rollout(wrapper, system, keys: torch.Tensor, x0: torch.Tensor,
     valid = torch.empty(x0.shape[:-1], dtype=torch.bool, device=device)
     if P * R == 0:
         return x1, controls, valid
-    windows = cull_windows(cull, num_disc)
     G = _split(split, P * R, windows, dev)
     rc = _build.load().cudasbmp_sample_and_rollout(
         dev, sid, flags, keys.data_ptr(), x0.data_ptr(), obstacles.data_ptr(),
         K, int(per_problem), x1.data_ptr(), controls.data_ptr(),
         valid.data_ptr(), P, R, num_disc, width, height, param, hl, hw,
-        windows, footprint_pad(footprint) if windows else 0.0,
+        windows, plan, footprint_pad(footprint) if windows else 0.0,
         *spec.lo, *spec.hi, G, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, "sample_and_rollout_kernel")
     _count(wrapper, system, flags, windows, G)

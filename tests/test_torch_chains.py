@@ -95,6 +95,37 @@ def test_gather_chain_twin_equals_the_tpu_kernel(rows):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
+def trans_elements(n: int, grid: int, threads: int, elems: int) -> list[list[int]]:
+    """csrc/chains.cu::trans_chain_kernel's index walk in Python: the
+    elements each thread chains, in order. Thread t of T = grid x threads
+    takes e0 + k * T for k < elems below n, for e0 = t, t + T * elems, ..."""
+    T = grid * threads
+    return [[e0 + k * T for e0 in range(t, n, T * elems) for k in range(elems)
+             if e0 + k * T < n] for t in range(T)]
+
+
+@pytest.mark.parametrize("sm_count,blocks_per_sm", [(132, 8), (4, 1), (3, 2)])
+@pytest.mark.parametrize("program_rows,programs", [(3, 5), (8, 2), (256, 8)])
+def test_trans_plan_walks_each_element_once(sm_count, blocks_per_sm, program_rows,
+                                            programs):
+    """P1b's launch plan: a grid of at most the card's resident blocks
+    (fewer where n needs fewer), k elements a thread, a grid-stride walk;
+    every element is chained by exactly one thread, for n a multiple of
+    the program (rows x 128): at 5 programs of 3 rows not a multiple of k x
+    threads, at 2 x 8 and 8 x 256 rows one."""
+    threads, elems = 256, 2
+    n = programs * program_rows * LANES
+    grid = cc.trans_plan(n, sm_count, blocks_per_sm, threads, elems)
+    assert 1 <= grid <= sm_count * blocks_per_sm
+    assert grid * threads * elems >= n or grid == sm_count * blocks_per_sm
+    walk = trans_elements(n, grid, threads, elems)
+    assert sorted(e for mine in walk for e in mine) == list(range(n))
+    assert all(mine == sorted(mine) for mine in walk)
+    # the calibration shape on an H100 at 8 blocks an SM: one round, k a thread
+    assert cc.trans_plan(2048 * 128, 132, 8, threads, elems) == 512
+    assert cc.trans_plan(5 * 3 * LANES, 132, 8, threads, elems) == 4
+
+
 def test_wrappers_check_their_inputs_and_count_only_launches():
     cc.reset_launch_counts()
     x = torch.tensor(_x(2))
@@ -102,7 +133,14 @@ def test_wrappers_check_their_inputs_and_count_only_launches():
         cc.alu_chain_cuda(x, 4, program_rows=5)
     with pytest.raises(ValueError, match="op"):
         cc.trans_chain_cuda(x, 4, "exp", program_rows=ROWS)
+    with pytest.raises(ValueError, match="programs"):
+        cc.trans_chain_cuda(x, 4, "cos", program_rows=5)
+    with pytest.raises(ValueError, match="chain"):
+        cc.trans_chain_cuda(x, -1, "sin", program_rows=ROWS)
+    with pytest.raises(ValueError, match="float32"):
+        cc.trans_chain_cuda(x.double(), 4, "tan", program_rows=ROWS)
     cc.alu_chain_cuda(x, 4, program_rows=ROWS)  # the CPU twin: no launch
+    cc.trans_chain_cuda(x, 4, "cos", program_rows=ROWS)
     cc.gather_chain_cuda(torch.ones(8, LANES), torch.zeros(4, LANES, dtype=torch.int32), 3)
     assert [w.launches for w in cc.WRAPPERS] == [0, 0, 0]
 

@@ -524,6 +524,51 @@ def test_culled_batched_kernel_is_b6(dev, R):
         assert torch.equal(tvalid, valid) and _bitwise(tx1, x1)
 
 
+@pytest.mark.parametrize("num_disc", [25, 40])
+def test_culled_kernel_past_its_window_cap(dev, num_disc):
+    """Windows longer than the kernel keeps (rc.CULL_STEPS steps), cut by
+    the wrapper's plan: B5 still equals B1/B2 to the bit, grouped lanes,
+    every bicycle option."""
+    system, x0, c = system_batch("bicycle", 4097, 70 + num_disc, dev)
+    obs = dense_field(24, dev)
+    key = rng.key(25, dev)
+    assert len(rc.cull_plan(1, num_disc)) > 2
+    lanes = grouped(x0, c)
+    for fp in (None, FP):
+        for fast in (False, True):
+            opts = dict(KW, num_disc=num_disc, footprint=fp, fast_math=fast)
+            x1, valid = rc.rollout_cuda(system, *lanes, obs, **opts)
+            y1, c2, v2 = rc.sample_and_rollout_cuda(system, key, lanes[0], obs, **opts)
+            for W in (1, 2):
+                cx1, cvalid = rc.rollout_cuda(system, *lanes, obs, **opts, cull=W)
+                assert torch.equal(cvalid, valid) and _bitwise(cx1, x1)
+                cy1, cc2, cv2 = rc.sample_and_rollout_cuda(system, key, lanes[0], obs,
+                                                           **opts, cull=W)
+                assert _bitwise(cc2, c2) and torch.equal(cv2, v2) and _bitwise(cy1, y1)
+
+
+@pytest.mark.parametrize("footprint", [None, FP], ids=["broad", "footprint"])
+def test_culled_box_cap_is_the_window_stores_less(dev, footprint):
+    """B5 keeps its window beside the boxes: its cap is the one-pass cap
+    less the store's bytes / 16. At the cap it launches and equals cull
+    off; one box more raises."""
+    limit = rc.max_kernel_obstacles(dev.index or 0, culled=True,
+                                    footprint=footprint is not None)
+    assert (rc.max_kernel_obstacles(dev.index or 0) - limit
+            == rc.cull_state_bytes(footprint is not None) // 16)
+    system, x0, c = system_batch("bicycle", 512, 44, dev)
+    r = np.random.default_rng(limit)
+    lo = r.uniform(0, 19.8, (limit + 1, 2))
+    boxes = torch.tensor(np.concatenate([lo, lo + r.uniform(0.01, 0.2, (limit + 1, 2))], -1)
+                         .astype(np.float32), device=dev)
+    opts = dict(KW, footprint=footprint)
+    x1, valid = rc.rollout_cuda(system, *grouped(x0, c), boxes[:limit], **opts)
+    cx1, cvalid = rc.rollout_cuda(system, *grouped(x0, c), boxes[:limit], **opts, cull=4)
+    assert torch.equal(cvalid, valid) and _bitwise(cx1, x1)
+    with pytest.raises(ValueError, match=f"{limit + 1} obstacles > {limit}"):
+        rc.rollout_cuda(system, x0, c, boxes, **opts, cull=4)
+
+
 def test_culled_launches_are_counted(dev):
     system, x0, c = system_batch("bicycle", 512, 3, dev)
     obs = dense_field(24, dev)

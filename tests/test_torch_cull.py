@@ -57,13 +57,13 @@ def field(seed: int = 1234):
     return obs, x0, c
 
 
-def jax_bodies(name, x0, c, obs, footprint, fast_math, cull):
+def jax_bodies(name, x0, c, obs, footprint, fast_math, cull, num_disc=KW["num_disc"]):
     """(culled, one-pass) results of the JAX kernel bodies, op by op, with
     all lanes in one program."""
     xj, cj = jnp.asarray(x0), jnp.asarray(c)
     boxes = [tuple(jnp.float32(v) for v in row) for row in obs]
     args = (j_get_system(name), [xj[:, i] for i in range(4)], [cj[:, 0], cj[:, 1]],
-            cj[:, 2], boxes, KW["num_disc"], KW["width"], KW["height"], footprint,
+            cj[:, 2], boxes, num_disc, KW["width"], KW["height"], footprint,
             fast_math)
     with jax.disable_jit():
         culled = _integrate_culled(*args, cull_windows=int(cull))
@@ -125,6 +125,128 @@ def test_window_split_is_the_jax_bodys(num_disc):
         assert b == [round(w * num_disc / W) for w in range(W + 1)]
         assert b[0] == 0 and b[-1] == num_disc and all(np.diff(b) >= 1)
     assert rc.window_bounds(4, 10) == [0, 2, 5, 8, 10]  # 2.5 -> 2, 7.5 -> 8
+
+
+@pytest.mark.parametrize("num_disc", [1, 7, 10, 11, 20, 40, 97])
+def test_cull_plan_cuts_windows_to_the_kernels_cap(num_disc):
+    """The kernel's windows (cull_plan): every step once, in order, no window
+    longer than CULL_STEPS; each of window_bounds' windows is kept or cut,
+    never merged; where none is longer than the cap, the plan is
+    window_bounds, the JAX body's split."""
+    for W in range(1, num_disc + 1):
+        bounds = rc.window_bounds(W, num_disc)
+        plan = rc.cull_plan(W, num_disc)
+        steps = np.diff(plan)
+        assert plan[0] == 0 and plan[-1] == num_disc
+        assert steps.min() >= 1 and steps.max() <= rc.CULL_STEPS
+        assert set(bounds) <= set(plan)
+        if np.diff(bounds).max() <= rc.CULL_STEPS:
+            assert plan == bounds
+        else:
+            assert len(plan) > len(bounds)
+    assert rc.cull_plan(1, 10) == [0, 10] and rc.cull_plan(4, 10) == [0, 2, 5, 8, 10]
+    assert rc.cull_plan(1, 40) == [0, 10, 20, 30, 40]
+    assert rc.cull_plan(2, 25) == [0, 6, 12, 18, 25]  # 12 and 13 steps, cut in two
+
+
+@pytest.mark.parametrize("name,footprint,fast_math", [
+    ("bicycle", None, False), ("bicycle", FP, False), ("bicycle", FP, True),
+    ("point2d", FP, False), ("double_integrator", None, False)])
+@pytest.mark.parametrize("cull", [1, 2])
+def test_cut_plan_twin_is_the_uncut_twin_and_the_jax_body(name, footprint, fast_math,
+                                                          cull):
+    """40 steps, past the kernel's cap: the culled twin on the kernel's cut
+    plan equals the twin on the uncut windows and the one-pass twin, to the
+    bit (and so does the wrapper's CPU path, which takes the cut plan);
+    against the op-by-op JAX body, valid masks exactly and states within
+    the file's tolerances (bitwise without trig). With fast math only the
+    masks: its rotation recurrence carries the one-ulp difference of the
+    first cos/sin through 40 steps (4.8e-5 on 14 of 1,024 values), past
+    the tolerance stated for 10 steps."""
+    num_disc = 40
+    obs, x0, c = field(11)
+    c[:, 2] *= 2.0  # the longer horizon reaches more boxes
+    spec = get_system(name).control_spec
+    if name != "bicycle":
+        c[:, :2] = np.random.default_rng(12).uniform(spec.lo[:2], spec.hi[:2],
+                                                     (len(c), 2)).astype(np.float32)
+    system = get_system(name)
+    args = (system, torch.tensor(x0), torch.tensor(c), torch.tensor(obs))
+    opts = dict(KW, num_disc=num_disc, footprint=footprint, fast_math=fast_math)
+    plan = rc.cull_plan(cull, num_disc)
+    assert len(plan) > len(rc.window_bounds(cull, num_disc))
+    sx, sv = rc.rollout_soa(*args, **opts)
+    cut = rc.rollout_culled_soa(*args, cull=cull, group=rc.WARP, plan=plan, **opts)
+    uncut = rc.rollout_culled_soa(*args, cull=cull, group=rc.WARP, **opts)
+    wrapped = rc.rollout_cuda(*args, **opts, cull=cull)
+    for tx, tv in (cut, uncut, wrapped):
+        assert torch.equal(tv, sv) and torch.equal(tx.view(torch.int32),
+                                                   sx.view(torch.int32))
+    (jx, jv), _ = jax_bodies(name, x0, c, obs, footprint, fast_math, cull, num_disc)
+    np.testing.assert_array_equal(sv.numpy(), jv)
+    if name != "bicycle":
+        np.testing.assert_array_equal(bits(sx), bits(jx))
+    elif not fast_math:
+        np.testing.assert_allclose(sx.numpy(), jx, rtol=0, atol=1e-5)
+        assert (bits(sx) == bits(jx)).all(1).mean() >= 0.9
+    assert 0.0 < jv.mean() < 1.0
+
+
+def test_wrapper_constants_are_the_kernels():
+    """The wrapper's copies of csrc/rollout.cu's constants: block size,
+    walk padding, B5's window cap and plan length."""
+    from pathlib import Path
+
+    src = (Path(rc.__file__).resolve().parents[1] / "csrc" / "rollout.cu").read_text()
+    for name, value in (("kThreads", rc.THREADS), ("kWalk", rc.WALK),
+                        ("kCullSteps", rc.CULL_STEPS), ("kMaxPlan", rc.MAX_PLAN)):
+        assert f"constexpr int {name} = {value};" in src
+
+
+def test_culled_box_cap_gives_up_the_window_store(monkeypatch):
+    """B5 keeps its window in the block's shared memory, so its box cap is
+    the one-pass cap less exactly the store's bytes / 16 (broad phase and
+    footprint); the wrapper's argument check raises above the launch's cap
+    and passes at it."""
+    optin = 232_448  # an H100's opt-in shared memory a block
+    monkeypatch.setattr(rc, "smem_optin", lambda device_index: optin)
+    monkeypatch.setattr(rc, "_index", lambda device: 0)
+    full = rc.max_kernel_obstacles(0)
+    assert full == optin // 16 == 14_528
+    for footprint in (False, True):
+        store = rc.cull_state_bytes(footprint)
+        assert store == rc.THREADS * rc.CULL_STEPS * (24 if footprint else 16)
+        culled = rc.max_kernel_obstacles(0, culled=True, footprint=footprint)
+        assert full - culled == store // 16
+        assert rc.max_kernel_obstacles(0, footprint=footprint) == full
+    assert rc.max_kernel_obstacles(0, culled=True) == 13_248
+    assert rc.max_kernel_obstacles(0, culled=True, footprint=True) == 12_608
+    system = get_system("bicycle")
+    x0 = torch.zeros((64, 4))
+    for footprint in (None, FP):
+        limit = rc.max_kernel_obstacles(0, culled=True, footprint=footprint is not None)
+        for K, windows in ((limit, 1), (limit + 1, 0)):
+            args = rc._kernel_args(system, x0, torch.zeros((K, 4)), footprint, False,
+                                   False, windows)
+            assert args[5] == K
+        with pytest.raises(ValueError, match=f"{limit + 1} obstacles > {limit}"):
+            rc._kernel_args(system, x0, torch.zeros((limit + 1, 4)), footprint, False,
+                            False, 4)
+        with pytest.raises(ValueError, match=f"> {full}"):
+            rc._kernel_args(system, x0, torch.zeros((full + 1, 4)), footprint, False,
+                            False, 0)
+
+
+def test_plan_argument_is_one_byte_a_window():
+    """The C entry points take B5's plan as one byte a window, its steps;
+    cull off passes none; a plan longer than the kernel holds raises."""
+    assert rc._plan_arg(None, 10) == (0, None)
+    assert rc._plan_arg(4, 10) == (4, bytes([2, 3, 3, 2]))
+    assert rc._plan_arg(True, 25) == (3, bytes([8, 8, 9]))
+    n = rc.MAX_PLAN * rc.CULL_STEPS
+    assert rc._plan_arg(1, n)[0] == rc.MAX_PLAN
+    with pytest.raises(ValueError, match="windows"):
+        rc._plan_arg(1, n + 1)
 
 
 def test_footprint_pad_is_the_jax_bodys():

@@ -2,7 +2,7 @@
 
     python3 time_kernels.py [--root CHECKOUT] [--reps 5] [--no-groups]
                             [--group-lanes 4096,32768] [--group-splits 1,4]
-                            [--sass]
+                            [--only b5,p1b] [--sass]
 
 Imports cudasbmp_torch from CHECKOUT (default: the directory of this
 script), builds its kernels, and times, on the demo's obstacles (K=8):
@@ -24,7 +24,16 @@ all-options bicycle (footprint and fast math) at the sweeps' shape
 1,024 to 2^17 lanes (``--group-lanes``), as ``g<G>_<exact|footprint>_
 <lanes>``, and B6 at the extension rounds' buckets (EXTENSION_BUCKETS
 problems x 128 lanes x 8 boxes, ``g<G>_b6_<P>x128``), with the floor at
-G = 1. Each is timed ``--reps`` times by its device time under
+G = 1; B5, the culled broad phase, at the cull table's shape (B2 on 2^17
+Morton-grouped starts on Scenario.dense(24), probes/throughput.py::
+cull_table) with cull off and at each W in {1, 2, 4, 5} (``b5_W<W>``), at
+40 steps and W = 1 (``b5_n40_W1``, a window past the kernel's cap of
+steps), on the probe's random starts at W = 1 and 4 (``b5_random_W<W>``,
+lanes far apart: little to cull) and at its one-warp floor (the first 32 of those starts, W = 4,
+``floor_b5_32``); and P1b, the accurate trig chains, for cos, sin and tan
+at the calibration shape (f32 [2048, 128], 2,048 links,
+probes/roofline.py::calibrate, ``p1b_<op>``). ``--only`` keeps the rows
+whose names start with one of its prefixes. Each is timed ``--reps`` times by its device time under
 torch.profiler (with the regular profiler windows each reading took,
 probes/timing.py) and by CUDA events (which measure the host's launch rate
 where it is slower than the card), 20 launches a measurement, as
@@ -35,10 +44,17 @@ rows with a reading of fewer than 3 regular windows.
 
 ``--sass`` also dumps, with the toolkit's cuobjdump, the SASS of both B6
 kernels for the exact bicycle without footprint (the instantiation the
-sweeps run) to chiprun_out/sass_<checkout>.txt, and adds to the JSON line
-each loop of those kernels (a backward branch and its target): its
-instruction count and its opcodes, the counts that PERF.md attributes to
-the parts of a step.
+sweeps run), of B2's culled form for it (B5 as the cull table runs it) and
+of the three P1b kernels (csrc/chains.cu) to chiprun_out/sass_<checkout>.txt,
+and adds to the JSON line each loop of those kernels (a backward branch and
+its target): its instruction count and its opcodes, the counts that
+PERF.md attributes to the parts of a step or a link, and its fast path
+(``fast_path``: the branches over the math library's Payne-Hanek paths
+taken); each kernel's registers, stack and shared memory (cuobjdump
+-res-usage) with the blocks of its launch one SM can hold
+(``occupancy``); and P1b's issue limit (``p1b_issue``: its fast path's
+instructions and conversions a link, at 4 warp-instructions and 16
+conversions a clock per SM at the card's top SM clock).
 
 To compare two checkouts, time both on the same card one after the other,
 in the order parent, change, change, parent.
@@ -61,18 +77,106 @@ def _ints(text: str | None) -> tuple[int, ...]:
     return tuple(int(v) for v in text.split(",")) if text else ()
 
 
-# the B6 instantiations the sweeps run (demangled names of csrc/rollout.cu)
-SASS_KERNELS = tuple(f"{k}<(anonymous namespace)::Bicycle, false, false, false>"
-                     for k in ("rollout_kernel", "sample_and_rollout_kernel"))
+# the B6 instantiations the sweeps run, B5 as the cull table runs it
+# (demangled names of csrc/rollout.cu) and P1b (csrc/chains.cu), with each
+# kernel's threads a block
+SASS_KERNELS = {
+    **{f"{k}<(anonymous namespace)::Bicycle, false, false, false>": 128
+       for k in ("rollout_kernel", "sample_and_rollout_kernel")},
+    "sample_and_rollout_kernel<(anonymous namespace)::Bicycle, false, false, true>": 128,
+    **{f"trans_chain_kernel<{op}>": 256 for op in range(3)}}
+# an H100's SM: threads, registers, blocks and shared memory (each block
+# also takes 1 KB of it for the system) it holds at once
+SM_THREADS, SM_REGISTERS, SM_BLOCKS, SM_SMEM = 2048, 65536, 32, 228 * 1024
+
+
+def occupancy(registers: int, threads: int, smem: int = 0) -> int:
+    """Blocks of ``threads`` threads at ``registers`` a thread and ``smem``
+    bytes of shared memory that one SM holds: registers are allocated 256
+    a warp at a time."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps = SM_REGISTERS // per_warp if per_warp else SM_THREADS // 32
+    return min(SM_BLOCKS, SM_THREADS // threads, warps // (threads // 32),
+               SM_SMEM // (smem + 1024))
+
+
+def resource_usage(cuobjdump: pathlib.Path, library: pathlib.Path) -> dict:
+    """{kernel (demangled, as SASS_KERNELS names it): {REG, STACK, SHARED,
+    LOCAL, ...}} of the SASS_KERNELS in ``library``."""
+    text = subprocess.run([str(cuobjdump), "-res-usage", str(library)],
+                          capture_output=True, text=True, timeout=600, check=True).stdout
+    pairs = re.findall(r"Function (\S+):\s*\n\s*(.*)", text)
+    names = subprocess.run(["c++filt"], input="\n".join(m for m, _ in pairs), text=True,
+                           capture_output=True, timeout=60, check=True).stdout.splitlines()
+    out = {}
+    for name, (_, usage) in zip(names, pairs):
+        short = _short(name)
+        if short in SASS_KERNELS:
+            out[short] = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", usage)}
+    return out
+
+
+def _short(name: str) -> str:
+    short = name.removeprefix("void ").removeprefix("(anonymous namespace)::")
+    return short[:short.find(">(") + 1]
 _INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
-def sass_loops(library: pathlib.Path, dump: pathlib.Path) -> dict:
+def fast_path(ins: list, lo: int, hi: int) -> tuple[list[str], int]:
+    """One pass through the loop [lo, hi] of ``ins`` (address, predicate,
+    opcode, operands) that takes each conditional forward branch over a
+    path with double-precision multiplies or local-memory loads or stores
+    (the math library's Payne-Hanek reduction, which the calibration inputs
+    never take): the opcodes it issues, and how many such paths it skips
+    (one a trig call)."""
+    body = [(a, pred, op) for a, pred, op, _ in ins if lo <= a <= hi]
+    skipped = []
+    for a, pred, op, args in ins:
+        if not (lo <= a <= hi and pred and op.startswith("BRA")):
+            continue
+        target = int(re.search(r"0x([0-9a-f]+)", args)[1], 16)
+        if target <= a or target > hi or any(s < a < e for s, e in skipped):
+            continue
+        if any(o.split(".")[0] in ("DMUL", "LDL", "STL")
+               for b, _, o in body if a < b < target):
+            skipped.append((a, target))
+    kept = [o.split(".")[0] for b, _, o in body
+            if not any(s < b < e for s, e in skipped)]
+    return kept, len(skipped)
+
+
+def p1b_issue(sass: dict, elems: int, links: int, sm_count: int, clock_hz: float
+              ) -> dict:
+    """P1b's issue limit from its SASS: the fast path of its chain loop (the
+    innermost loop that skips a Payne-Hanek path) over its trig calls gives
+    the instructions and the conversions (F2I, I2F, I2FP) a link; elems x
+    links of them at 4 warp-instructions, and 16 conversions, a clock per
+    SM at ``clock_hz``."""
+    out = {}
+    for op in range(3):
+        loops = [l for l in sass.get(f"trans_chain_kernel<{op}>", {}).get("loops", [])
+                 if l["fast_path"]["local_paths"]]
+        if not loops:
+            continue
+        fp = min(loops, key=lambda l: l["instructions"])["fast_path"]
+        per_link = fp["instructions"] / fp["local_paths"]
+        conv = sum(fp["opcodes"].get(k, 0) for k in ("F2I", "I2F", "I2FP")) / fp["local_paths"]
+        out[("cos", "sin", "tan")[op]] = {
+            "instructions_per_link": per_link, "conversions_per_link": conv,
+            "issue_ms": 1e3 * elems * links * per_link / (sm_count * 4 * 32 * clock_hz),
+            "conversion_ms": 1e3 * elems * links * conv / (sm_count * 16 * clock_hz)}
+    return out
+
+
+def sass_loops(library: pathlib.Path, dump: pathlib.Path, smem: dict) -> dict:
     """The SASS of SASS_KERNELS in ``library`` (written to ``dump``) and,
     for each kernel, every loop: the range from a backward branch's target
     to the branch, its instruction count and its opcodes (the mnemonic
-    before the first dot), innermost loops first."""
+    before the first dot), innermost loops first; and its resource usage
+    and ``occupancy`` at the dynamic shared memory ``smem`` gives it (0
+    where it names none)."""
     cuobjdump = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    usage = resource_usage(cuobjdump, library)
     text = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
                           text=True, timeout=600, check=True).stdout
     chunks = re.split(r"\n\s*Function : (\S+)\n", text)
@@ -80,21 +184,27 @@ def sass_loops(library: pathlib.Path, dump: pathlib.Path) -> dict:
                            capture_output=True, timeout=60, check=True).stdout.splitlines()
     out, kept = {}, []
     for name, body in zip(names, chunks[2::2]):
-        short = name.removeprefix("void ").removeprefix("(anonymous namespace)::")
-        short = short[:short.find(">(") + 1]
+        short = _short(name)
         if short not in SASS_KERNELS:
             continue
         kept.append(f"// {short}\n{body}")
-        ins = [(int(a, 16), op, args) for a, _, op, args in _INSTRUCTION.findall(body)]
+        ins = [(int(a, 16), pred, op, args)
+               for a, pred, op, args in _INSTRUCTION.findall(body)]
         loops = []
-        for addr, op, args in ins:
+        for addr, _, op, args in ins:
             m = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
             if m and int(m[1], 16) <= addr:
                 lo = int(m[1], 16)
-                body_ops = [o.split(".")[0] for a, o, _ in ins if lo <= a <= addr]
+                body_ops = [o.split(".")[0] for a, _, o, _ in ins if lo <= a <= addr]
+                kept, paths = fast_path(ins, lo, addr)
                 loops.append({"from": hex(lo), "to": hex(addr), "instructions": len(body_ops),
-                              "opcodes": dict(Counter(body_ops).most_common())})
-        out[short] = {"instructions": len(ins),
+                              "opcodes": dict(Counter(body_ops).most_common()),
+                              "fast_path": {"instructions": len(kept), "local_paths": paths,
+                                            "opcodes": dict(Counter(kept).most_common())}})
+        res = usage.get(short, {})
+        out[short] = {"instructions": len(ins), "resources": res,
+                      "occupancy": occupancy(res.get("REG", 0), SASS_KERNELS[short],
+                                             smem.get(short, 0)),
                       "loops": sorted(loops, key=lambda x: x["instructions"])}
     dump.parent.mkdir(exist_ok=True)
     dump.write_text("\n".join(kept))
@@ -112,8 +222,11 @@ def main() -> int:
                     "(default: chip_smoke.SPLIT_WIDTHS)")
     ap.add_argument("--group-splits", help="the per-G table's G, comma-separated "
                     "(default: every G)")
+    ap.add_argument("--only", help="time only the rows whose names start with one "
+                    "of these comma-separated prefixes")
     ap.add_argument("--sass", action="store_true",
-                    help="dump B6's SASS and count the instructions of its loops")
+                    help="dump the SASS of B6, B5 and P1b and count the instructions "
+                    "of their loops")
     args = ap.parse_args()
     import torch
 
@@ -125,7 +238,10 @@ def main() -> int:
     import cudasbmp_torch
     from cudasbmp_torch import KGMTConfig, rng
     from cudasbmp_torch.config import Scenario
+    from cudasbmp_torch.ops import chains_cuda as cc
     from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.probes import roofline as rf
+    from cudasbmp_torch.probes import throughput as tp
     from cudasbmp_torch.systems.bicycle import KinematicBicycle
 
     # this script's helpers, and the timing module of this script's own
@@ -189,9 +305,30 @@ def main() -> int:
             bsys, bx0, bc, bobs, **fp, fast_math=True)
         wide = problem_batch("bicycle", 256, nr, nk, 97, dev)
         runs["b6_256x128_ms"] = lambda: rc.rollout_batched_cuda(*wide, **kw)
+    # B5 at the cull table's shape and its floor; P1b at the calibration shape
+    dense = torch.tensor(Scenario.dense(24).obstacles, device=dev)
+    gx0 = tp.start_states(2 ** 17, dev, grouped=True)
+    for W in (0, 1, 2, 4, 5):
+        runs[f"b5_W{W}_ms"] = lambda W=W: rc.sample_and_rollout_bicycle_cuda(
+            key, gx0, dense, **kw, cull=W)
+    rx0 = tp.start_states(2 ** 17, dev, grouped=False)
+    for W in (1, 4):
+        runs[f"b5_random_W{W}_ms"] = lambda W=W: rc.sample_and_rollout_bicycle_cuda(
+            key, rx0, dense, **kw, cull=W)
+    runs["b5_n40_W1_ms"] = lambda: rc.sample_and_rollout_bicycle_cuda(
+        key, gx0, dense, **dict(kw, num_disc=40), cull=1)
+    near = gx0[:32].contiguous()
+    runs["floor_b5_32_ms"] = lambda: rc.sample_and_rollout_cuda(
+        KinematicBicycle(), key, near, dense, **kw, cull=4)
+    cx = rf.chain_inputs(dev)
+    for op in ("cos", "sin", "tan"):
+        runs[f"p1b_{op}_ms"] = lambda op=op: cc.trans_chain_cuda(cx, rf.TRANS_CHAIN, op)
+    only = tuple(args.only.split(",")) if args.only else ()
     splits = {}
     if groups:
         for name, fn in list(runs.items()):  # the G each launch takes
+            if only and not name.startswith(only):
+                continue
             rc.reset_launch_counts()
             fn()
             splits[name] = dict(sum((w.splits for w in rc.WRAPPERS), Counter()))
@@ -208,6 +345,8 @@ def main() -> int:
             for G in _ints(args.group_splits) or rc.SPLITS:
                 runs[f"g{G}_b6_{P}x{nr}_ms"] = (
                     lambda batch=batch, G=G: rc.rollout_batched_cuda(*batch, **kw, split=G))
+    if only:
+        runs = {k: v for k, v in runs.items() if k.startswith(only)}
     times = {}
     for name, fn in runs.items():
         readings = [device_ms(fn) for _ in range(args.reps)]
@@ -220,8 +359,19 @@ def main() -> int:
     if args.sass:
         from cudasbmp_torch.ops import _build
 
+        # B5's dynamic shared memory at the cull table: 24 boxes and, where
+        # the checkout keeps one, its window store
+        store = rc.cull_state_bytes(False) if hasattr(rc, "cull_state_bytes") else 0
+        b5 = [k for k in SASS_KERNELS if k.endswith("true>")]
         result["sass"] = sass_loops(_build.build()[0],
-                                    here / "chiprun_out" / f"sass_{root.name}.txt")
+                                    here / "chiprun_out" / f"sass_{root.name}.txt",
+                                    {k: 16 * 24 + store for k in b5})
+        mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"], capture_output=True,
+                             text=True, timeout=60, check=True).stdout.split()[0]
+        result["p1b_issue"] = p1b_issue(result["sass"], cx.numel(), rf.TRANS_CHAIN,
+                                        rc.sm_count(0), float(mhz) * 1e6)
+        result["p1b_issue"]["clock_mhz"] = float(mhz)
     print(json.dumps(result))
     return 0
 
