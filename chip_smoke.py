@@ -86,10 +86,13 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     valid rollouts/s by device time and, labelled, by wall for cuda,
     cuda_rng, fast math, dense-24 and torch; then the cull table of
     tools/r4_cull_bench.py, B5's main path;
-20. the calibration chains P1a (FMA), P1b (cos, sin, tan; bitwise) and P2
-    (gathers at 8, 128 and 1,024 rows) against their plain twins, P1b's
-    launch geometry (the occupancy query's blocks an SM, its grid) and
-    registers, its device ms for each op, the rollout
+20. the calibration chains P1a (FMA; also at a ragged size), P1b (cos,
+    sin, tan; bitwise) and P2 (gathers at 8, 128 and 1,024 rows, on the
+    calibration's indices and on a ragged count of rows with negative and
+    large indices; bitwise) against their plain twins, each one's launch
+    geometry (P1a's and P1b's blocks an SM by the occupancy query and
+    their grids, P2's blocks, rows a block and most rows at each table
+    size) and registers, their device ms, the rollout
     kernels' sincosf against torch.sin/torch.cos at every float, their
     rates from device time (probes/roofline.py::calibrate), and B2's
     roofline shares, exact, fast and dense-24;
@@ -184,6 +187,10 @@ MIN_REGULAR = 3  # regular profiler windows a time should be the median of
 # a call would otherwise fill the profiler's buffers mid-window, where the
 # profiler loses records (PERF.md)
 PLAIN_CALLS = 2
+# P1a's and P2's ragged inputs: 7 programs of 37 rows x 128 (33,152
+# elements, not a whole round of a P1a grid) and 1,003 rows of idx (not a
+# multiple of the rows a P2 block holds)
+RAGGED_PROGRAMS, RAGGED_PROGRAM_ROWS, RAGGED_IDX_ROWS = 7, 37, 1003
 WINDOWS = (1, 2, 4, 5)  # B5's step windows, as tools/r4_cull_bench.py
 CUT_STEPS = 25  # past B5's cap of steps a window: W = 1 runs as 3 windows
 PROBE_LANES = 524_288  # the CostProp probe's width (CostPropPlanner.cu:85-88)
@@ -927,6 +934,23 @@ def run_probes(dev) -> dict:
     return out
 
 
+def ragged_chain_inputs(dev, rows: int | None = None):
+    """P1a's input at a ragged size, x f32 [RAGGED_PROGRAMS x
+    RAGGED_PROGRAM_ROWS, 128] uniform in [0.5, 1); or, with ``rows``, P2's:
+    a table f32 [rows, 128] and idx int32 [RAGGED_IDX_ROWS, 128] in [0,
+    rows) but for 24 lanes of the first row: -rows - 3, -2^31 and 2^31 - 513
+    (the floor modulo of negative and large indices; idx + i stays an
+    int32 in the twin)."""
+    r = np.random.default_rng(RAGGED_IDX_ROWS + (rows or 0))
+    if rows is None:
+        x = r.uniform(0.5, 1.0, (RAGGED_PROGRAMS * RAGGED_PROGRAM_ROWS, 128))
+        return torch.tensor(x.astype(np.float32), device=dev)
+    tbl = r.uniform(0, 1, (rows, 128)).astype(np.float32)
+    idx = r.integers(0, rows, (RAGGED_IDX_ROWS, 128)).astype(np.int32)
+    idx[0, :8], idx[0, 8:16], idx[0, 16:24] = -rows - 3, -2 ** 31, 2 ** 31 - 513
+    return torch.tensor(tbl, device=dev), torch.tensor(idx, device=dev)
+
+
 def run_calibration(dev, probes: dict) -> dict:
     """Phase 20: the calibration chains (P1a, P1b, P2) against their plain
     twins on the card, their rates from device time (launches zeroed before
@@ -937,13 +961,19 @@ def run_calibration(dev, probes: dict) -> dict:
     from cudasbmp_torch.probes import roofline as rf
 
     x = rf.chain_inputs(dev)
+    di = dev.index or 0
     out = {"checks": {}, "plain_ms": {}}
-    for chain, rtol in ((64, 1e-5), (rf.ALU_CHAIN, 2e-3)):
-        a, b = cc.alu_chain_cuda(x, chain), cc.alu_chain_torch(x, chain)
+    # P1a within its rtol at 64 and 16,384 links, and at 64 on a ragged size
+    rx = ragged_chain_inputs(dev)
+    for tag, xs, chain, rtol, rows in (
+            ("alu_64", x, 64, 1e-5, rf.PROGRAM_ROWS),
+            (f"alu_{rf.ALU_CHAIN}", x, rf.ALU_CHAIN, 2e-3, rf.PROGRAM_ROWS),
+            ("alu_64_ragged", rx, 64, 1e-5, RAGGED_PROGRAM_ROWS)):
+        a, b = cc.alu_chain_cuda(xs, chain, rows), cc.alu_chain_torch(xs, chain, rows)
         err = float(((a - b).abs() / b.abs()).max())
-        check(err <= rtol, f"P1a at {chain} links: relative error {err} > {rtol}")
-        out["checks"][f"alu_{chain}"] = {"max_rel_err": err, "rtol": rtol,
-                                         "max_abs_err": float((a - b).abs().max())}
+        check(err <= rtol, f"P1a {tag}: relative error {err} > {rtol}")
+        out["checks"][tag] = {"max_rel_err": err, "rtol": rtol,
+                              "max_abs_err": float((a - b).abs().max())}
     # P1b within 1e-5 of its twin, and bitwise: the kernel runs each
     # element's chain as the twin does, cosf/sinf/tanf as torch's kernels
     for op, chain in (("cos", rf.TRANS_CHAIN), ("sin", rf.TRANS_CHAIN), ("tan", 2)):
@@ -958,19 +988,32 @@ def run_calibration(dev, probes: dict) -> dict:
         "finite": bool(torch.isfinite(a).all())}
     for k in ("cos_2048", "sin_2048", "tan_2", "tan_2048"):
         check(out["checks"][k]["bitwise"], f"P1b {k}: no longer bitwise equal to its twin")
-    out["p1b_geometry"] = {}
-    for op in cc.TRANS_OPS:
-        threads, elems, per_sm = cc.trans_geometry(dev.index or 0, op)
-        out["p1b_geometry"][op] = {
-            "threads": threads, "elements_a_thread": elems, "blocks_per_sm": per_sm,
-            "grid": cc.trans_plan(x.numel(), rc.sm_count(dev.index or 0), per_sm,
-                                  threads, elems)}
+
+    def p1_geometry(kernel: str) -> dict:
+        threads, elems, per_sm = cc.chain_geometry(di, kernel)
+        return {"threads": threads, "elements_a_thread": elems, "blocks_per_sm": per_sm,
+                "grid": cc.chain_plan(x.numel(), rc.sm_count(di), per_sm, threads, elems)}
+
+    out["p1a_geometry"] = p1_geometry("alu")
+    out["p1b_geometry"] = {op: p1_geometry(op) for op in cc.TRANS_OPS}
+    # P2 bitwise at each table size, on the calibration's idx and a ragged one
+    out["p2_geometry"] = {}
     for rows in rf.GATHER_ROWS:
         _, tbl, idx = rf.chain_inputs(dev, rows)
-        check(bitwise(cc.gather_chain_cuda(tbl, idx, rf.GATHER_CHAIN),
-                      cc.gather_chain_torch(tbl, idx, rf.GATHER_CHAIN)),
-              f"P2 at {rows} rows: differs from its twin")
-        out["checks"][f"gather_{rows}"] = {"bitwise": True}
+        for tag, (t, i) in ((f"gather_{rows}", (tbl, idx)),
+                            (f"gather_{rows}_ragged", ragged_chain_inputs(dev, rows))):
+            check(bitwise(cc.gather_chain_cuda(t, i, rf.GATHER_CHAIN),
+                          cc.gather_chain_torch(t, i, rf.GATHER_CHAIN)),
+                  f"P2 {tag}: differs from its twin")
+            out["checks"][tag] = {"bitwise": True}
+        threads, per_block, per_sm, max_rows = cc.gather_geometry(di, rows)
+        out["p2_geometry"][rows] = {
+            "threads": threads, "rows_per_block": per_block, "blocks_per_sm": per_sm,
+            "max_rows": max_rows, "blocks": cc.LANES // cc.SLICE_LANES * cc.gather_plan(
+                idx.shape[0], rows, rc.sm_count(di), per_sm, per_block, rc.smem_optin(di))}
+        check(max_rows == cc.gather_max_rows(rc.smem_optin(di)),
+              f"P2: the kernel's most rows {max_rows} != gather_max_rows "
+              f"{cc.gather_max_rows(rc.smem_optin(di))}")
     # the rollout kernels' one sincosf a heading against torch.sin/torch.cos
     out["sincos_differences"] = cc.sincos_differences(dev)
     check(out["sincos_differences"] == 0,
@@ -2206,10 +2249,14 @@ def main() -> int:
           f"evals/s {rates['cos_evals_per_sec']:.4g}/{rates['sin_evals_per_sec']:.4g}/"
           f"{rates['tan_evals_per_sec']:.4g}, gathers/s at 8/128/1024 rows "
           f"{rates['gathers_per_sec_8']:.4g}/{rates['gathers_per_sec_128']:.4g}/"
-          f"{rates['gathers_per_sec_1024']:.4g}; P1b device ms cos/sin/tan "
+          f"{rates['gathers_per_sec_1024']:.4g}; P1a device ms {rates['ms']['alu']:.4f} on "
+          f"{cal['p1a_geometry']}; P1b device ms cos/sin/tan "
           f"{rates['ms']['cos']:.4f}/{rates['ms']['sin']:.4f}/{rates['ms']['tan']:.4f} on "
-          f"{cal['p1b_geometry']['cos']} ({ptxas_summary(ptxas, lambda k: k.startswith('trans_chain'))}); chains agree "
-          f"with their twins, P1b bitwise; sincosf "
+          f"{cal['p1b_geometry']['cos']} ({ptxas_summary(ptxas, lambda k: k.startswith('trans_chain'))}); "
+          f"P2 device ms at 8/128/1024 rows {rates['ms']['gather8']:.4f}/"
+          f"{rates['ms']['gather128']:.4f}/{rates['ms']['gather1024']:.4f} on "
+          f"{cal['p2_geometry']} ({ptxas_summary(ptxas, lambda k: k.startswith(('alu_chain', 'gather_chain')))}); "
+          f"chains agree with their twins (ragged sizes too), P1b and P2 bitwise; sincosf "
           f"differs from torch.sin/cos on {cal['sincos_differences']} of 2^32 floats | B2 share of "
           f"the peaks: " + ", ".join(f"{k} {v['peak_share']:.4f} ({v['kernel_ms']:.4f} ms)"
                                       for k, v in cal["shares"].items())
@@ -2448,7 +2495,7 @@ def main() -> int:
          "source": "cudasbmp_torch/csrc/chains.cu",
          "replaces": "tools/roofline.py:69",
          "launches": cal["launches"]["alu_chain_cuda"], "max_abs_err": chain_err("alu"),
-         "ms": cms["alu"], "plain_ms": pm["alu_ms"],
+         "ms": cms["alu"], "geometry": cal["p1a_geometry"], "plain_ms": pm["alu_ms"],
          "plain_launch_ms": pm["alu_launch_ms"], **regular(creg["alu"], pm["alu_regular"]),
          **chain_row(cb["alu"])},
         {"name": "trans_chain_kernel<cos|sin|tan> (P1b)", "route": "cuda",
@@ -2465,7 +2512,8 @@ def main() -> int:
          "replaces": "tools/r3_probe1.py:97",
          "launches": cal["launches"]["gather_chain_cuda"], "max_abs_err": 0.0,
          "ms": cms["gather1024"], "ms_rows8": cms["gather8"],
-         "ms_rows128": cms["gather128"], "plain_ms": pm["gather1024_ms"],
+         "ms_rows128": cms["gather128"], "geometry": cal["p2_geometry"][1024],
+         "plain_ms": pm["gather1024_ms"],
          "plain_launch_ms": pm["gather1024_launch_ms"],
          **regular(creg["gather1024"], pm["gather1024_regular"]), **chain_row(cb["gather"])},
     ]

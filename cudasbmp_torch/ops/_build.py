@@ -55,14 +55,14 @@ SIGNATURES = {
                                     _P, _F, _F, _F, _F, _F, _F, _F, _I, _P),
     # device, x, s, c, n, stream
     "cudasbmp_sincos": (_I, _P, _P, _P, _I, _P),
-    # device, x, y, n, program, chain, stream
-    "cudasbmp_alu_chain": (_I, _P, _P, _I, _I, _I, _P),
-    # device, op, x, y, n, program, chain, grid, stream
-    "cudasbmp_trans_chain": (_I, _I, _P, _P, _I, _I, _I, _I, _P),
-    # device, op, &threads, &elements a thread, &blocks an SM
-    "cudasbmp_trans_geometry": (_I, _I, _P, _P, _P),
-    # device, tbl, rows, idx, y, n_rows, chain, stream
-    "cudasbmp_gather_chain": (_I, _P, _I, _P, _P, _I, _I, _P),
+    # device, kernel (P1b's op or P1a), x, y, n, program, chain, grid, stream
+    "cudasbmp_chain": (_I, _I, _P, _P, _I, _I, _I, _I, _P),
+    # device, kernel, &threads, &elements a thread, &blocks an SM
+    "cudasbmp_chain_geometry": (_I, _I, _P, _P, _P),
+    # device, rows, &threads, &rows a block, &blocks an SM, &most rows
+    "cudasbmp_gather_geometry": (_I, _I, _P, _P, _P, _P),
+    # device, tbl, rows, idx, y, n_rows, chain, blocks along the rows, stream
+    "cudasbmp_gather_chain": (_I, _P, _I, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -19,6 +19,7 @@ Tolerances, with their reasons:
 """
 
 import functools
+import re
 import sys
 from pathlib import Path
 
@@ -37,6 +38,12 @@ import roofline  # noqa: E402
 
 torch.set_num_threads(2)
 ROWS, LANES, PROGRAMS = 8, 128, 2
+CHAINS_CU = (Path(cc.__file__).resolve().parents[1] / "csrc" / "chains.cu").read_text()
+
+
+def _constant(name: str) -> int:
+    """A ``constexpr int`` of csrc/chains.cu, as the kernels are built."""
+    return int(re.search(rf"constexpr int {name} = (\d+);", CHAINS_CU)[1])
 
 
 def _x(seed: int) -> np.ndarray:
@@ -95,8 +102,8 @@ def test_gather_chain_twin_equals_the_tpu_kernel(rows):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
-def trans_elements(n: int, grid: int, threads: int, elems: int) -> list[list[int]]:
-    """csrc/chains.cu::trans_chain_kernel's index walk in Python: the
+def chain_elements(n: int, grid: int, threads: int, elems: int) -> list[list[int]]:
+    """csrc/chains.cu::trans_chain_kernel's walk (P1b) in Python: the
     elements each thread chains, in order. Thread t of T = grid x threads
     takes e0 + k * T for k < elems below n, for e0 = t, t + T * elems, ..."""
     T = grid * threads
@@ -104,26 +111,189 @@ def trans_elements(n: int, grid: int, threads: int, elems: int) -> list[list[int
              if e0 + k * T < n] for t in range(T)]
 
 
+def alu_elements(n: int, grid: int, threads: int, elems: int) -> list[list[list[int]]]:
+    """csrc/chains.cu::alu_chain_kernel's walk (P1a) in Python: for each
+    thread, the elements it chains together in each of its rounds. Block b
+    takes the tiles of threads x elems contiguous elements at b, b + grid,
+    ...; thread t of a tile at ``base`` takes base + t + k * threads below
+    n, k < elems."""
+    tile = threads * elems
+    return [[[base + t + k * threads for k in range(elems) if base + t + k * threads < n]
+             for base in range(b * tile, n, grid * tile) if base + t < n]
+            for b in range(grid) for t in range(threads)]
+
+
+@pytest.mark.parametrize("kernel", ["trans", "alu"])
 @pytest.mark.parametrize("sm_count,blocks_per_sm", [(132, 8), (4, 1), (3, 2)])
-@pytest.mark.parametrize("program_rows,programs", [(3, 5), (8, 2), (256, 8)])
+@pytest.mark.parametrize("program_rows,programs", [(3, 5), (8, 2), (37, 7), (256, 8)])
 def test_trans_plan_walks_each_element_once(sm_count, blocks_per_sm, program_rows,
-                                            programs):
-    """P1b's launch plan: a grid of at most the card's resident blocks
-    (fewer where n needs fewer), k elements a thread, a grid-stride walk;
-    every element is chained by exactly one thread, for n a multiple of
-    the program (rows x 128): at 5 programs of 3 rows not a multiple of k x
-    threads, at 2 x 8 and 8 x 256 rows one."""
-    threads, elems = 256, 2
+                                            programs, kernel):
+    """The P1 launch plan (P1b's walk with k = kTransElems, P1a's tiles
+    with kAluElems): a grid of at most the card's resident blocks (fewer
+    where n needs fewer), k elements a thread, a grid-stride walk; every
+    element is chained by exactly one thread, in order, for n a multiple
+    of the program (rows x 128): at 5 programs of 3 rows and 7 of 37
+    (chip_smoke.py's ragged P1a input) not a multiple of k x threads, at 2
+    x 8 and 8 x 256 rows one."""
+    threads = _constant("kThreads")
+    elems = _constant("kTransElems" if kernel == "trans" else "kAluElems")
     n = programs * program_rows * LANES
-    grid = cc.trans_plan(n, sm_count, blocks_per_sm, threads, elems)
+    grid = cc.chain_plan(n, sm_count, blocks_per_sm, threads, elems)
     assert 1 <= grid <= sm_count * blocks_per_sm
     assert grid * threads * elems >= n or grid == sm_count * blocks_per_sm
-    walk = trans_elements(n, grid, threads, elems)
+    if kernel == "trans":
+        walk = chain_elements(n, grid, threads, elems)
+    else:
+        walk = [[e for r in rounds for e in r] for rounds in alu_elements(n, grid, threads, elems)]
     assert sorted(e for mine in walk for e in mine) == list(range(n))
     assert all(mine == sorted(mine) for mine in walk)
     # the calibration shape on an H100 at 8 blocks an SM: one round, k a thread
-    assert cc.trans_plan(2048 * 128, 132, 8, threads, elems) == 512
-    assert cc.trans_plan(5 * 3 * LANES, 132, 8, threads, elems) == 4
+    assert cc.chain_plan(2048 * 128, 132, 8, threads, elems) == 2048 * 128 // (threads * elems)
+    assert cc.chain_plan(5 * 3 * LANES, 132, 8, threads, elems) == -(-15 * LANES // (threads * elems))
+
+
+@pytest.mark.parametrize("program_rows,programs,shared", [(256, 8, "all"), (37, 7, "some"),
+                                                          (8, 2, "all"), (3, 5, "none")])
+def test_alu_elements_share_m_within_a_program(program_rows, programs, shared):
+    """P1a's one m register for a round: the kernel takes it where the
+    round's first and last elements lie in one program, so all of them do
+    and m is each element's own (x0 * 1e-9 + 0.999931 of its program's
+    first element); at the calibration's programs of 32,768 elements every
+    round shares it, at chip_smoke.py's ragged programs of 37 rows some do
+    not and keep an m each, and at programs of 3 rows, shorter than a
+    round's span, none does."""
+    threads, elems = _constant("kThreads"), _constant("kAluElems")
+    n, program = programs * program_rows * LANES, program_rows * LANES
+    grid = cc.chain_plan(n, 132, 8, threads, elems)
+    rounds = [r for mine in alu_elements(n, grid, threads, elems) for r in mine]
+    one = [r[0] // program == r[-1] // program for r in rounds]
+    assert all(len({e // program for e in r}) == 1 for r, o in zip(rounds, one) if o)
+    assert {"all": all(one), "some": any(one) and not all(one),
+            "none": not any(one)}[shared]
+
+
+def test_gather_constants_match_the_kernel():
+    """The wrapper's model of P2's slice is the kernel's: its columns, its
+    step of consecutive rows and the mbarrier's bytes before it."""
+    assert (cc.SLICE_LANES, cc.GATHER_UNROLL, cc.GATHER_HEADER) == (
+        _constant("kSliceLanes"), _constant("kGatherUnroll"), _constant("kGatherHeader"))
+    assert _constant("kGatherRowsPerBlock") % _constant("kGatherChains") == 0
+
+
+def gather_rows(n_rows: int, blocks_y: int) -> list[tuple[int, int]]:
+    """csrc/chains.cu::gather_chain_kernel's rows and lanes in Python:
+    the (row, lane) every chain of every thread of every block computes
+    (rows past its block's end compute nothing)."""
+    chains = _constant("kGatherChains")
+    warps = _constant("kGatherRowsPerBlock") // chains
+    slices = LANES // cc.SLICE_LANES
+    out = []
+    for b in range(slices * blocks_y):
+        s = b // slices
+        lo, hi = s * n_rows // blocks_y, (s + 1) * n_rows // blocks_y
+        assert hi - lo <= warps * chains  # the block's threads hold its rows
+        for ty in range(warps):
+            for c in range(chains):
+                r = lo + ty + c * warps
+                if r < hi:
+                    out += [(r, (b % slices) * cc.SLICE_LANES + tx)
+                            for tx in range(cc.SLICE_LANES)]
+    return out
+
+
+@pytest.mark.parametrize("rows_per_block", [_constant("kGatherRowsPerBlock")])
+@pytest.mark.parametrize("sms,blocks_per_sm", [(132, 1), (132, 2), (132, 4), (3, 1)])
+@pytest.mark.parametrize("n_rows", [1, 5, 63, 64, 1003, 2048, 4099])
+def test_gather_plan_computes_each_row_and_lane_once(n_rows, sms, blocks_per_sm,
+                                                     rows_per_block):
+    """P2's plan: enough blocks along the rows to hold n_rows and, where
+    there are rows for it, to give every SM its blocks; every (row, lane)
+    of idx computed by exactly one chain, at ragged n_rows too."""
+    optin = 232_448  # an H100's 227 KB
+    blocks_y = cc.gather_plan(n_rows, 1024, sms, blocks_per_sm, rows_per_block, optin)
+    slices = LANES // cc.SLICE_LANES
+    assert 1 <= blocks_y <= n_rows
+    assert blocks_y >= min(n_rows, -(-sms * blocks_per_sm // slices))
+    done = gather_rows(n_rows, blocks_y)
+    assert len(done) == len(set(done)) == n_rows * LANES
+    assert set(done) == {(r, l) for r in range(n_rows) for l in range(LANES)}
+    # the calibration's 2,048 rows on an H100 at 1,024 table rows (one
+    # block an SM): 33 blocks a slice, 132 in all, not 128
+    assert cc.gather_plan(2048, 1024, 132, 1, rows_per_block, optin) == 33
+
+
+def test_gather_slice_fits_one_block_for_every_rows_accepted():
+    """Every table size the plan accepts puts its slice (and the
+    mbarrier) within one block's 227 KB on an H100; one row more raises."""
+    optin = 232_448
+    top = cc.gather_max_rows(optin)
+    assert top == 1808
+    for rows in range(1, top + 1):
+        assert cc.gather_slice_bytes(rows) <= optin
+        cc.gather_plan(2048, rows, 132, 1, 64, optin)
+    assert cc.gather_slice_bytes(top + 1) > optin
+    for rows in (0, top + 1, 4096):
+        with pytest.raises(ValueError, match="rows"):
+            cc.gather_plan(2048, rows, 132, 1, 64, optin)
+
+
+def gather_link_rows(v: int, rows: int, chain: int) -> list[int]:
+    """csrc/chains.cu::gather_chain_kernel's index steps for one chain
+    from idx value v, in Python: the table row of each link, in order. A
+    step reads padded rows j .. j + kGatherUnroll - 1 (padded row p holds
+    row p % rows) and moves j on by kGatherUnroll % rows with one wrap;
+    the remainder reads the first links of one more step."""
+    unroll = _constant("kGatherUnroll")
+    r = abs(v) % rows
+    j = rows - r if v < 0 and r else r  # C's % has the dividend's sign; then floor
+    out, i = [], 0
+    while i + unroll <= chain:
+        out += [j + u for u in range(unroll)]
+        j = j + unroll % rows - rows if j + unroll % rows >= rows else j + unroll % rows
+        i += unroll
+    out += [j + u for u in range(chain - i)]
+    assert all(0 <= p < rows + unroll - 1 for p in out)  # inside the padded slice
+    return [p % rows for p in out]
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8, 128, 1024])
+def test_gather_index_model_equals_floor_modulo(rows):
+    """The kernel's padded-slice steps give (idx + i) % rows with floor
+    modulo for every link, at negative and large idx and at chains of whole
+    steps and with a remainder; summed in its order they equal the twin to
+    the bit."""
+    values = [0, 1, rows - 1, rows, -1, -rows, -rows - 3, 2 ** 31 - 513, -2 ** 31,
+              10 ** 9 + 7, -(10 ** 9 + 7)]
+    for chain in (0, 1, 7, 8, 9, 17, 512):
+        for v in values:
+            assert gather_link_rows(v, rows, chain) == [(v + i) % rows for i in range(chain)]
+    r = np.random.default_rng(rows)
+    tbl = r.uniform(0, 1, (rows, LANES)).astype(np.float32)
+    idx = np.array([values[:8]] * 2, dtype=np.int64).repeat(16, 1).astype(np.int32)
+    chain = 41
+    want = cc.gather_chain_torch(torch.tensor(tbl), torch.tensor(idx), chain).numpy()
+    for (a, b), v in np.ndenumerate(idx):
+        acc = np.float32(0)
+        for row in gather_link_rows(int(v), rows, chain):
+            acc = np.float32(acc + tbl[row, b])
+        assert acc.view(np.int32) == want[a, b].view(np.int32)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 1024])
+def test_gather_warp_reads_32_banks(rows):
+    """A warp's 32 threads read 32 distinct banks of shared memory
+    whichever padded rows they are at: the same row for all, or one each."""
+    unroll = _constant("kGatherUnroll")
+    base = cc.GATHER_HEADER // 4  # the slice's first word
+
+    def banks(js):
+        return {(base + j * cc.SLICE_LANES + tx) % 32 for tx, j in enumerate(js)}
+
+    for j in range(rows + unroll - 1):
+        assert len(banks([j] * 32)) == 32
+    r = np.random.default_rng(rows)
+    for _ in range(64):
+        assert len(banks(r.integers(0, rows + unroll - 1, 32))) == 32
 
 
 def test_wrappers_check_their_inputs_and_count_only_launches():

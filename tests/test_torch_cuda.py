@@ -584,9 +584,12 @@ def test_chains_match_their_twins(dev):
     """P1a within rtol 1e-5 at 64 links (FMA against two roundings) and
     2e-3 at the full 16,384 (a link's rounding difference, under 1.2e-7
     relative, is damped by m = 0.99993 only over some 1/(1 - m) = 14,500
-    links); cos and sin within 1e-5 at the full 2,048 links; tan at 2 links
-    (it amplifies any difference); P2 to the bit at 8, 128, 1,024 and the
-    most rows one block holds."""
+    links), and at 64 links on 7 programs of 37 rows (not a whole round of
+    its grid); cos and sin within 1e-5 at the full 2,048 links; tan at 2
+    links (it amplifies any difference); P2 to the bit at 1, 3, 8, 128,
+    1,024 and the most rows one block holds, on the calibration's 2,048
+    rows of idx and on 1,003 (not a multiple of a block's rows) with
+    negative and large indices; one table row more raises."""
     from cudasbmp_torch.ops import chains_cuda as cc
     from cudasbmp_torch.probes import roofline as rf
 
@@ -595,18 +598,26 @@ def test_chains_match_their_twins(dev):
     for chain, rtol in ((64, 1e-5), (rf.ALU_CHAIN, 2e-3)):
         torch.testing.assert_close(cc.alu_chain_cuda(x, chain),
                                    cc.alu_chain_torch(x, chain), rtol=rtol, atol=0)
+    ragged = torch.rand(7 * 37, 128, generator=torch.Generator().manual_seed(3)).to(dev) + 0.5
+    torch.testing.assert_close(cc.alu_chain_cuda(ragged, 64, program_rows=37),
+                               cc.alu_chain_torch(ragged, 64, program_rows=37),
+                               rtol=1e-5, atol=0)
     for op, chain in (("cos", rf.TRANS_CHAIN), ("sin", rf.TRANS_CHAIN), ("tan", 2)):
         torch.testing.assert_close(cc.trans_chain_cuda(x, chain, op),
                                    cc.trans_chain_torch(x, chain, op), rtol=1e-5, atol=0)
-    limit = 16 * rc.max_kernel_obstacles(dev.index or 0) // (4 * 32)
-    for rows in (*rf.GATHER_ROWS, limit):
+    limit = cc.gather_max_rows(rc.smem_optin(dev.index or 0))
+    sizes = (1, 3, *rf.GATHER_ROWS, limit)
+    for rows in sizes:
         _, tbl, idx = rf.chain_inputs(dev, rows)
         idx[0, :8] = -rows - 3  # the floor modulo of negative indices
-        assert _bitwise(cc.gather_chain_cuda(tbl, idx, rf.GATHER_CHAIN),
-                        cc.gather_chain_torch(tbl, idx, rf.GATHER_CHAIN))
-    assert [w.launches for w in cc.WRAPPERS] == [2, 3, 4]
+        idx[0, 8:16] = -2 ** 31
+        idx[0, 16:24] = 2 ** 31 - 1 - rf.GATHER_CHAIN  # large: idx + i stays an int32
+        for i in (idx, idx[:1003].contiguous()):
+            assert _bitwise(cc.gather_chain_cuda(tbl, i, rf.GATHER_CHAIN),
+                            cc.gather_chain_torch(tbl, i, rf.GATHER_CHAIN))
+    assert [w.launches for w in cc.WRAPPERS] == [3, 3, 2 * len(sizes)]
     _, tbl, idx = rf.chain_inputs(dev, 8)
-    with pytest.raises(RuntimeError, match="cudaError"):
+    with pytest.raises(ValueError, match="rows"):
         cc.gather_chain_cuda(torch.zeros(limit + 1, 128, device=dev), idx, 4)
 
 

@@ -2,7 +2,7 @@
 
     python3 time_kernels.py [--root CHECKOUT] [--reps 5] [--no-groups]
                             [--group-lanes 4096,32768] [--group-splits 1,4]
-                            [--only b5,p1b] [--sass]
+                            [--only b5,p1a,p1b,p2] [--sass] [--clocks]
 
 Imports cudasbmp_torch from CHECKOUT (default: the directory of this
 script), builds its kernels, and times, on the demo's obstacles (K=8):
@@ -30,31 +30,51 @@ cull_table) with cull off and at each W in {1, 2, 4, 5} (``b5_W<W>``), at
 40 steps and W = 1 (``b5_n40_W1``, a window past the kernel's cap of
 steps), on the probe's random starts at W = 1 and 4 (``b5_random_W<W>``,
 lanes far apart: little to cull) and at its one-warp floor (the first 32 of those starts, W = 4,
-``floor_b5_32``); and P1b, the accurate trig chains, for cos, sin and tan
-at the calibration shape (f32 [2048, 128], 2,048 links,
-probes/roofline.py::calibrate, ``p1b_<op>``). ``--only`` keeps the rows
-whose names start with one of its prefixes. Each is timed ``--reps`` times by its device time under
+``floor_b5_32``); and the calibration chains at the calibration shape
+(f32 [2048, 128], probes/roofline.py::calibrate): P1a, the FMA chain, at
+16,384 links (``p1a``), P1b, the accurate trig chains, for cos, sin and
+tan at 2,048 links (``p1b_<op>``), and P2, the shared-memory gathers, at
+512 links from tables of 8, 128 and 1,024 rows (``p2_<rows>``). ``--only``
+keeps the rows whose names start with one of its prefixes. Each is timed ``--reps`` times by its device time under
 torch.profiler (with the regular profiler windows each reading took,
 probes/timing.py) and by CUDA events (which measure the host's launch rate
 where it is slower than the card), 20 launches a measurement, as
 chip_smoke.py times them. Prints one JSON line with the card's name and
 power limit, the checkout, the G each default launch took (``splits``,
-where the checkout counts them), every time in ms, and ``flagged``: the
-rows with a reading of fewer than 3 regular windows.
+where the checkout counts them), every time in ms, ``flagged``: the
+rows with a reading of fewer than 3 regular windows, and, for the chains
+kept, ``digests``: the sha256 (first 16 hex digits) of P1a's output at 64
+and 16,384 links and of P2's at each table size, and of both at a ragged
+size (chip_smoke.py::ragged_chain_inputs), so two checkouts can be shown
+to give the same bits.
+
+``--clocks`` also runs each row kept back to back for 2 s while
+nvidia-smi reads the SM clock and the power draw every 0.1-0.2 s, and adds
+their median, least and most (``clocks``: the clock the card holds under
+that load).
 
 ``--sass`` also dumps, with the toolkit's cuobjdump, the SASS of both B6
 kernels for the exact bicycle without footprint (the instantiation the
 sweeps run), of B2's culled form for it (B5 as the cull table runs it) and
-of the three P1b kernels (csrc/chains.cu) to chiprun_out/sass_<checkout>.txt,
+of P1a, the three P1b kernels and P2 (csrc/chains.cu) to
+chiprun_out/sass_<checkout>.txt,
 and adds to the JSON line each loop of those kernels (a backward branch and
 its target): its instruction count and its opcodes, the counts that
 PERF.md attributes to the parts of a step or a link, and its fast path
 (``fast_path``: the branches over the math library's Payne-Hanek paths
 taken); each kernel's registers, stack and shared memory (cuobjdump
 -res-usage) with the blocks of its launch one SM can hold
-(``occupancy``); and P1b's issue limit (``p1b_issue``: its fast path's
-instructions and conversions a link, at 4 warp-instructions and 16
-conversions a clock per SM at the card's top SM clock).
+(``occupancy``); and the chains' issue limits at the card's top SM clock
+and, with ``--clocks``, at the clock it held: P1b's (``p1b_issue``: its
+fast path's instructions and conversions a link, at 4 warp-instructions
+and 16 conversions a clock per SM), P1a's (``p1a_issue``: its unrolled
+loop's instructions an FFMA at 4 warp-instructions a clock per SM, with
+the FFMAs' source registers, how many read two registers of one bank
+from the register file, ``bank_conflicts``, under the model of two banks
+by the register number's parity, and how many take a source from the
+operand reuse cache, ``reused``) and P2's (``p2_issue``: the larger of its
+loop's instructions a shared-memory load at 4 warp-instructions a clock
+per SM and its 4-byte loads at 128 bytes a clock per SM).
 
 To compare two checkouts, time both on the same card one after the other,
 in the order parent, change, change, parent.
@@ -63,13 +83,17 @@ in the order parent, change, change, parent.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
+import threading
+import time
 from collections import Counter
 
 
@@ -78,13 +102,14 @@ def _ints(text: str | None) -> tuple[int, ...]:
 
 
 # the B6 instantiations the sweeps run, B5 as the cull table runs it
-# (demangled names of csrc/rollout.cu) and P1b (csrc/chains.cu), with each
-# kernel's threads a block
+# (demangled names of csrc/rollout.cu) and P1a, P1b and P2 (csrc/chains.cu),
+# with each kernel's threads a block (P2's: the checkout's, main() sets it)
 SASS_KERNELS = {
     **{f"{k}<(anonymous namespace)::Bicycle, false, false, false>": 128
        for k in ("rollout_kernel", "sample_and_rollout_kernel")},
     "sample_and_rollout_kernel<(anonymous namespace)::Bicycle, false, false, true>": 128,
-    **{f"trans_chain_kernel<{op}>": 256 for op in range(3)}}
+    **{f"trans_chain_kernel<{op}>": 256 for op in range(3)},
+    "alu_chain_kernel": 256, "gather_chain_kernel": 256}
 # an H100's SM: threads, registers, blocks and shared memory (each block
 # also takes 1 KB of it for the system) it holds at once
 SM_THREADS, SM_REGISTERS, SM_BLOCKS, SM_SMEM = 2048, 65536, 32, 228 * 1024
@@ -118,7 +143,8 @@ def resource_usage(cuobjdump: pathlib.Path, library: pathlib.Path) -> dict:
 
 def _short(name: str) -> str:
     short = name.removeprefix("void ").removeprefix("(anonymous namespace)::")
-    return short[:short.find(">(") + 1]
+    cut = short.find(">(")
+    return short[:cut + 1] if cut >= 0 else short[:short.find("(")]
 _INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
@@ -145,6 +171,12 @@ def fast_path(ins: list, lo: int, hi: int) -> tuple[list[str], int]:
     return kept, len(skipped)
 
 
+def _issue_ms(elems: int, links: int, per_link: float, sm_count: int,
+              clock_hz: float) -> float:
+    """elems x links x per_link warp-instructions over 4 a clock per SM."""
+    return 1e3 * elems * links * per_link / (sm_count * 4 * 32 * clock_hz)
+
+
 def p1b_issue(sass: dict, elems: int, links: int, sm_count: int, clock_hz: float
               ) -> dict:
     """P1b's issue limit from its SASS: the fast path of its chain loop (the
@@ -163,8 +195,89 @@ def p1b_issue(sass: dict, elems: int, links: int, sm_count: int, clock_hz: float
         conv = sum(fp["opcodes"].get(k, 0) for k in ("F2I", "I2F", "I2FP")) / fp["local_paths"]
         out[("cos", "sin", "tan")[op]] = {
             "instructions_per_link": per_link, "conversions_per_link": conv,
-            "issue_ms": 1e3 * elems * links * per_link / (sm_count * 4 * 32 * clock_hz),
+            "issue_ms": _issue_ms(elems, links, per_link, sm_count, clock_hz),
             "conversion_ms": 1e3 * elems * links * conv / (sm_count * 16 * clock_hz)}
+    return out
+
+
+def _main_loops(sass: dict, kernel: str, opcode: str) -> list[dict]:
+    """The innermost loops of ``kernel`` (each holding no other loop with
+    ``opcode``) with the most ``opcode`` instructions: one, or one for each
+    path the kernel may take."""
+    loops = [l for l in sass.get(kernel, {}).get("loops", []) if opcode in l["opcodes"]]
+
+    def holds(a: dict, b: dict) -> bool:
+        return a is not b and int(a["from"], 16) <= int(b["from"], 16) \
+            and int(b["to"], 16) <= int(a["to"], 16)
+
+    inner = [a for a in loops if not any(holds(a, b) for b in loops)]
+    most = max((l["opcodes"][opcode] for l in inner), default=0)
+    return [l for l in inner if l["opcodes"][opcode] == most]
+
+
+def p1a_issue(sass: dict, elems: int, links: int, sm_count: int, clock_hz: float
+              ) -> dict:
+    """P1a's issue limit from its SASS: its unrolled loop's instructions an
+    FFMA (a link of one element), elems x links of them at 4
+    warp-instructions a clock per SM at ``clock_hz``; with the loop's FFMA
+    source registers, ``bank_conflicts`` and ``reused``, for each such
+    loop (P1a has one where a thread's elements share m and one where they
+    do not)."""
+    loops = _main_loops(sass, "alu_chain_kernel", "FFMA")
+    if not loops:
+        return {}
+    per_link = min(l["instructions"] for l in loops) / loops[0]["opcodes"]["FFMA"]
+    return {"ffma_a_step": loops[0]["opcodes"]["FFMA"], "instructions_per_link": per_link,
+            "issue_ms": _issue_ms(elems, links, per_link, sm_count, clock_hz),
+            "loops": [{"from": l["from"], "instructions": l["instructions"],
+                       "bank_conflicts": l["bank_conflicts"], "reused": l["reused"],
+                       "ffma_sources": l["ffma_sources"][:8]} for l in loops]}
+
+
+def p2_issue(sass: dict, elems: int, links: int, sm_count: int, clock_hz: float
+             ) -> dict:
+    """P2's issue limit from its SASS: the larger of its chain loop's
+    instructions a shared-memory load (a link) at 4 warp-instructions a
+    clock per SM and the links' 4-byte loads at 128 bytes (one warp-wide
+    load) a clock per SM, at ``clock_hz``."""
+    loops = _main_loops(sass, "gather_chain_kernel", "LDS")
+    if not loops:
+        return {}
+    loop = min(loops, key=lambda l: l["instructions"])
+    per_link = loop["instructions"] / loop["opcodes"]["LDS"]
+    out = {"lds_a_step": loop["opcodes"]["LDS"], "instructions_per_link": per_link,
+           "instruction_ms": _issue_ms(elems, links, per_link, sm_count, clock_hz),
+           "load_ms": 1e3 * elems * links * 4 / (sm_count * 128 * clock_hz)}
+    out["issue_ms"] = max(out["instruction_ms"], out["load_ms"])
+    out["bound_by"] = "loads" if out["load_ms"] >= out["instruction_ms"] else "instructions"
+    return out
+
+
+_REGISTER = re.compile(r"^-?\|?R(\d+)")
+
+
+def ffma_reads(ins: list) -> dict:
+    """Of the FFMAs in ``ins`` (address, predicate, opcode, operands, in
+    order): how many read two registers of one bank from the register file
+    (``bank_conflicts``, under the model of two banks by the register
+    number's parity; a source the previous instruction marked ``.reuse``
+    in the same slot comes from the reuse cache instead), how many take a
+    source from the reuse cache (``reused``), and each FFMA's sources."""
+    out, prev = {"bank_conflicts": 0, "reused": 0, "ffma_sources": []}, []
+    for _, _, op, args in ins:
+        ops = [a.strip() for a in args.split(",")][1:]
+        if op.split(".")[0] == "FFMA":
+            out["ffma_sources"].append(", ".join(ops))
+            read, cached = set(), False
+            for slot, o in enumerate(ops):
+                m = _REGISTER.match(o)
+                if m and slot < len(prev) and prev[slot] == f"R{m[1]}.reuse":
+                    cached = True
+                elif m:
+                    read.add(int(m[1]))
+            out["bank_conflicts"] += len({r % 2 for r in read}) < len(read)
+            out["reused"] += cached
+        prev = ops
     return out
 
 
@@ -196,11 +309,13 @@ def sass_loops(library: pathlib.Path, dump: pathlib.Path, smem: dict) -> dict:
             if m and int(m[1], 16) <= addr:
                 lo = int(m[1], 16)
                 body_ops = [o.split(".")[0] for a, _, o, _ in ins if lo <= a <= addr]
-                kept, paths = fast_path(ins, lo, addr)
+                fast, paths = fast_path(ins, lo, addr)
                 loops.append({"from": hex(lo), "to": hex(addr), "instructions": len(body_ops),
                               "opcodes": dict(Counter(body_ops).most_common()),
-                              "fast_path": {"instructions": len(kept), "local_paths": paths,
-                                            "opcodes": dict(Counter(kept).most_common())}})
+                              "fast_path": {"instructions": len(fast), "local_paths": paths,
+                                            "opcodes": dict(Counter(fast).most_common())}})
+                if short == "alu_chain_kernel":
+                    loops[-1].update(ffma_reads([i for i in ins if lo <= i[0] <= addr]))
         res = usage.get(short, {})
         out[short] = {"instructions": len(ins), "resources": res,
                       "occupancy": occupancy(res.get("REG", 0), SASS_KERNELS[short],
@@ -209,6 +324,47 @@ def sass_loops(library: pathlib.Path, dump: pathlib.Path, smem: dict) -> dict:
     dump.parent.mkdir(exist_ok=True)
     dump.write_text("\n".join(kept))
     return out
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def hold_clocks(fn, seconds: float = 2.0) -> dict:
+    """Run ``fn`` back to back (100 launches, then a synchronize) for
+    ``seconds`` while nvidia-smi reads the SM clock and the power draw as
+    often as it can: the median, least and most of the readings taken
+    wholly inside the run, after its first 0.2 s, and their count."""
+    import torch
+
+    readings, stop = [], threading.Event()
+
+    def read() -> None:
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                  "--format=csv,noheader,nounits"], capture_output=True,
+                                 text=True, timeout=60).stdout.split(",")
+            readings.append((t0, time.perf_counter(), *map(float, out[:2])))
+
+    fn()
+    torch.cuda.synchronize()
+    reader = threading.Thread(target=read)
+    reader.start()
+    start = time.perf_counter()
+    while time.perf_counter() - start < seconds:
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+    end = time.perf_counter()
+    stop.set()
+    reader.join()
+    kept = [r for r in readings if r[0] >= start + 0.2 and r[1] <= end]
+    return {"readings": len(kept), **{
+        name: {"median": statistics.median(v), "min": min(v), "max": max(v)}
+        for name, v in (("sm_mhz", [r[2] for r in kept]), ("power_w", [r[3] for r in kept]))
+        if v}}
 
 
 def main() -> int:
@@ -225,8 +381,10 @@ def main() -> int:
     ap.add_argument("--only", help="time only the rows whose names start with one "
                     "of these comma-separated prefixes")
     ap.add_argument("--sass", action="store_true",
-                    help="dump the SASS of B6, B5 and P1b and count the instructions "
-                    "of their loops")
+                    help="dump the SASS of B6, B5, P1a, P1b and P2 and count the "
+                    "instructions of their loops")
+    ap.add_argument("--clocks", action="store_true",
+                    help="read the SM clock and power draw while each row runs 2 s")
     args = ap.parse_args()
     import torch
 
@@ -248,8 +406,8 @@ def main() -> int:
     # checkout by its path; cudasbmp_torch stays the one imported from root
     here = pathlib.Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
-    from chip_smoke import (EXTENSION_BUCKETS, SPLIT_WIDTHS, SWEEP_SHAPE, demo_batch,
-                            problem_batch)
+    from chip_smoke import (EXTENSION_BUCKETS, RAGGED_PROGRAM_ROWS, SPLIT_WIDTHS,
+                            SWEEP_SHAPE, demo_batch, problem_batch, ragged_chain_inputs)
 
     spec = importlib.util.spec_from_file_location(
         "_timing", here / "cudasbmp_torch" / "probes" / "timing.py")
@@ -323,6 +481,11 @@ def main() -> int:
     cx = rf.chain_inputs(dev)
     for op in ("cos", "sin", "tan"):
         runs[f"p1b_{op}_ms"] = lambda op=op: cc.trans_chain_cuda(cx, rf.TRANS_CHAIN, op)
+    runs["p1a_ms"] = lambda: cc.alu_chain_cuda(cx, rf.ALU_CHAIN)
+    gathers = {rows: rf.chain_inputs(dev, rows)[1:] for rows in rf.GATHER_ROWS}
+    for rows, (tbl, idx) in gathers.items():
+        runs[f"p2_{rows}_ms"] = lambda tbl=tbl, idx=idx: cc.gather_chain_cuda(
+            tbl, idx, rf.GATHER_CHAIN)
     only = tuple(args.only.split(",")) if args.only else ()
     splits = {}
     if groups:
@@ -355,7 +518,20 @@ def main() -> int:
                        "launch_ms": [time_ms(fn) for _ in range(args.reps)]}
     flagged = [name for name, t in times.items() if min(t["regular"]) < 3]
     result = {"card": smi, "root": str(root), "splits": splits, "times": times,
-              "flagged": flagged}
+              "flagged": flagged, "digests": {}}
+    digests = result["digests"]
+    if "p1a_ms" in runs:
+        for links in (64, rf.ALU_CHAIN):
+            digests[f"p1a_{links}"] = digest(cc.alu_chain_cuda(cx, links))
+        digests["p1a_ragged"] = digest(cc.alu_chain_cuda(
+            ragged_chain_inputs(dev), 64, program_rows=RAGGED_PROGRAM_ROWS))
+    for rows, (tbl, idx) in gathers.items():
+        if f"p2_{rows}_ms" in runs:
+            digests[f"p2_{rows}"] = digest(cc.gather_chain_cuda(tbl, idx, rf.GATHER_CHAIN))
+            digests[f"p2_{rows}_ragged"] = digest(cc.gather_chain_cuda(
+                *ragged_chain_inputs(dev, rows), rf.GATHER_CHAIN))
+    if args.clocks:
+        result["clocks"] = {name: hold_clocks(fn) for name, fn in runs.items()}
     if args.sass:
         from cudasbmp_torch.ops import _build
 
@@ -363,15 +539,33 @@ def main() -> int:
         # the checkout keeps one, its window store
         store = rc.cull_state_bytes(False) if hasattr(rc, "cull_state_bytes") else 0
         b5 = [k for k in SASS_KERNELS if k.endswith("true>")]
+        # P2 at 1,024 rows: the checkout's block and slice (a block of 256
+        # threads and the bare slice before they were planned)
+        if hasattr(cc, "gather_geometry"):
+            SASS_KERNELS["gather_chain_kernel"] = cc.gather_geometry(0, 1024)[0]
+            slice_bytes = cc.gather_slice_bytes(1024)
+        else:
+            slice_bytes = 4 * 32 * 1024
         result["sass"] = sass_loops(_build.build()[0],
                                     here / "chiprun_out" / f"sass_{root.name}.txt",
-                                    {k: 16 * 24 + store for k in b5})
-        mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                              "--format=csv,noheader,nounits"], capture_output=True,
-                             text=True, timeout=60, check=True).stdout.split()[0]
-        result["p1b_issue"] = p1b_issue(result["sass"], cx.numel(), rf.TRANS_CHAIN,
-                                        rc.sm_count(0), float(mhz) * 1e6)
-        result["p1b_issue"]["clock_mhz"] = float(mhz)
+                                    {**{k: 16 * 24 + store for k in b5},
+                                     "gather_chain_kernel": slice_bytes})
+        mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                    "--format=csv,noheader,nounits"], capture_output=True,
+                                   text=True, timeout=60, check=True).stdout.split()[0])
+        sms, elems = rc.sm_count(0), cx.numel()
+        result["p1b_issue"] = p1b_issue(result["sass"], elems, rf.TRANS_CHAIN, sms, mhz * 1e6)
+        result["p1b_issue"]["clock_mhz"] = mhz
+        # P1a and P2 at the top clock and, where read, at the clock held
+        for key, fn, links, row in (("p1a_issue", p1a_issue, rf.ALU_CHAIN, "p1a_ms"),
+                                    ("p2_issue", p2_issue, rf.GATHER_CHAIN, "p2_1024_ms")):
+            result[key] = dict(fn(result["sass"], elems, links, sms, mhz * 1e6),
+                               clock_mhz=mhz)
+            held = result.get("clocks", {}).get(row, {}).get("sm_mhz")
+            if held:
+                result[key]["held"] = dict(fn(result["sass"], elems, links, sms,
+                                              held["median"] * 1e6),
+                                           clock_mhz=held["median"])
     print(json.dumps(result))
     return 0
 
