@@ -1,6 +1,6 @@
 """Drive the cudasbmp_torch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # phases 1-26, one GPU, no network
+    python3 chip_smoke.py            # phases 1-29, one GPU, no network
     python3 chip_smoke.py --profile  # also: torch.profiler over a demo solve,
                                      # an arena solve and a streaming sweep
     python3 chip_smoke.py --compare OLD.json NEW.json  # two runs' records:
@@ -123,7 +123,27 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     rounds x 256 candidates) through B6; every shortened path replays valid
     and ends in its goal;
 26. the CLI's defaults as subprocesses on the card: multi, sweep (both
-    --impl vmap) and demo --shortcut.
+    --impl vmap) and demo --shortcut;
+27. R1 (refine_kernel, the refinement penalty's value and gradient)
+    against its plain twin under autograd for every system, with and
+    without masked edges, shared and per-problem boxes, at T of 1 to 1,510
+    points, and on the CLI demo path's and [25]'s pipeline inputs: forward
+    states bitwise, penalty within R1_RTOL, gradient within R1_GRAD_RTOL of
+    its norm; device ms of R1 at both shapes and of the twin at the demo
+    path's, R1 on one path of the pipeline (its serial chain), and the
+    bounds;
+28. refinement: the CLI's demo --refine (KGMTConfig(), RefineConfig()) as a
+    subprocess; refine_path on the CLI demo's path (401 R1 launches, B1 an
+    edge) and refine_batch at RefineConfig() on [25]'s 128 shortened
+    pipeline paths (401 R1 launches, B6 an edge): improved count, cost
+    quantiles before and after, wall; every kept path replays valid and
+    ends in its goal; the wall and device ms and the kernel launches of an
+    Adam step with R1 and with its twin, at both shapes (the twin's
+    launches at the demo path's only);
+29. the recorded solve of the demo (KGMT.plan_recorded, a checkpoint every
+    5 iterations), a checkpoint round trip on the card, a resume from
+    checkpoint_5 equal to plan() to the bit, and the CLI's record as a
+    subprocess.
 
 Then the card's name and power limit, a JSON line of the kernels and,
 last, {"ok": true, "device": {...}}. Each kernel entry has its device
@@ -202,6 +222,12 @@ SHORTCUT_CANDIDATES = 256  # ShortcutConfig().candidates
 # B6's shapes on the new paths: the CLI's multi, bench.py's vmap shape and
 # the quality pipeline's shortcut rounds (problems, lanes)
 MULTI_SHAPES = ((MULTI_B, 4096), (BENCH_VMAP_B, 2048), (QUALITY_B, SHORTCUT_CANDIDATES))
+# R1 against its twin: (edges, steps an edge), T = 1 to 1,510 points; the
+# penalty within R1_RTOL (positive terms summed in another order), the
+# gradient within R1_GRAD_RTOL of its norm (the reverse sweep accumulates in
+# another order than autograd)
+R1_SHAPES = ((1, 1), (1, 10), (6, 10), (151, 10))
+R1_RTOL, R1_GRAD_RTOL = 1e-5, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1653,14 +1679,15 @@ def mc_vmap(dev) -> dict:
             "split": G, "checked_scenario": b}
 
 
-def shortcutting(dev, m: dict) -> dict:
+def shortcutting(dev, m: dict) -> tuple[dict, dict]:
     """Phase 25: shortcut_path (ShortcutConfig()) on phase 5's seed-0 demo
     path through B1, the card's result equal to the plain twin's driven on
     the card; shortcut_batch on phase 22's solved paths through B6; then
     the quality pipeline's shape (tools/r5_quality_pipeline.py:97-118):
     arena B=128, R=1,024, 150 windows, 'cuda_rng', one extension, then 256
     rounds x 256 candidates. Every shortened path replays valid and ends in
-    its goal."""
+    its goal. Returns the record and the pipeline's shortened batch, which
+    phase 28 refines."""
     from cudasbmp_torch import KGMT, KGMTConfig, Scenario
     from cudasbmp_torch import shortcut as sc
     from cudasbmp_torch.ops import rollout_cuda as rc
@@ -1728,7 +1755,8 @@ def shortcutting(dev, m: dict) -> dict:
                                      qcfg, batch, q, wall, dev)
     out["quality"].update(arena_solve_rate=float(res.solved.mean()),
                           arena_wall_time_s=solve_wall)
-    return out
+    return out, {"cfg": qcfg, "paths": batch["paths"], "path_lengths": batch["path_lengths"],
+                 "costs": batch["cost_after"], "goals": goals, "obstacles": obstacles}
 
 
 def shortcut_record(tag: str, system, cfg, batch: dict, before: dict, wall: float,
@@ -1783,6 +1811,365 @@ def run_vmap_cli() -> dict:
             rec["summary"] = summary
         out[tag] = rec
     return out
+
+
+def refine_inputs(name: str, B: int, L: int, num_disc: int, seed: int, dev,
+                  masked: bool, per_problem: bool):
+    """R1's inputs from a numpy generator (tests/test_torch_cuda.py's):
+    starts in the middle of the workspace, controls in the system's box,
+    the last third of each problem's edges masked (duration 0, weight 0)
+    with ``masked``, goals in the workspace, the demo's boxes shared or 8
+    random boxes per problem."""
+    from cudasbmp_torch.config import Scenario
+    from cudasbmp_torch.systems.registry import get_system
+
+    system = get_system(name)
+    r = np.random.default_rng(seed)
+    lo = np.asarray(system.control_spec.lo, np.float32)
+    hi = np.asarray(system.control_spec.hi, np.float32)
+    x0 = np.zeros((B, 4), np.float32)
+    x0[:, :2] = r.uniform(6.0, 14.0, (B, 2))
+    if name in ("bicycle", "unicycle", "dubins"):
+        x0[:, 2] = r.uniform(-np.pi, np.pi, B)
+    elif name == "double_integrator":
+        x0[:, 2] = r.uniform(-1.0, 1.0, B)
+    if name in ("bicycle", "double_integrator"):
+        x0[:, 3] = r.uniform(-1.0, 1.0, B)
+    controls = (lo + (hi - lo) * r.uniform(size=(B, L, 3))).astype(np.float32)
+    controls[..., 2] *= np.float32(0.3)
+    wts = np.ones((B, L), np.float32)
+    if masked:
+        keep = np.maximum(1, L - L // 3 - r.integers(0, 2, B))
+        wts = (np.arange(L)[None] < keep[:, None]).astype(np.float32)
+        controls[..., 2] *= wts
+    goal = r.uniform(2.0, 18.0, (B, 2)).astype(np.float32)
+    if per_problem:
+        c = r.uniform(2.0, 18.0, (B, 8, 2))
+        h = r.uniform(0.3, 2.0, (B, 8, 2))
+        obs = np.concatenate([c - h, c + h], -1).astype(np.float32)
+    else:
+        obs = Scenario.demo().padded_obstacles(8)[0]
+    return system, [torch.tensor(a, device=dev) for a in (x0, controls, wts, goal, obs)]
+
+
+def refine_kw(cfg, rcfg) -> dict:
+    return dict(num_disc=cfg.num_disc, width=cfg.width, height=cfg.height,
+                margin=rcfg.margin, goal_threshold=cfg.goal_threshold,
+                collision_weight=rcfg.collision_weight, goal_weight=rcfg.goal_weight)
+
+
+def r1_against_twin(system, x0, c, w, goal, obs, kw) -> tuple[float, float]:
+    """R1's launch against its twin under autograd on the same inputs: the
+    forward states bitwise, the penalty within rtol R1_RTOL and the gradient
+    within R1_GRAD_RTOL of its norm, per problem. Returns (the loss's
+    largest abs error, the gradient's largest error over its norm)."""
+    from cudasbmp_torch.ops import refine_cuda as rf
+
+    loss, grad, states = rf._launch(system, x0, c, w, goal, obs, **kw)
+    pts = rf.unroll_positions(system, x0, c, kw["num_disc"])
+    check(torch.equal(states[:, 1:, :2].contiguous().view(torch.int32),
+                      pts.contiguous().view(torch.int32)),
+          f"R1 {system.name}: forward states differ from the twin's")
+    cr = c.clone().requires_grad_()
+    twin = rf.refine_penalty_torch(system, x0, cr, w, goal, obs, **kw)
+    (tgrad,) = torch.autograd.grad(twin.sum(), cr)
+    twin = twin.detach()
+    loss_err = (loss - twin).abs()
+    check(bool((loss_err <= R1_RTOL * twin.abs() + 1e-6).all()),
+          f"R1 {system.name}: loss {loss.tolist()} vs twin {twin.tolist()}")
+    rel = ((grad - tgrad).flatten(1).norm(dim=1)
+           / tgrad.flatten(1).norm(dim=1).clamp(min=1e-30))
+    check(bool((rel <= R1_GRAD_RTOL).all()), f"R1 {system.name}: gradient errors {rel.tolist()}")
+    return float(loss_err.max()), float(rel.max())
+
+
+def refine_batch_inputs(system, batch: dict, dev):
+    """R1's inputs for a batch of padded paths (refine_batch's layout):
+    x0, masked controls, weights, goals and the shared boxes."""
+    paths, lengths = batch["paths"], batch["path_lengths"]
+    Lmax = paths.shape[1]
+    mask = np.arange(Lmax - 1)[None, :] < (lengths[:, None] - 1)
+    c = paths[:, 1:, 4:].copy()
+    c[..., 2] *= mask
+    return [torch.tensor(np.ascontiguousarray(a), device=dev) for a in (
+        paths[:, 0, :4], c, mask.astype(np.float32), batch["goals"][:, :2],
+        batch["obstacles"])]
+
+
+def inside_pairs(system, x0, c, obs, margin: float, num_disc: int) -> int:
+    """(point, box) pairs inside a margin-inflated box: the data-dependent
+    part of R1's work (probes/roofline.py::refine_ops)."""
+    from cudasbmp_torch.ops import refine_cuda as rf
+
+    pts = rf.unroll_positions(system, x0, c, num_disc)
+    o = obs if obs.dim() == 3 else obs[None]
+    px, py = pts[..., 0, None], pts[..., 1, None]
+    dx = torch.maximum(o[:, None, :, 0] - margin - px, px - o[:, None, :, 2] - margin)
+    dy = torch.maximum(o[:, None, :, 1] - margin - py, py - o[:, None, :, 3] - margin)
+    return int((torch.maximum(dx, dy) < 0).sum())
+
+
+def check_r1(dev, quality: dict) -> dict:
+    """Phase 27: R1 against its plain twin for every system, with and
+    without masked edges, shared and per-problem boxes, at T of 1 to 1,510
+    points (8 problems each), then on the CLI demo path's and the quality
+    pipeline's inputs. Device ms of R1 at the CLI demo path's shape (B = 1)
+    and at the pipeline's (B = 128), of its twin's value and gradient at
+    the demo path's (the twin's Adam step at the pipeline's shape is phase
+    28's), of R1 at B = 1 on the pipeline's longest path (its serial
+    chain), and the bounds."""
+    from cudasbmp_torch import KGMT, KGMTConfig, Scenario
+    from cudasbmp_torch.ops import refine_cuda as rf
+    from cudasbmp_torch.probes import roofline as rfl
+    from cudasbmp_torch.refine import RefineConfig
+
+    cfg, rcfg = KGMTConfig(), RefineConfig()
+    kw = refine_kw(cfg, rcfg)
+    loss_err = grad_err = 0.0
+    cases = 0
+    for name in SYSTEMS:
+        for L, nd in R1_SHAPES:
+            for masked in (False, True):
+                for per_problem in (False, True):
+                    system, (x0, c, w, goal, obs) = refine_inputs(
+                        name, 8, L, nd, L + 7 * masked, dev, masked, per_problem)
+                    le, ge = r1_against_twin(system, x0, c, w, goal, obs,
+                                             dict(kw, num_disc=nd))
+                    loss_err, grad_err = max(loss_err, le), max(grad_err, ge)
+                    cases += 1
+    planner = KGMT(cfg, device=dev)
+    demo = Scenario.demo()
+    path = planner.plan(demo).path  # the CLI's demo: KGMTConfig().seed
+    L = len(path) - 1
+    one = [torch.tensor(np.ascontiguousarray(a), device=dev) for a in (
+        path[None, 0, :4], path[None, 1:, 4:], np.ones((1, L), np.float32),
+        demo.goal[None, :2], demo.obstacles)]
+    pipe = refine_batch_inputs(planner.system, quality, dev)
+    lengths = quality["path_lengths"]
+    longest = int(np.argmax(lengths))
+    n = int(lengths[longest]) - 1
+    chain = [t[longest:longest + 1, :n].contiguous() for t in pipe[1:3]]
+    chain = [pipe[0][longest:longest + 1], *chain, pipe[3][longest:longest + 1], pipe[4]]
+    for inputs in (one, pipe):
+        le, ge = r1_against_twin(planner.system, *inputs, kw)
+        loss_err, grad_err = max(loss_err, le), max(grad_err, ge)
+    t: dict = {}
+
+    def twin(x0, c, w, goal, obs):
+        cr = c.clone().requires_grad_()
+        return torch.autograd.grad(
+            rf.refine_penalty_torch(planner.system, x0, cr, w, goal, obs, **kw).sum(), cr)
+
+    timed(t, "demo", lambda: rf._launch(planner.system, *one, **kw))
+    timed(t, "demo_plain", lambda: twin(*one), PLAIN_CALLS, plain=True)
+    timed(t, "pipeline", lambda: rf._launch(planner.system, *pipe, **kw))
+    timed(t, "chain", lambda: rf._launch(planner.system, *chain, **kw))
+    B, Lm = pipe[1].shape[:2]
+    edges = int((lengths[lengths >= 2] - 1).sum())
+    demo_bound = rfl.refine_bound_ms(
+        "bicycle", 1, L, L * cfg.num_disc, len(demo.obstacles),
+        inside_pairs(planner.system, one[0], one[1], one[4], rcfg.margin, cfg.num_disc),
+        False)
+    # the pipeline's launch integrates every padded edge too (duration 0)
+    pipe_bound = rfl.refine_bound_ms(
+        "bicycle", B, B * Lm, B * Lm * cfg.num_disc, pipe[4].shape[0],
+        inside_pairs(planner.system, pipe[0], pipe[1], pipe[4], rcfg.margin, cfg.num_disc),
+        False)
+    return {"cases": cases, "shapes": [list(s) for s in R1_SHAPES],
+            "max_abs_err": loss_err, "grad_rel_err": grad_err,
+            "demo_edges": L, "pipeline_problems": int(B), "pipeline_edges": int(Lm),
+            "pipeline_path_edges": edges, "chain_edges": int(lengths[longest] - 1),
+            "demo_bound_ms": demo_bound[0], "demo_bound_by": demo_bound[1],
+            "pipeline_bound_ms": pipe_bound[0], "pipeline_bound_by": pipe_bound[1], **t}
+
+
+def adam_steps(system, cfg, rcfg, inputs, penalty, count: bool = True) -> dict:
+    """An Adam step of refine.py::_refine_core with ``penalty`` (R1's
+    wrapper or its twin) on ``inputs`` (x0, controls, mask, goals, boxes):
+    wall ms a step over a run of 2 steps after one warm-up run, device ms a
+    step (probes/timing.py over one run) and, with ``count``, kernel
+    launches a step (the profiler's runtime-API records of runs of 3 steps
+    less those of 1 step, over 2)."""
+    import dataclasses
+
+    from cudasbmp_torch.probes import timing
+    from cudasbmp_torch.refine import _refine_core
+
+    x0, c0, mask, goal, obs = inputs
+
+    def run(steps: int):
+        few = dataclasses.replace(rcfg, iterations=steps)
+        return lambda: _refine_core(system, cfg, few, x0, goal, obs, c0, mask, penalty)
+
+    run(2)()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(2)()
+    torch.cuda.synchronize()
+    out = {"step_wall_ms": (time.perf_counter() - t0) / 2 * 1e3}
+    d = timing.device_ms(run(2), 1, tries=3, windows=1)
+    out.update(step_device_ms=d.ms / 2 if d.ms is not None else None,
+               step_regular_windows=d.regular)
+    if count:
+        out["step_launches"] = (runtime_launches(run(3), 1)
+                                - runtime_launches(run(1), 1)) / 2
+    return out
+
+
+def refinement(dev, quality: dict) -> tuple[dict, dict]:
+    """Phase 28: the CLI's demo --refine as a subprocess; refine_path on
+    the CLI demo's path (R1, then B1) and refine_batch at RefineConfig()
+    on phase 25's quality-pipeline output (R1, then B6), with the launch
+    counts set to 0 just before and read just after; every kept path
+    replays valid and ends in its goal. Then the walls of Adam steps with
+    R1 and with its twin, at 2 steps. Returns the record and the main
+    path's launch counts."""
+    from cudasbmp_torch import KGMT, KGMTConfig, Scenario
+    from cudasbmp_torch import refine as tr
+    from cudasbmp_torch.ops import refine_cuda as rf
+    from cudasbmp_torch.ops import rollout_cuda as rc
+
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "cudasbmp_torch.cli", "demo", "--refine"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(p.returncode == 0, f"cli demo --refine: exit {p.returncode}\n"
+          f"{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+    line = p.stdout.splitlines()[3]
+    check(re.fullmatch(r"refine: cost \d+\.\d{3} -> \d+\.\d{3} \((kept|rejected — "
+                       r"original retained); hard-revalidation (ok|FAILED)\)", line)
+          is not None, f"cli demo --refine: {line!r}")
+    out = {"cli": {"line": line, "wall_s": time.perf_counter() - t0}}
+
+    cfg, rcfg, demo = KGMTConfig(), tr.RefineConfig(), Scenario.demo()
+    planner = KGMT(cfg, device=dev)
+    path = planner.plan(demo).path
+    system = planner.system
+    qcfg = quality["cfg"]
+    lengths = quality["path_lengths"]
+    solved = lengths >= 2
+    tr.refine_batch(system, qcfg, quality["paths"], lengths, quality["goals"],
+                    quality["obstacles"], tr.RefineConfig(iterations=2), device=dev)  # warm-up
+    rc.reset_launch_counts()
+    rf.refine_penalty_cuda.launches = 0
+    t0 = time.perf_counter()
+    one = tr.refine_path(system, cfg, path, demo.goal, demo.obstacles, device=dev)
+    path_wall = time.perf_counter() - t0
+    path_counts = (rf.refine_penalty_cuda.launches, rc.rollout_cuda.launches,
+                   rc.rollout_batched_cuda.launches)
+    t0 = time.perf_counter()
+    ref = tr.refine_batch(system, qcfg, quality["paths"], lengths, quality["goals"],
+                          quality["obstacles"], device=dev)
+    batch_wall = time.perf_counter() - t0
+    r1 = rf.refine_penalty_cuda.launches
+    b1, b6 = rc.rollout_cuda.launches, rc.rollout_batched_cuda.launches
+    Lmax = quality["paths"].shape[1]
+    check(path_counts == (rcfg.iterations + 1, len(path) - 1, 0),
+          f"refine_path: R1, B1, B6 launches {path_counts}")
+    check(r1 == 2 * (rcfg.iterations + 1) and b1 == len(path) - 1 and b6 == Lmax - 1,
+          f"refine_batch: R1 {r1 - path_counts[0]}, B6 {b6} launches for {Lmax - 1} edges")
+    check(bool(np.isfinite(ref["losses"]).all()) and np.isfinite(one["losses"]).all(),
+          "refinement: non-finite losses")
+    imp = ref["improved"]
+    check(not (imp & ~solved).any() and bool((ref["cost_after"][imp]
+                                              < ref["cost_before"][imp]).all()),
+          "refine_batch: improved rows")
+    # every kept path replays valid and ends in its goal: the exact
+    # checker's (B6's) states beside the refined controls, replayed by the
+    # plain exact rollout
+    x0s = torch.tensor(quality["paths"][:, 0, :4], device=dev)
+    masks = torch.tensor(np.arange(Lmax - 1)[None, :] < (lengths[:, None] - 1), device=dev)
+    states, _, _ = tr._revalidate(
+        system, qcfg, x0s, torch.tensor(quality["goals"][:, :2], device=dev),
+        torch.tensor(np.broadcast_to(quality["obstacles"], (len(lengths),)
+                                     + quality["obstacles"].shape).copy(), device=dev),
+        torch.tensor(ref["controls"], device=dev), masks)
+    kept = np.concatenate([np.concatenate([quality["paths"][:, :1, :4],
+                                           states.cpu().numpy()], 1),
+                           np.concatenate([quality["paths"][:, :1, 4:], ref["controls"]], 1)],
+                          -1)
+    worst = check_paths("refine_batch, kept paths", system, qcfg, kept,
+                        np.where(imp, lengths, 0), ref["cost_after"], quality["goals"],
+                        quality["obstacles"])
+    final = np.where(imp, ref["cost_after"], ref["cost_before"])
+    out["path"] = {"edges": len(path) - 1, "cost_before": one["cost_before"],
+                   "cost_after": one["cost_after"], "valid": one["valid"],
+                   "r1_launches": path_counts[0], "b1_launches": path_counts[1],
+                   "wall_time_s": path_wall}
+    out["batch"] = {"paths": int(solved.sum()), "edges_max": int(Lmax - 1),
+                    "improved": int(imp.sum()), "valid": int(ref["valid"].sum()),
+                    "cost_before_p10_p50_p90": quantiles(ref["cost_before"][solved]),
+                    "cost_after_p10_p50_p90": quantiles(final[solved]),
+                    "r1_launches": r1 - path_counts[0], "b6_launches": b6,
+                    "wall_time_s": batch_wall, "replay_max_err": worst}
+    inputs = refine_batch_inputs(system, quality, dev)
+    shapes = {
+        "demo": [torch.tensor(path[None, 0, :4], device=dev),
+                 torch.tensor(path[None, 1:, 4:], device=dev),
+                 torch.ones((1, len(path) - 1), dtype=torch.bool, device=dev),
+                 torch.tensor(demo.goal[None, :2], device=dev),
+                 torch.tensor(demo.obstacles, device=dev)],
+        "pipeline": [inputs[0], torch.tensor(quality["paths"][:, 1:, 4:], device=dev),
+                     masks, inputs[3], inputs[4]]}
+    # the twin's step at the pipeline's shape is some 60,000 launches: its
+    # count is left out
+    out["adam_steps"] = {
+        tag: {"r1": adam_steps(system, cfg if tag == "demo" else qcfg, rcfg, x,
+                               rf.refine_penalty_cuda),
+              "twin": adam_steps(system, cfg if tag == "demo" else qcfg, rcfg, x,
+                                 rf.refine_penalty_torch, count=tag == "demo")}
+        for tag, x in shapes.items()}
+    return out, {"r1": r1, "b1": b1, "b6": b6}
+
+
+def checkpoint_record(dev, out_dir: pathlib.Path) -> dict:
+    """Phase 29: the recorded solve of the demo (KGMTConfig()), a checkpoint
+    of it saved and loaded on the card bit for bit, a resume from its
+    checkpoint_5 equal to plan() on the demo (solved, iterations, tree size,
+    cost, path bits), and the CLI's record as a subprocess."""
+    import shutil
+
+    from cudasbmp_torch import KGMT, KGMTConfig, Scenario
+    from cudasbmp_torch.convert import state_to_numpy
+    from cudasbmp_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg, demo = KGMTConfig(), Scenario.demo()
+    planner = KGMT(cfg, device=dev)
+    rec_dir = out_dir / "record"
+    shutil.rmtree(rec_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    recorded = planner.plan_recorded(demo, rec_dir / "lib", dump_every=1000,
+                                     checkpoint_every=5)
+    record_wall = time.perf_counter() - t0
+    want = planner.plan(demo)
+    state = load_checkpoint(rec_dir / "lib" / "checkpoint_5.npz", device=dev)
+    save_checkpoint(state, rec_dir / "again.npz")
+    again = load_checkpoint(rec_dir / "again.npz", device=dev)
+    a, b = state_to_numpy(state), state_to_numpy(again)
+    check(all(np.array_equal(a[k], b[k]) for k in a), "checkpoint: round trip differs")
+    got = planner.resume(state, demo)
+
+    def fields(r):
+        return [r.solved, r.iterations, r.tree_size, r.cost,
+                r.path.view(np.uint32).tolist()]
+
+    check(fields(got) == fields(want) == fields(recorded),
+          f"resume from checkpoint_5 {fields(got)[:4]} / recorded {fields(recorded)[:4]} "
+          f"!= plan() {fields(want)[:4]}")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "cudasbmp_torch.cli", "record", "--out-dir",
+                        str(rec_dir / "cli"), "--dump-every", "1000",
+                        "--checkpoint-every", "5"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(p.returncode == 0, f"cli record: exit {p.returncode}\n{p.stderr[-2000:]}")
+    summary = json.loads(p.stdout)
+    check([summary["solved"], summary["iterations"], summary["tree_size"]]
+          == fields(want)[:3], f"cli record: {summary}")
+    names = sorted(x.name for x in (rec_dir / "cli").iterdir())
+    shutil.rmtree(rec_dir)
+    return {"solved": want.solved, "iterations": want.iterations,
+            "tree_size": want.tree_size, "cost": want.cost, "path_edges": len(want.path) - 1,
+            "resumed_from": 5, "record_wall_time_s": record_wall,
+            "cli_files": names, "cli_wall_s": time.perf_counter() - t0}
 
 
 def profile_batched(dev, out_dir: pathlib.Path) -> dict:
@@ -1888,15 +2275,15 @@ def profile_solve(cfg, dev, out_dir: pathlib.Path) -> dict:
 SOLVE_PHASES = ("tree_auto", "tree_cuda_rng", "pathless_auto", "forty_boxes",
                 "all_options", "other_systems", "arena_config4", "arena_extension",
                 "monte_carlo", "streaming", "multi_query", "multi_query_bench",
-                "monte_carlo_vmap", "shortcut")
+                "monte_carlo_vmap", "shortcut", "refine", "checkpoint")
 
 
 def compare_records(old: dict, new: dict) -> tuple[int, list[str]]:
-    """The fields of SOLVE_PHASES (phases 5-16 and 22-25: solve rates,
+    """The fields of SOLVE_PHASES (phases 5-16, 22-25, 28 and 29: solve rates,
     costs, iterations, tree sizes, launches, path checks) in two records of
     this script, times left out (names starting ``tts`` or ending ``_s``,
-    ``_ms`` or holding ``per_sec`` or ``wall``): how many were compared,
-    and each that differs."""
+    ``_ms`` or holding ``per_sec``, ``wall`` or ``regular``), and phases
+    only one record has: how many were compared, and each that differs."""
     def leaves(o, path):
         if isinstance(o, dict):
             for k, v in o.items():
@@ -1910,10 +2297,12 @@ def compare_records(old: dict, new: dict) -> tuple[int, list[str]]:
     def timed_field(path: str) -> bool:
         name = path.rsplit("/", 1)[-1].split("[")[0]
         return (name.startswith("tts") or name.endswith(("_s", "_ms"))
-                or "per_sec" in name or "wall" in name)
+                or "per_sec" in name or "wall" in name or "regular" in name)
 
     compared, differ = 0, []
     for phase in SOLVE_PHASES:
+        if phase not in old or phase not in new:  # a phase one record lacks
+            continue
         a, b = dict(leaves(old.get(phase), phase)), dict(leaves(new.get(phase), phase))
         for path in sorted(a.keys() | b.keys()):
             if not timed_field(path):
@@ -1927,8 +2316,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--compare"]:
         old, new = (json.loads(pathlib.Path(f).read_text()) for f in sys.argv[2:4])
         compared, differ = compare_records(old, new)
-        print(f"{compared} solve fields of {len(SOLVE_PHASES)} phases compared, "
-              f"{len(differ)} differ", *differ, sep="\n")
+        one_sided = [p for p in SOLVE_PHASES if (p in old) != (p in new)]
+        print(f"{compared} solve fields of {len(SOLVE_PHASES) - len(one_sided)} phases "
+              f"compared, {len(differ)} differ; in one record only: "
+              f"{one_sided or 'none'}", *differ, sep="\n")
         return 1 if differ else 0
     out_dir = ROOT / "chiprun_out"
     record: dict = {}
@@ -2323,7 +2714,8 @@ def main() -> int:
 
     # 25. shortcutting: B1 on one path, B6 on batches
     t0 = time.perf_counter()
-    short = record["shortcut"] = shortcutting(dev, multi_batch)
+    short, quality = shortcutting(dev, multi_batch)
+    record["shortcut"] = short
     sp = short["path"]
     print(f"[25 shortcut] path: cost {sp['cost_before']:.3f} -> {sp['cost_after']:.3f} "
           f"({sp['edges_before']} -> {sp['edges_after']} edges) in {sp['wall_time_s']:.2f} s, "
@@ -2345,6 +2737,54 @@ def main() -> int:
                     f"rate {v['summary']['solve_rate']:.4f} solves/s "
                     f"{v['summary']['solves_per_sec']:.2f}") + f" ({v['seconds']:.1f} s)"
         for k, v in vcli.items()) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 27. R1 against its twin; its times
+    t0 = time.perf_counter()
+    r1 = record["r1"] = check_r1(dev, quality)
+    print(f"[27 R1] {r1['cases']} cases (5 systems, (edges, steps) in {r1['shapes']}, "
+          f"masked or not, shared or per-problem boxes) and the demo's and pipeline's "
+          f"inputs: states bitwise, loss max abs err {r1['max_abs_err']:.3g} (rtol "
+          f"{R1_RTOL}), gradient err {r1['grad_rel_err']:.3g} of its norm (tol "
+          f"{R1_GRAD_RTOL}) | device ms (CUDA-event ms): demo path B=1 x {r1['demo_edges']} "
+          f"edges R1 {r1['demo_ms']:.4f} ({r1['demo_launch_ms']:.4f}) twin "
+          f"{r1['demo_plain_ms']:.3f} ({r1['demo_plain_launch_ms']:.3f}) bound "
+          f"{r1['demo_bound_ms']:.3g}; pipeline B={r1['pipeline_problems']} x "
+          f"{r1['pipeline_edges']} edges R1 {r1['pipeline_ms']:.4f} "
+          f"({r1['pipeline_launch_ms']:.4f}) bound {r1['pipeline_bound_ms']:.3g}; "
+          f"one path of {r1['chain_edges']} edges (the serial chain) {r1['chain_ms']:.4f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 28. refinement: demo --refine, refine_path and refine_batch through R1
+    t0 = time.perf_counter()
+    refine, refine_counts = refinement(dev, quality)
+    record["refine"] = refine
+    rb, steps = refine["batch"], refine["adam_steps"]
+    print(f"[28 refine] cli: {refine['cli']['line']} ({refine['cli']['wall_s']:.1f} s) | "
+          f"refine_path: {refine['path']['edges']} edges, cost "
+          f"{refine['path']['cost_before']:.3f} -> {refine['path']['cost_after']:.3f} valid "
+          f"{refine['path']['valid']} in {refine['path']['wall_time_s']:.2f} s, R1 "
+          f"{refine['path']['r1_launches']} B1 {refine['path']['b1_launches']} | "
+          f"refine_batch on [25]'s {rb['paths']} paths: improved {rb['improved']} valid "
+          f"{rb['valid']}, cost p10/p50/p90 "
+          f"{'/'.join(f'{q:.3f}' for q in rb['cost_before_p10_p50_p90'])} -> "
+          f"{'/'.join(f'{q:.3f}' for q in rb['cost_after_p10_p50_p90'])} in "
+          f"{rb['wall_time_s']:.2f} s, R1 {rb['r1_launches']} B6 {rb['b6_launches']} | "
+          f"an Adam step, wall ms (device ms, launches): " + "; ".join(
+              f"{tag} R1 {v['r1']['step_wall_ms']:.3f} "
+              f"({v['r1']['step_device_ms']}, {v['r1']['step_launches']}) twin "
+              f"{v['twin']['step_wall_ms']:.1f} ({v['twin']['step_device_ms']}, "
+              f"{v['twin'].get('step_launches', 'not counted')})"
+              for tag, v in steps.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 29. checkpoint, resume and the recorded solve
+    t0 = time.perf_counter()
+    ck = record["checkpoint"] = checkpoint_record(dev, out_dir)
+    print(f"[29 checkpoint] plan_recorded of the demo ({ck['record_wall_time_s']:.2f} s), "
+          f"checkpoint_5 round trip bitwise, resumed to iterations {ck['iterations']} tree "
+          f"size {ck['tree_size']} cost {ck['cost']:.4f}: plan()'s to the bit; cli record "
+          f"wrote {len(ck['cli_files'])} entries ({ck['cli_wall_s']:.1f} s) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     if "--profile" in sys.argv[1:]:
         out_dir.mkdir(exist_ok=True)
@@ -2516,6 +2956,22 @@ def main() -> int:
          "plain_ms": pm["gather1024_ms"],
          "plain_launch_ms": pm["gather1024_launch_ms"],
          **regular(creg["gather1024"], pm["gather1024_regular"]), **chain_row(cb["gather"])},
+        {"name": "refine_kernel (R1)", "route": "cuda",
+         "source": "cudasbmp_torch/csrc/refine.cu",
+         "replaces": "no TPU kernel (XLA's jitted value_and_grad, "
+                     "cudasbmp_tpu/refine.py:122)",
+         "systems": list(SYSTEMS), "launches": refine_counts["r1"],
+         "launches_per_refinement": refine["path"]["r1_launches"],
+         "max_abs_err": r1["max_abs_err"], "grad_rel_err": r1["grad_rel_err"],
+         "timed": f"the CLI demo's path, 1 x {r1['demo_edges']} edges",
+         "ms": r1["demo_ms"], "plain_ms": r1["demo_plain_ms"],
+         "launch_ms": r1["demo_launch_ms"], "plain_launch_ms": r1["demo_plain_launch_ms"],
+         **regular(r1["demo_regular"], r1["demo_plain_regular"]),
+         "bound_ms": r1["demo_bound_ms"], "bound_by": r1["demo_bound_by"],
+         "library_ms": None,
+         "ms_pipeline": r1["pipeline_ms"], "bound_ms_pipeline": r1["pipeline_bound_ms"],
+         "chain_ms": r1["chain_ms"], "chain_edges": r1["chain_edges"],
+         "adam_step": steps},
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")

@@ -1,7 +1,10 @@
 """Command-line entry point of the port (counterpart of cudasbmp_tpu/cli.py):
 
-    python -m cudasbmp_torch.cli demo [--device cuda|cpu] [--shortcut] [config flags]
+    python -m cudasbmp_torch.cli demo [--device cuda|cpu] [--shortcut] [--refine]
+                                      [config flags]
     python -m cudasbmp_torch.cli plan --configurations DIR [--device ...] [...]
+    python -m cudasbmp_torch.cli record --out-dir DIR [--dump-every N]
+                                        [--checkpoint-every N] [...]
     python -m cudasbmp_torch.cli multi [--impl vmap|arena] [--batch B] [...]
     python -m cudasbmp_torch.cli sweep [--impl vmap|arena|stream] [--scenarios N] [...]
     python -m cudasbmp_torch.cli probe [--planner naive|costprop] [--width W]
@@ -15,8 +18,16 @@ lines (``Goal: ...``, ``time inside KGMT is ...``, ``Iteration ..., Tree
 size ...``), then a JSON summary; ``--verbose`` adds the per-iteration
 table, ``--out-dir`` the 13 artifact CSVs, ``--shortcut`` the shortcut
 line of the solved path (``shortcut: cost A -> B (N -> M edges)``,
-shortcut.py::shortcut_path). Exit code 0 when solved, 1 when not, 2 on a
-usage error.
+shortcut.py::shortcut_path) and ``--refine`` the refinement line (``refine:
+cost A -> B (kept|rejected — original retained; hard-revalidation
+ok|FAILED)``, refine.py::refine_path, whose Adam steps run on kernel R1 on
+the card). Exit code 0 when solved, 1 when not, 2 on a usage error.
+
+``record`` solves the demo one iteration at a time (KGMT.plan_recorded),
+dumping the per-iteration CSVs under ``--out-dir`` every ``--dump-every``
+iterations and a checkpoint every ``--checkpoint-every``
+(io/checkpoint.py; ``KGMT.resume`` continues one), then prints the JSON
+summary; exit 0 when solved, 1 when not.
 
 ``multi`` plans ``--batch`` copies of the demo with the goal jittered per
 problem: by default (``--impl vmap``) each with the whole single-query
@@ -37,8 +48,8 @@ through the hand-written CUDA kernels; without a CUDA device the CLI stops
 with an error instead of moving to the CPU. ``--device cpu`` runs the plain
 PyTorch versions.
 
-Not yet ported (exit 2): ``--refine``, ``--plot`` and the subcommands
-``viz``, ``record``, ``profile`` and ``sharded``.
+Not yet ported (exit 2): ``--plot`` and the subcommands ``viz``,
+``profile`` and ``sharded``.
 """
 
 from __future__ import annotations
@@ -48,8 +59,8 @@ import dataclasses
 import json
 import sys
 
-NOT_PORTED_COMMANDS = ("viz", "record", "profile", "sharded")
-NOT_PORTED_FLAGS = ("refine", "plot")
+NOT_PORTED_COMMANDS = ("viz", "profile", "sharded")
+NOT_PORTED_FLAGS = ("plot",)
 
 
 def _add_config_args(p: argparse.ArgumentParser) -> None:
@@ -120,6 +131,9 @@ def _add_plan_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--shortcut", action="store_true",
                    help="post-process the solution with kinodynamic "
                    "shortcutting")
+    p.add_argument("--refine", action="store_true",
+                   help="post-process the solution with gradient trajectory "
+                   "refinement (hard-revalidated)")
     for flag in NOT_PORTED_FLAGS:
         p.add_argument(f"--{flag}", action="store_true",
                        help="not yet ported (exits 2)")
@@ -176,8 +190,8 @@ def _run_plan(args: argparse.Namespace, scenario) -> int:
         return rc
     device = args.device
     cfg = _config_from_args(args)
-    if not cfg.need_path and (args.out_dir or args.shortcut):
-        wants = [f for f, v in (("--shortcut", args.shortcut),
+    if not cfg.need_path and (args.out_dir or args.shortcut or args.refine):
+        wants = [f for f, v in (("--shortcut", args.shortcut), ("--refine", args.refine),
                                 ("--out-dir", args.out_dir)) if v]
         return _error("--no-need-path keeps no tree/path; incompatible with "
                       + ", ".join(wants))
@@ -194,12 +208,36 @@ def _run_plan(args: argparse.Namespace, scenario) -> int:
         print(f"shortcut: cost {out['cost_before']:.3f} -> "
               f"{out['cost_after']:.3f} ({len(result.path) - 1} -> "
               f"{out['n_edges']} edges)")
+    if args.refine and result.solved:
+        from cudasbmp_torch.refine import refine_path
+
+        out = refine_path(planner.system, cfg, result.path, scenario.goal,
+                          scenario.obstacles, device=device)
+        kept = out["valid"] and out["cost_after"] < out["cost_before"]
+        print(f"refine: cost {out['cost_before']:.3f} -> {out['cost_after']:.3f} "
+              f"({'kept' if kept else 'rejected — original retained'}; "
+              f"hard-revalidation {'ok' if out['valid'] else 'FAILED'})")
     print(json.dumps(summarize_result(result), indent=2))
     if args.verbose:
         print(iteration_metrics_table(result.metrics))
     if args.out_dir:
         written = write_artifacts(result.state, cfg, args.out_dir)
         print(f"wrote {len(written)} artifact CSVs to {args.out_dir}")
+    return 0 if result.solved else 1
+
+
+def _run_record(args: argparse.Namespace) -> int:
+    from cudasbmp_torch.config import Scenario
+    from cudasbmp_torch.planners.kgmt import KGMT
+    from cudasbmp_torch.utils.metrics import summarize_result
+
+    if rc := _device_error(args):
+        return rc
+    cfg = _config_from_args(args)
+    result = KGMT(cfg, device=args.device).plan_recorded(
+        Scenario.demo(), args.out_dir, dump_every=args.dump_every,
+        checkpoint_every=args.checkpoint_every)
+    print(json.dumps(summarize_result(result), indent=2))
     return 0 if result.solved else 1
 
 
@@ -322,6 +360,13 @@ def main(argv: list[str] | None = None) -> int:
     p_plan.add_argument("--configurations", required=True,
                         help="directory in the reference configurations/ "
                         "layout")
+    p_rec = sub.add_parser("record", help="step-by-step solve with per-iteration "
+                           "dumps (the reference's commented-out debug workflow, "
+                           "KGMT.cu:263-291)")
+    _add_config_args(p_rec)
+    p_rec.add_argument("--out-dir", required=True)
+    p_rec.add_argument("--dump-every", type=int, default=1)
+    p_rec.add_argument("--checkpoint-every", type=int, default=None)
     p_multi = sub.add_parser("multi", help="multi-query batch: B init/goal "
                              "pairs planned together")
     _add_config_args(p_multi)
@@ -363,6 +408,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.cmd == "probe":
         return _run_probe(args)
 
+    if args.cmd == "record":
+        return _run_record(args)
     if args.cmd == "multi":
         return _run_multi(args)
     if args.cmd == "sweep":

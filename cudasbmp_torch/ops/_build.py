@@ -32,7 +32,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("rollout.cu", "chains.cu")
+SOURCES = ("rollout.cu", "chains.cu", "refine.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,6 +63,11 @@ SIGNATURES = {
     "cudasbmp_gather_geometry": (_I, _I, _P, _P, _P, _P),
     # device, tbl, rows, idx, y, n_rows, chain, blocks along the rows, stream
     "cudasbmp_gather_chain": (_I, _P, _I, _P, _P, _I, _I, _I, _P),
+    # device, system, param, x0, controls, wts, goal, obstacles, K,
+    # per_problem, states, gpos, loss, grad, B, L, num_disc, margin, xhi,
+    # yhi, goal_radius, collision_weight, goal_weight, stream
+    "cudasbmp_refine": (_I, _I, _F, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                        _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
 }
 
 

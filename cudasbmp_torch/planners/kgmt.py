@@ -28,8 +28,10 @@ Per wave, as in the JAX package:
   are written, so nothing lands at index M;
 - (e) goal: the cheapest child inside the goal radius, first lane on ties.
 
-Not in this package yet: the sharded exchange pool (``expansion_wave``
-raises when given one), resume and recorded mode.
+``KGMT.resume`` continues a (checkpointed, io/checkpoint.py) state to its
+end; ``KGMT.plan_recorded`` steps ``kgmt_iteration`` with per-iteration
+artifact dumps. Not in this package yet: the sharded exchange pool
+(``expansion_wave`` raises when given one).
 """
 
 from __future__ import annotations
@@ -504,6 +506,32 @@ def kgmt_run(cfg: KGMTConfig, system, grid: RegionGrid, goal: Tensor,
     return s
 
 
+def kgmt_iteration(cfg: KGMTConfig, system, grid: RegionGrid, obstacles: Tensor,
+                   goal: Tensor, s: KGMTState) -> KGMTState:
+    """One planner iteration: the region scores, then every sub-wave of the
+    iteration (the same ``_wave_step`` as ``kgmt_run``) until the target
+    of ``fanout`` children a frontier node is met, then the frontier moves
+    on (or stays, on a stall with retry). The body of the reference's host
+    loop (KGMT.cu:118-292), for ``KGMT.plan_recorded``'s step-by-step
+    dumps; ``kgmt_run`` runs the same waves. Updates the state in place."""
+    r1_score, r1_thr = update_region_scores(cfg, s)
+    fl0, ts0 = s.frontier_lo, s.tree_size
+    n_tgt = _fresh_target(cfg, ts0 - fl0, ts0)
+    carry = (0, s, s.r2_avail.clone())
+    it = s.itr
+    for _ in range(_num_waves(cfg, n_tgt)):
+        w, s, r2_seen, _ = _wave_step(cfg, system, grid, obstacles, goal, fl0, ts0,
+                                      n_tgt, r1_score, carry)
+        carry = (w, s, r2_seen)
+    s.stalled = s.tree_size == ts0
+    s.frontier_lo = fl0 if cfg.keep_frontier_on_stall and s.stalled else ts0
+    s.r1_score, s.r1_threshold = r1_score, r1_thr
+    s.m_frontier_size[it] = ts0 - fl0
+    s.m_tree_size[it] = s.tree_size
+    s.itr = it + 1
+    return s
+
+
 def kgmt_solve(cfg: KGMTConfig, system, grid: RegionGrid, init: Tensor,
                goal: Tensor, obstacles: Tensor, key: Tensor) -> KGMTState:
     return kgmt_run(cfg, system, grid, goal, obstacles,
@@ -615,6 +643,17 @@ def extract_path(cfg: KGMTConfig, s: KGMTState) -> tuple[Tensor, Tensor, Tensor]
     return nodes, samples, length
 
 
+# plan_recorded's dumps: (state field, directory, file name stem, values a row),
+# then G/G<i>.csv, the frontier mask
+_RECORDED = (("u_samples", "UnexploredSamples", "unexploredSamples", SAMPLE_DIM),
+             ("u_parent", "UParentIdx", "uParentIdx", 1),
+             ("tree_samples", "Samples", "samples", SAMPLE_DIM),
+             ("tree_parent", "Parents", "parents", 1),
+             ("r1_score", "R1Scores", "R1Scores", 1),
+             ("r1_avail", "R1Avail", "R1Avail", 1),
+             ("r1_total", "R1", "R1", 1))
+
+
 def resolve_device(device: torch.device | str) -> torch.device:
     """The planners' device: the card unless the caller names the CPU. A
     CUDA device on a host without one is an error, never a move to the
@@ -664,6 +703,96 @@ class KGMT:
         _synchronize(dev)
         wall = time.perf_counter() - t0
         return self._build_result(final, nodes, samples, length, wall)
+
+    def resume(self, state: KGMTState | PathlessState, scenario: Scenario) -> KGMTResult:
+        """Continue a solve from a state, a checkpointed one for example
+        (io/checkpoint.py), to its end: exact, RNG included. The state's
+        kind must match ``config.need_path`` and its tensors lie on the
+        planner's device; the state is updated in place."""
+        cfg, dev = self.config, self.device
+        expected = KGMTState if cfg.need_path else PathlessState
+        if not isinstance(state, expected):
+            raise ValueError(
+                f"checkpoint holds {type(state).__name__} but this planner is "
+                f"configured with need_path={cfg.need_path} (expects "
+                f"{expected.__name__}); construct KGMT with the matching config "
+                "to resume it")
+        if state.key.device != dev:
+            raise ValueError(f"state on {state.key.device}, planner on {dev}: load "
+                             "the checkpoint onto the planner's device")
+        obstacles = torch.as_tensor(scenario.padded_obstacles(cfg.max_obstacles)[0],
+                                    device=dev)
+        goal = torch.as_tensor(scenario.goal, device=dev)
+        _synchronize(dev)
+        t0 = time.perf_counter()
+        if cfg.need_path:
+            final = kgmt_run(cfg, self.system, self.grid, goal, obstacles, state)
+            nodes, samples, length = extract_path(cfg, final)
+        else:
+            final = kgmt_run_pathless(cfg, self.system, self.grid, goal, obstacles,
+                                      state)
+            nodes = samples = length = None
+        _synchronize(dev)
+        wall = time.perf_counter() - t0
+        return self._build_result(final, nodes, samples, length, wall)
+
+    def plan_recorded(self, scenario: Scenario, out_dir: str, seed: int | None = None,
+                      dump_every: int = 1, checkpoint_every: int | None = None
+                      ) -> KGMTResult:
+        """Step-by-step solve with per-iteration artifact dumps (the
+        reference's commented-out debug workflow, KGMT.cu:263-291): one
+        ``kgmt_iteration`` at a time, and after iteration i + 1 (every
+        ``dump_every``-th) the CSVs ``Samples/samples<i+1>.csv``,
+        ``Parents/parents``, ``R1Scores/R1Scores``, ``R1Avail/R1Avail``,
+        ``R1/R1``, ``G/G``, ``UnexploredSamples/unexploredSamples`` and
+        ``UParentIdx/uParentIdx`` under ``out_dir``, and every
+        ``checkpoint_every`` iterations ``checkpoint_<i+1>.npz``. Stops on
+        the tests of ``kgmt_run``; slower than ``plan`` (the dumps read the
+        state back every iteration)."""
+        import pathlib
+
+        from cudasbmp_torch.io.checkpoint import save_checkpoint
+        from cudasbmp_torch.io.csv import frontier_mask, write_csv
+
+        cfg, dev = self.config, self.device
+        if not cfg.need_path:
+            raise ValueError("plan_recorded needs the tree-mode planner "
+                             "(need_path=True): its artifacts ARE the tree")
+        out = pathlib.Path(out_dir)
+        for sub in (*(d for _, d, _, _ in _RECORDED), "G"):
+            (out / sub).mkdir(parents=True, exist_ok=True)
+        obstacles = torch.as_tensor(scenario.padded_obstacles(cfg.max_obstacles)[0],
+                                    device=dev)
+        goal = torch.as_tensor(scenario.goal, device=dev)
+        key = rng.key(cfg.seed if seed is None else seed, dev)
+        state = init_state(cfg, self.grid, torch.as_tensor(scenario.init, device=dev), key)
+        _synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(cfg.num_iterations):
+            state = kgmt_iteration(cfg, self.system, self.grid, obstacles, goal, state)
+            if i % dump_every == 0:
+                it = i + 1
+                for field, sub, name, cols in _RECORDED:
+                    write_csv(getattr(state, field).cpu().numpy(),
+                              out / sub / f"{name}{it}.csv", cols)
+                write_csv(frontier_mask(state, cfg.max_tree_size).astype(np.int32),
+                          out / "G" / f"G{it}.csv")
+            if checkpoint_every and (i + 1) % checkpoint_every == 0:
+                save_checkpoint(state, out / f"checkpoint_{i + 1}.npz")
+            if not _keep_going(cfg, state, bool(torch.isfinite(state.cost_to_goal))):
+                break
+        nodes, samples, length = extract_path(cfg, state)
+        _synchronize(dev)
+        wall = time.perf_counter() - t0
+        return self._build_result(state, nodes, samples, length, wall)
+
+    def generate_random_tree(self, scenario: Scenario, num_rollouts: int):
+        """Unguided random-tree probe (Planner.cuh:10): ``NaivePlanner``'s,
+        on the planner's device."""
+        from cudasbmp_torch.planners.naive import NaivePlanner
+
+        return NaivePlanner(self.config, self.system, device=self.device
+                            ).generate_random_tree(scenario, num_rollouts)
 
     def _build_result(self, final, nodes, samples, length, wall) -> KGMTResult:
         cost = float(final.cost_to_goal)

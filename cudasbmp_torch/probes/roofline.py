@@ -108,6 +108,39 @@ def bound_ms(lanes: int, ops: int, boxes: int, keys: int = 0) -> tuple[float, st
     return bound(45 * lanes + 16 * (boxes + keys), lanes * ops)
 
 
+# R1's operations a step of each system, forward and in the reverse sweep,
+# and a prepare a edge (tanf), counted from csrc/refine.cu as ops_per_lane
+# counts (trig one each)
+REFINE_STEP_OPS = {"bicycle": (14, 39, 1), "point2d": (4, 10, 0),
+                   "double_integrator": (8, 18, 0), "unicycle": (10, 26, 0),
+                   "dubins": (11, 30, 0)}
+
+
+def refine_ops(system: str, problems: int, edges: int, points: int, boxes: int,
+               inside: int) -> int:
+    """f32 operations of an R1 launch over ``problems`` problems of
+    ``edges`` edges and ``points`` Euler steps in all, each problem against
+    ``boxes`` boxes: per point its step forward and back, 13 a box (the
+    signed distance) and 31 more (the bounds, the point's gradient); 21
+    more for each of the ``inside`` (point, box) pairs inside an inflated
+    box, which the data decides; per edge dt twice, the prepare twice and
+    d/d dur; per problem the block's sum of 5 terms over 256 threads and
+    the goal term."""
+    fwd, back, prep = REFINE_STEP_OPS[system]
+    return (points * (fwd + back + 13 * boxes + 31) + 21 * inside
+            + edges * (3 + 2 * prep) + problems * (5 * 255 + 15))
+
+
+def refine_bound_ms(system: str, problems: int, edges: int, points: int, boxes: int,
+                    inside: int, per_problem_boxes: bool) -> tuple[float, str]:
+    """``bound`` of one R1 launch (``refine_ops``'s arguments): per problem
+    a float4 start, the goal and the loss (28 B), per edge 3 controls, a
+    weight and 3 gradients (28 B); 16 B a box, once for a shared set."""
+    sets = problems if per_problem_boxes else 1
+    return bound(28 * (problems + edges) + 16 * boxes * sets,
+                 refine_ops(system, problems, edges, points, boxes, inside))
+
+
 def chain_bounds(elems: int, rows: int | None = None) -> dict:
     """``bound`` of each calibration chain over ``elems`` elements: f32 x
     read and y written once (P2: the table, int32 idx, y); P1a two flops a

@@ -3,8 +3,8 @@
 equal to KGMT.plan's, the flag-over-file override rule of the JAX CLI, the
 artifact dump, the batch subcommands ``multi`` and ``sweep`` (the JAX CLI's
 JSON keys, values equal to the library call's; the vmapped multi-query
-planner by default), ``--shortcut``, the throughput probe ``probe``, and
-exit code 2 for what is not yet ported."""
+planner by default), ``--shortcut``, ``--refine``, the throughput probe
+``probe``, and exit code 2 for what is not yet ported."""
 
 import argparse
 import json
@@ -105,9 +105,10 @@ def test_flag_overrides_config_file_as_in_the_jax_cli(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["viz", "--artifacts", "x"], ["record", "--out-dir", "x"],
+    ["viz", "--artifacts", "x"], ["viz", "--out", "tree.png"],
     ["profile", "--trace-dir", "x"], ["sharded"],
-    ["demo", "--device", "cpu", "--refine"], ["demo", "--device", "cpu", "--plot"],
+    ["plan", "--configurations", CONFIGURATIONS, "--device", "cpu", "--plot"],
+    ["demo", "--device", "cpu", "--plot"],
 ])
 def test_not_yet_ported_exits_2(capsys, argv):
     rc, out, err = run(capsys, *argv)
@@ -315,3 +316,35 @@ def test_batch_subcommands_default_to_the_card(capsys):
     for argv in (["multi", "--impl", "arena"], ["sweep", "--impl", "stream"]):
         rc, out, err = run(capsys, *argv)
         assert rc == 2 and "torch.cuda.is_available() is false" in err and out == ""
+
+
+def test_demo_refine_prints_the_jax_clis_line(capsys, monkeypatch):
+    """demo --refine: the JAX CLI's line (cudasbmp_tpu/cli.py:144-152) after
+    the parity lines, equal to refine_path on the solved path. RefineConfig's
+    400 Adam steps take tens of seconds of the plain twin on the CPU, so the
+    default is cut to 20 steps here for the CLI and the library alike."""
+    import functools
+
+    from cudasbmp_torch import refine
+
+    monkeypatch.setattr(refine, "RefineConfig",
+                        functools.partial(refine.RefineConfig, iterations=20))
+    rc, out, err = run(capsys, "demo", "--device", "cpu", *DEMO_SMALL, "--refine")
+    lines = out.splitlines()
+    assert rc == 0 and err == ""
+    m = re.fullmatch(r"refine: cost (\d+\.\d{3}) -> (\d+\.\d{3}) \((kept|rejected — "
+                     r"original retained); hard-revalidation (ok|FAILED)\)", lines[3])
+    assert m, lines[3]
+    cfg = ct.KGMTConfig(max_tree_size=16384, rollouts_per_iter=2048, seed=1)
+    planner = ct.KGMT(cfg, device="cpu")
+    r = planner.plan(ct.Scenario.demo())
+    want = refine.refine_path(planner.system, cfg, r.path, ct.Scenario.demo().goal,
+                              ct.Scenario.demo().obstacles, device="cpu")
+    kept = want["valid"] and want["cost_after"] < want["cost_before"]
+    assert m.groups() == (f"{want['cost_before']:.3f}", f"{want['cost_after']:.3f}",
+                          "kept" if kept else "rejected — original retained",
+                          "ok" if want["valid"] else "FAILED")
+    assert summary_of(out)["cost"] == pytest.approx(r.cost)
+    rc, out, err = run(capsys, "demo", "--device", "cpu", "--no-need-path", "--refine",
+                       *SMALL)
+    assert rc == 2 and "--refine" in err and out == ""

@@ -104,7 +104,8 @@ def test_package_imports_and_solves_with_jax_blocked():
     """Every module of the port, parallel/ and probes/ included, imports
     with JAX and the JAX package blocked, and the single query, the arena
     sweep, the streaming sweep, the vmap sweep and multi-query planner, the
-    shortcut, the probe planners and the throughput probe run."""
+    shortcut, the probe planners, the throughput probe, the refinement, the
+    recorded solve and a resume from its checkpoint run."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -144,6 +145,20 @@ def test_package_imports_and_solves_with_jax_blocked():
         "                                       cull=2, device='cpu')\n"
         "assert r['wall_rollouts_per_sec'] > 0, r\n"
         "assert roofline.ops_per_lane('bicycle', False, False, 8, 10, False) == 542\n"
+        "for name in ('refine', 'io.checkpoint', 'ops.refine_cuda'):\n"
+        "    assert 'cudasbmp_torch.' + name in sys.modules, name\n"
+        "from cudasbmp_torch.refine import RefineConfig, refine_batch\n"
+        "o = refine_batch(cudasbmp_torch.KGMT(cfg, device='cpu').system, cfg, m.paths,\n"
+        "                 np.maximum(m.path_lengths, 2), np.stack([sc.goal] * 2),\n"
+        "                 sc.obstacles, RefineConfig(iterations=2), device='cpu')\n"
+        "assert o['controls'].shape == (2, 2, 3), o\n"
+        "import tempfile\n"
+        "from cudasbmp_torch.io.checkpoint import load_checkpoint\n"
+        "d = tempfile.mkdtemp()\n"
+        "p = cudasbmp_torch.KGMT(cfg, device='cpu')\n"
+        "r = p.plan_recorded(sc, d, checkpoint_every=1)\n"
+        "assert p.resume(load_checkpoint(d + '/checkpoint_1.npz', device='cpu'),\n"
+        "                sc).tree_size == r.tree_size\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
         "print('ok')\n"
     )

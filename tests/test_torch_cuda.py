@@ -717,3 +717,128 @@ def test_shortcut_on_the_card_equals_its_twin(dev, monkeypatch):
     for a, b in zip(card, twin):
         for k in a:
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
+
+
+def refine_inputs(name: str, B: int, L: int, num_disc: int, seed: int, dev,
+                  masked: bool, per_problem: bool):
+    """R1's inputs from a numpy generator: starts in the middle of the
+    workspace, controls in the system's box, the last third of each
+    problem's edges masked (duration 0, weight 0) with ``masked``, goals in
+    the workspace, the demo's boxes shared or 8 random boxes per problem."""
+    system = get_system(name)
+    r = np.random.default_rng(seed)
+    lo = np.asarray(system.control_spec.lo, np.float32)
+    hi = np.asarray(system.control_spec.hi, np.float32)
+    x0 = np.zeros((B, 4), np.float32)
+    x0[:, :2] = r.uniform(6.0, 14.0, (B, 2))
+    if name in ("bicycle", "double_integrator", "unicycle", "dubins"):
+        x0[:, 2] = r.uniform(-np.pi, np.pi, B) if name != "double_integrator" \
+            else r.uniform(-1.0, 1.0, B)
+    if name in ("bicycle", "double_integrator"):
+        x0[:, 3] = r.uniform(-1.0, 1.0, B)
+    controls = (lo + (hi - lo) * r.uniform(size=(B, L, 3))).astype(np.float32)
+    controls[..., 2] *= np.float32(0.3)
+    wts = np.ones((B, L), np.float32)
+    if masked:
+        keep = np.maximum(1, L - L // 3 - r.integers(0, 2, B))
+        wts = (np.arange(L)[None] < keep[:, None]).astype(np.float32)
+        controls[..., 2] *= wts
+    goal = r.uniform(2.0, 18.0, (B, 2)).astype(np.float32)
+    if per_problem:
+        c = r.uniform(2.0, 18.0, (B, 8, 2))
+        h = r.uniform(0.3, 2.0, (B, 8, 2))
+        obs = np.concatenate([c - h, c + h], -1).astype(np.float32)
+    else:
+        obs = Scenario.demo().padded_obstacles(8)[0]
+    return system, [torch.tensor(a, device=dev) for a in (x0, controls, wts, goal, obs)]
+
+
+REFINE_KW = dict(num_disc=10, width=20.0, height=20.0, margin=0.05, goal_threshold=1.0,
+                 collision_weight=30.0, goal_weight=10.0)
+
+
+@pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per_problem"])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "masked"])
+@pytest.mark.parametrize("L,num_disc", [(1, 1), (1, 10), (6, 10), (151, 10)])
+@pytest.mark.parametrize("name", SYSTEMS)
+def test_refine_kernel_matches_its_twin(dev, name, L, num_disc, masked, per_problem):
+    """R1's forward states equal the twin's positions to the bit; the
+    penalty agrees within rtol 1e-5 (sums of positive terms in another
+    order) and the gradient within 1e-4 of its norm (the reverse sweep
+    accumulates in another order than autograd)."""
+    from cudasbmp_torch.ops import refine_cuda as rf
+
+    system, (x0, c, w, goal, obs) = refine_inputs(name, 8, L, num_disc, L, dev, masked,
+                                                  per_problem)
+    kw = dict(REFINE_KW, num_disc=num_disc)
+    loss, grad, states = rf._launch(system, x0, c, w, goal, obs, **kw)
+    pts = rf.unroll_positions(system, x0, c, num_disc)
+    assert torch.equal(states[:, 1:, :2].contiguous().view(torch.int32),
+                       pts.contiguous().view(torch.int32))
+    cr = c.clone().requires_grad_()
+    twin = rf.refine_penalty_torch(system, x0, cr, w, goal, obs, **kw)
+    (tgrad,) = torch.autograd.grad(twin.sum(), cr)
+    torch.testing.assert_close(loss, twin.detach(), rtol=1e-5, atol=1e-6)
+    err = (grad - tgrad).flatten(1).norm(dim=1)
+    assert bool((err <= 1e-4 * tgrad.flatten(1).norm(dim=1) + 1e-6).all()), err
+    # under autograd: one launch, the gradient scaled by the cotangent
+    cr = c.clone().requires_grad_()
+    n = rf.refine_penalty_cuda.launches
+    out = rf.refine_penalty_cuda(system, x0, cr, w, goal, obs, **kw)
+    (g2,) = torch.autograd.grad((out * 2.0).sum(), cr)
+    assert rf.refine_penalty_cuda.launches == n + 1
+    assert torch.equal(out, loss) and torch.equal(g2, 2.0 * grad)
+
+
+def test_refine_path_and_batch_run_on_r1_and_b1_b6(dev):
+    """On the card refine_path's Adam steps are R1 launches and its
+    revalidation B1's; refine_batch's B6's; a batch row equals
+    refine_path on its path."""
+    from cudasbmp_torch import refine as tr
+    from cudasbmp_torch.ops import refine_cuda as rf
+
+    cfg = ctt.KGMTConfig(num_iterations=100, max_tree_size=16384, rollouts_per_iter=2048)
+    planner = ctt.KGMT(cfg, device=dev)
+    base = Scenario.demo()
+    paths = [planner.plan(base, seed=s).path for s in (1, 2)]
+    rcfg = tr.RefineConfig(iterations=20)
+    rc.reset_launch_counts()
+    rf.refine_penalty_cuda.launches = 0
+    one = tr.refine_path(planner.system, cfg, paths[0], base.goal, base.obstacles, rcfg,
+                         device=dev)
+    assert rf.refine_penalty_cuda.launches == rcfg.iterations + 1
+    assert rc.rollout_cuda.launches == len(paths[0]) - 1
+    assert rc.rollout_batched_cuda.launches == 0
+    Lmax = max(map(len, paths)) + 1
+    batch = np.zeros((3, Lmax, 7), np.float32)
+    for i, p in enumerate(paths):
+        batch[i, :len(p)] = p
+    lengths = np.array([len(paths[0]), len(paths[1]), 0])
+    goals = np.tile(base.goal, (3, 1)).astype(np.float32)
+    rc.reset_launch_counts()
+    out = tr.refine_batch(planner.system, cfg, batch, lengths, goals, base.obstacles, rcfg,
+                          device=dev)
+    assert rc.rollout_batched_cuda.launches == Lmax - 1 and rc.rollout_cuda.launches == 0
+    n = len(paths[0]) - 1
+    np.testing.assert_array_equal(out["controls"][0, :n], one["controls"])
+    np.testing.assert_array_equal(out["losses"][0], one["losses"])
+    assert out["valid"][0] == one["valid"] and not out["valid"][2]
+
+
+def test_refine_wrapper_rejects_bad_inputs(dev):
+    """R1's wrapper checks what the kernel takes and raises; nothing falls
+    back to the twin on a CUDA tensor."""
+    from cudasbmp_torch.ops import refine_cuda as rf
+
+    system, (x0, c, w, goal, obs) = refine_inputs("bicycle", 2, 3, 10, 0, dev, False, False)
+    with pytest.raises(ValueError, match="controls"):
+        rf.refine_penalty_cuda(system, x0, c.double(), w, goal, obs, **REFINE_KW)
+    with pytest.raises(ValueError, match="wts"):
+        rf.refine_penalty_cuda(system, x0, c, w[:, :2].contiguous(), goal, obs, **REFINE_KW)
+    with pytest.raises(ValueError, match="obstacles"):
+        rf.refine_penalty_cuda(system, x0, c, w, goal, obs[None].expand(3, -1, -1).contiguous(),
+                               **REFINE_KW)
+    with pytest.raises(ValueError, match="points a problem"):
+        rf._launch(system, x0, c, w, goal, obs, **dict(REFINE_KW, num_disc=2 ** 30))
+    with pytest.raises(ValueError, match="several devices"):
+        rf.refine_penalty_cuda(system, x0.cpu(), c, w, goal, obs, **REFINE_KW)
