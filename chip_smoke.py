@@ -1,6 +1,6 @@
 """Drive the cudasbmp_torch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # phases 1-29, one GPU, no network
+    python3 chip_smoke.py            # phases 1-31, one GPU, no network
     python3 chip_smoke.py --profile  # also: torch.profiler over a demo solve,
                                      # an arena solve and a streaming sweep
     python3 chip_smoke.py --compare OLD.json NEW.json  # two runs' records:
@@ -143,7 +143,19 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
 29. the recorded solve of the demo (KGMT.plan_recorded, a checkpoint every
     5 iterations), a checkpoint round trip on the card, a resume from
     checkpoint_5 equal to plan() to the bit, and the CLI's record as a
-    subprocess.
+    subprocess;
+30. the sharded tree (ShardedTreePlanner at KGMTConfig(): 30,000 slots a
+    shard, 4,096 lanes, the exchange pool) at D = 1 and 4 shards under
+    'auto' (every trip one launch of B6 over D x 4,096 lanes) and
+    'cuda_rng' (B6's Philox form, a key a shard), seeds 0-3: solve rate,
+    cost, iterations, trips, launches (equal to the trips), launches and
+    host reads an iteration, paths crossing shards, identical score rows,
+    wall; the paths replay; at D = 4 every trip's rows bitwise the twin's
+    on the card; plan_checkpointed and a resume equal to plan(); a trace
+    naming the sharded iteration's phases; validate_state on a demo solve;
+31. the CLI's sharded (with --checkpoint-dir and --resume-from), profile
+    (its trace's phase names) and demo --plot --out-dir and viz (exit 2
+    with a message without matplotlib) as subprocesses on the card.
 
 Then the card's name and power limit, a JSON line of the kernels and,
 last, {"ok": true, "device": {...}}. Each kernel entry has its device
@@ -2271,15 +2283,293 @@ def profile_solve(cfg, dev, out_dir: pathlib.Path) -> dict:
             "kernel_names": sum(t > 0 for t in dev_us)}
 
 
+SHARDED_D = (1, 4)  # the CLI's tree axis on one card, and the library's four shards
+SHARDED_SEEDS = range(4)
+SHARDED_SCOPES = ("kgmt_scores", "kgmt_frontier", "kgmt_frontier_exchange", "kgmt_waves")
+SOLVE_SCOPES = ("kgmt_scores", "kgmt_expand", "kgmt_region_stats", "kgmt_commit",
+                "kgmt_goal")
+
+
+def traced_scopes(log_dir: pathlib.Path) -> list[str]:
+    """The user-annotation names of the one trace file under ``log_dir``."""
+    files = list(log_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"{log_dir}: {len(files)} trace files")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    return sorted({e["name"] for e in events if e.get("cat") == "user_annotation"})
+
+
+def iteration_costs(planner, dev, iterations: int = 3) -> dict:
+    """Kernel launches and host reads an iteration of the sharded loop over
+    ``iterations`` iterations of a fresh demo solve (seed 0): launches by
+    the profiler's runtime-API records, host reads by torch's
+    synchronization warnings (torch.cuda.set_sync_debug_mode)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudasbmp_torch import Scenario
+    from cudasbmp_torch.parallel import sharded_tree as st
+
+    cfg = planner.config
+    goal, boxes = planner._inputs(Scenario.demo())
+    out = {}
+    for mode in ("launches", "reads"):
+        s = planner._init(Scenario.demo(), 0, None)
+        _, trips = st.sharded_readout(cfg, s)
+        torch.cuda.synchronize()
+
+        def run():
+            nonlocal trips
+            for _ in range(iterations):
+                st.sharded_iteration(cfg, planner.system, planner.grid, goal, boxes, s, trips)
+                _, trips = st.sharded_readout(cfg, s)
+
+        if mode == "launches":
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            launches = sum(1 for e in prof.events() if "LaunchKernel" in e.name)
+            out["launches_per_iteration"] = launches / iterations
+            out["launches_per_trip"] = launches / s.trips
+            out["measured_trips"] = s.trips
+        else:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+            out["host_reads_per_iteration"] = len(syncs) / iterations
+            out["sync_messages"] = syncs[:3]
+    return out
+
+
+def sharded_tree(dev, out_dir: pathlib.Path) -> tuple[dict, dict]:
+    """Phase 30: ShardedTreePlanner on the demo at KGMTConfig() (M = 30,000
+    slots a shard, R = 4,096, adaptive waves, exchange_frac 0.25,
+    exchange_k 64) at D = 1 (the CLI's tree axis on one card) and D = 4
+    shards, under 'auto' (every trip one launch of B6 over D x 4,096 lanes,
+    one box set per shard) and 'cuda_rng' (B6's Philox form, keyed per
+    shard), seeds 0-3: solved, cost, iterations, total tree size, best
+    shard, whether the path crosses shards, identical score rows, wall; the
+    paths replay; launches equal the trips; launches and host reads an
+    iteration; at each D every trip's rows equal the plain twin's driven
+    on the card, bitwise; plan_checkpointed (a checkpoint every 2 iterations)
+    and a resume from its first checkpoint equal plan() to the bit; a
+    trace names the sharded iteration's phases; validate_state on a demo
+    single solve. Returns the record and the launches by kernel."""
+    import shutil
+
+    from cudasbmp_torch import KGMT, KGMTConfig, Scenario
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.parallel import ShardedTreePlanner, make_planner_mesh
+    from cudasbmp_torch.utils.profiling import trace_to
+    from cudasbmp_torch.utils.validate import validate_state
+
+    demo = Scenario.demo()
+    obstacles = demo.padded_obstacles(KGMTConfig().max_obstacles)[0]
+    out, launches = {}, Counter()
+    for backend, kernel in (("auto", rc.rollout_batched_cuda),
+                            ("cuda_rng", rc.sample_and_rollout_batched_cuda)):
+        cfg = KGMTConfig(rollout_backend=backend)
+        for D in SHARDED_D:
+            tag = f"{backend}_D{D}"
+            planner = ShardedTreePlanner(cfg, mesh=make_planner_mesh(n_tree=D,
+                                                                     device=str(dev)))
+            planner.plan(demo, seed=100)  # warm-up
+            rows, trips = [], 0
+            rc.reset_launch_counts()
+            for seed in SHARDED_SEEDS:
+                r = planner.plan(demo, seed=seed)
+                trips += planner.last_state.trips
+                check(bool((r.r1_scores_by_shard == r.r1_scores_by_shard[0]).all()),
+                      f"sharded {tag}: seed {seed}: score rows differ")
+                check(r.tree_sizes_by_shard.shape == (D,) and r.total_tree_size
+                      == int(r.tree_sizes_by_shard.sum()) <= D * cfg.max_tree_size,
+                      f"sharded {tag}: seed {seed}: tree sizes {r.tree_sizes_by_shard}")
+                if r.solved:
+                    check(r.path_shards[-1] == r.best_shard and r.path_shards.shape
+                          == (len(r.path),), f"sharded {tag}: seed {seed}: path shards")
+                    check_paths(f"sharded {tag} seed {seed}", planner.system, cfg,
+                                r.path[None], np.array([len(r.path)]), np.array([r.cost]),
+                                demo.goal[None], obstacles)
+                rows.append({"seed": seed, "solved": r.solved, "cost": r.cost,
+                             "iterations": r.iterations,
+                             "total_tree_size": r.total_tree_size,
+                             "tree_sizes_by_shard": r.tree_sizes_by_shard.tolist(),
+                             "best_shard": r.best_shard,
+                             "path_crosses_shards": len(set(r.path_shards.tolist())) > 1,
+                             "path_edges": len(r.path) - 1,
+                             "identical_score_rows": True,
+                             "trips": planner.last_state.trips,
+                             "wall_time_s": r.wall_time_s})
+            counts = {w.__name__: w.launches for w in rc.WRAPPERS}
+            main = counts.pop(kernel.__name__)
+            check(main == trips and set(counts.values()) == {0},
+                  f"sharded {tag}: launches {main} {counts} for {trips} trips")
+            launches[kernel.__name__] += main
+            solved = [x for x in rows if x["solved"]]
+            check(len(solved) >= 3, f"sharded {tag}: {len(solved)} of 4 seeds solved")
+            if D > 1:
+                check(any(x["path_crosses_shards"] for x in solved),
+                      f"sharded {tag}: no path crosses shards")
+            out[tag] = {
+                "n_tree": D, "seeds": rows, "solve_rate": len(solved) / len(rows),
+                "cost_p50": float(np.median([x["cost"] for x in solved])),
+                "iterations": sum(x["iterations"] for x in rows), "trips": trips,
+                "launches": main, "splits": dict(kernel.splits),
+                "wall_p50_s": float(np.median([x["wall_time_s"] for x in rows])),
+                **iteration_costs(planner, dev)}
+            check(out[tag]["host_reads_per_iteration"] == 1,
+                  f"sharded {tag}: host reads an iteration {out[tag]}")
+            out[tag]["twin_trips_bitwise"] = sharded_twin_check(planner, demo, kernel)
+    # plan_checkpointed and resume, D = 4, auto
+    cfg = KGMTConfig()
+    planner = ShardedTreePlanner(cfg, mesh=make_planner_mesh(n_tree=4, device=str(dev)))
+    ck = out_dir / "sharded_checkpoints"
+    shutil.rmtree(ck, ignore_errors=True)
+
+    def fields(r):
+        return [r.solved, r.cost, r.iterations, r.total_tree_size, r.best_shard,
+                r.tree_sizes_by_shard.tolist(), r.path.view(np.uint32).tolist(),
+                r.path_shards.tolist()]
+
+    want = fields(planner.plan(demo, seed=0))
+    chunked = fields(planner.plan_checkpointed(demo, ck / "run", checkpoint_every=2, seed=0))
+    files = sorted((ck / "run").glob("sharded_checkpoint_*.npz"),
+                   key=lambda q: int(q.stem.split("_")[-1]))
+    resumed = fields(planner.plan_checkpointed(demo, ck / "resumed", checkpoint_every=2,
+                                               resume_from=files[0]))
+    check(chunked == want == resumed, f"plan_checkpointed {chunked[:5]} / resumed "
+          f"{resumed[:5]} != plan() {want[:5]}")
+    out["checkpointed"] = {"checkpoints": [q.name for q in files], "resumed_from": files[0].name,
+                           "equal_to_plan": True, "solved": want[0], "cost": want[1],
+                           "iterations": want[2], "total_tree_size": want[3]}
+    shutil.rmtree(ck)
+    # the trace of a short sharded solve names the iteration's phases
+    trace_dir = out_dir / "sharded_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    short = ShardedTreePlanner(cfg.replace(num_iterations=3),
+                               mesh=make_planner_mesh(n_tree=4, device=str(dev)))
+    with trace_to(trace_dir):
+        short.plan(demo)
+    names = traced_scopes(trace_dir)
+    check(set(SHARDED_SCOPES) <= set(names), f"sharded trace names {names}")
+    shutil.rmtree(trace_dir)
+    out["trace_scopes"] = names
+    # the state validator on the demo's single solve
+    single = KGMT(cfg, device=dev).plan(demo, seed=0)
+    out["validate_state"] = validate_state(single.state, cfg)
+    check(out["validate_state"]["solved"] and out["validate_state"]["tree_size"]
+          == single.tree_size, f"validate_state {out['validate_state']}")
+    return out, dict(launches)
+
+
+def sharded_twin_check(planner, demo, kernel) -> int:
+    """Every trip of a seed-0 solve: the rows of B6 (or its Philox form)
+    equal the plain twin's driven on the card, on the same inputs, to the
+    bit. Returns the trips compared."""
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.parallel import multi_query as mq
+
+    cfg, system = planner.config, planner.system
+    kw = dict(num_disc=cfg.num_disc, width=cfg.width, height=cfg.height)
+    rollout, compared = mq._rollout, 0
+
+    def spy(c, sys_, k_ctrl, x0, obstacles):
+        nonlocal compared
+        x1, controls, valid = rollout(c, sys_, k_ctrl, x0, obstacles)
+        if kernel is rc.rollout_batched_cuda:
+            tx1, tvalid = rc.rollout_soa(sys_, x0, controls, obstacles, **kw)
+        else:
+            tx1, tc, tvalid = rc.sample_and_rollout_torch(sys_, k_ctrl, x0, obstacles, **kw)
+            check(bitwise(tc, controls), "sharded: Philox controls differ from the twin")
+        check(bitwise(tx1, x1) and torch.equal(tvalid, valid),
+              f"sharded {kernel.__name__}: a trip's rows differ from the twin")
+        compared += 1
+        return x1, controls, valid
+
+    mq._rollout = spy
+    try:
+        planner.plan(demo, seed=0)
+    finally:
+        mq._rollout = rollout
+    return compared
+
+
+def sharded_cli(out_dir: pathlib.Path) -> dict:
+    """Phase 31: the CLI's sharded (the card count's tree axis: D = 1 on one
+    card), its --checkpoint-dir and --resume-from, profile (the trace file
+    and its phase names) and the plots (demo --plot --out-dir, viz: exit 2
+    with a message where matplotlib is absent, else the PNGs) as
+    subprocesses on the card."""
+    import importlib.util
+    import shutil
+
+    base = out_dir / "cli_phase31"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+
+    def cli(*argv, timeout=600):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "cudasbmp_torch.cli", *argv], cwd=ROOT,
+                           capture_output=True, text=True, timeout=timeout)
+        return p, time.perf_counter() - t0
+
+    out = {}
+    p, wall = cli("sharded")
+    check(p.returncode in (0, 1), f"cli sharded: exit {p.returncode}\n{p.stderr[-2000:]}")
+    plain = json.loads(p.stdout)
+    check(plain["n_tree"] == torch.cuda.device_count(), f"cli sharded: {plain}")
+    p, _ = cli("sharded", "--checkpoint-dir", str(base / "ck"), "--checkpoint-every", "4")
+    chunked = json.loads(p.stdout)
+    first = sorted((base / "ck").glob("sharded_checkpoint_*.npz"),
+                   key=lambda q: int(q.stem.split("_")[-1]))[0]
+    p, _ = cli("sharded", "--checkpoint-dir", str(base / "ck2"), "--resume-from", str(first))
+    resumed = json.loads(p.stdout)
+    same = [{k: v for k, v in d.items() if k != "wall_time_s"}
+            for d in (plain, chunked, resumed)]
+    check(same[0] == same[1] == same[2], f"cli sharded: {same}")
+    out["sharded"] = {"summary": plain, "cli_wall_s": wall, "checkpointed_equal": True,
+                      "resumed_from": first.name}
+    p, wall = cli("profile", "--trace-dir", str(base / "trace"))
+    check(p.returncode == 0 and p.stdout.startswith("trace written to"),
+          f"cli profile: exit {p.returncode}\n{p.stderr[-2000:]}")
+    names = traced_scopes(base / "trace")
+    check(set(SOLVE_SCOPES) <= set(names), f"cli profile: trace names {names}")
+    out["profile"] = {"line_with_wall": p.stdout.strip(), "scopes": names,
+                      "cli_wall_s": wall}
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    p, wall = cli("demo", "--plot", "--out-dir", str(base / "art"))
+    p2, wall2 = cli("viz", "--artifacts", str(base / "art"), "--out", str(base / "v.png"))
+    if have_mpl:
+        check(p.returncode == 0 and (base / "art" / "tree.png").exists()
+              and p2.returncode == 0 and (base / "v.png").exists(),
+              f"cli plots: exits {p.returncode}, {p2.returncode}\n{p.stderr[-1000:]}")
+    else:
+        check(p.returncode == 2 == p2.returncode and "matplotlib" in p.stderr
+              and "matplotlib" in p2.stderr and not (base / "art").exists(),
+              f"cli plots without matplotlib: exits {p.returncode}, {p2.returncode}")
+    out["plots"] = {"matplotlib": have_mpl, "demo_plot_exit": p.returncode,
+                    "viz_exit": p2.returncode,
+                    "message": (p.stderr.strip().splitlines() or [""])[-1],
+                    "cli_wall_s": wall + wall2}
+    shutil.rmtree(base)
+    return out
+
+
 # the phases whose solves two runs of the same kernels' results must share
 SOLVE_PHASES = ("tree_auto", "tree_cuda_rng", "pathless_auto", "forty_boxes",
                 "all_options", "other_systems", "arena_config4", "arena_extension",
                 "monte_carlo", "streaming", "multi_query", "multi_query_bench",
-                "monte_carlo_vmap", "shortcut", "refine", "checkpoint")
+                "monte_carlo_vmap", "shortcut", "refine", "checkpoint", "sharded_tree",
+                "sharded_cli")
 
 
 def compare_records(old: dict, new: dict) -> tuple[int, list[str]]:
-    """The fields of SOLVE_PHASES (phases 5-16, 22-25, 28 and 29: solve rates,
+    """The fields of SOLVE_PHASES (phases 5-16, 22-25 and 28-31: solve rates,
     costs, iterations, tree sizes, launches, path checks) in two records of
     this script, times left out (names starting ``tts`` or ending ``_s``,
     ``_ms`` or holding ``per_sec``, ``wall`` or ``regular``), and phases
@@ -2786,6 +3076,31 @@ def main() -> int:
           f"wrote {len(ck['cli_files'])} entries ({ck['cli_wall_s']:.1f} s) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # 30. the sharded tree, B6 and B6 Philox; 31. its CLI, profile and plots
+    t0 = time.perf_counter()
+    sh, sharded_launches = sharded_tree(dev, out_dir)
+    record["sharded_tree"] = sh
+    print("[30 sharded tree] " + " | ".join(
+        f"{k}: rate {v['solve_rate']:.2f} cost p50 {v['cost_p50']:.4f} iterations "
+        f"{v['iterations']} trips {v['trips']} launches {v['launches']} at G "
+        f"{v['splits']}, {v['launches_per_iteration']:.1f} launches and "
+        f"{v['host_reads_per_iteration']:.0f} host read an iteration, paths crossing "
+        f"shards {sum(x['path_crosses_shards'] for x in v['seeds'])}/4, wall p50 "
+        f"{v['wall_p50_s'] * 1e3:.1f} ms, {v['twin_trips_bitwise']} trips bitwise the "
+        f"twin's" for k, v in sh.items() if k.startswith(("auto", "cuda_rng")))
+        + f" | plan_checkpointed and resume == plan() ({len(sh['checkpointed']['checkpoints'])}"
+        f" checkpoints) | trace scopes {[n for n in sh['trace_scopes'] if n in SHARDED_SCOPES]}"
+        f" | validate_state {sh['validate_state']} ({time.perf_counter() - t0:.1f} s)",
+        flush=True)
+    t0 = time.perf_counter()
+    scli = record["sharded_cli"] = sharded_cli(out_dir)
+    print(f"[31 cli] sharded: {json.dumps(scli['sharded']['summary'])} "
+          f"({scli['sharded']['cli_wall_s']:.1f} s), checkpointed and resumed equal | profile: "
+          f"{scli['profile']['line_with_wall']}, scopes {scli['profile']['scopes']} | plots: "
+          f"matplotlib {scli['plots']['matplotlib']}, demo --plot exit "
+          f"{scli['plots']['demo_plot_exit']}, viz exit {scli['plots']['viz_exit']} "
+          f"({scli['plots']['message']}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+
     if "--profile" in sys.argv[1:]:
         out_dir.mkdir(exist_ok=True)
         record["profile_tree_auto"] = profile_solve(cfg, dev, out_dir)
@@ -2813,12 +3128,16 @@ def main() -> int:
     # planner's ([22] auto, [24]) and the shortcut batches' ([25]); its G
     # the one of most launches
     b6_splits = Counter(mc["splits"]) + Counter({1: stream["auto"]["launches"]}) \
+        + sum((Counter(v["splits"]) for k, v in sh.items() if k.startswith("auto_")),
+              Counter()) \
         + Counter({multi["auto"]["split"]: multi["auto"]["launches"]}) \
         + Counter({mcv["split"]: mcv["launches"]}) \
         + sum((Counter({v["split"]: v["b6_launches"]}) for k, v in short.items()
                if k != "path"), Counter())
     G_b6 = max(b6_splits, key=b6_splits.get)
     rng_splits = Counter({1: stream["cuda_rng"]["launches"]}) \
+        + sum((Counter(v["splits"]) for k, v in sh.items() if k.startswith("cuda_rng_")),
+              Counter()) \
         + Counter({multi["cuda_rng"]["split"]: multi["cuda_rng"]["launches"]}) \
         + Counter({bench["split"]: bench["launches"]})
     cms, creg = cal["calibration"]["ms"], cal["calibration"]["regular"]
@@ -2892,6 +3211,7 @@ def main() -> int:
          "replaces": "cudasbmp_tpu/parallel/batch_kgmt.py:227",
          "systems": list(SYSTEMS),
          "launches": sum(b6_splits.values()),
+         "launches_sharded": sharded_launches["rollout_batched_cuda"],
          "max_abs_err": max(b6["max_abs_err"], shapes["max_abs_err"]),
          "ms": bt["b6_ms"], "plain_ms": bt["plain_ms"],
          "ms_64x4096": st["b6_ms"], "plain_ms_64x4096": st["plain_ms"],
@@ -2908,6 +3228,7 @@ def main() -> int:
          "replaces": "cudasbmp_tpu/parallel/batch_kgmt.py:208",
          "systems": list(SYSTEMS),
          "launches": sum(rng_splits.values()), "splits": dict(rng_splits),
+         "launches_sharded": sharded_launches["sample_and_rollout_batched_cuda"],
          "max_abs_err": max(b6["max_abs_err"], shapes["max_abs_err"]),
          "ms_64x4096": st["b6_rng_ms"], "plain_ms_64x4096": st["rng_plain_ms"],
          "bound_ms_64x4096": rf.bound_ms(

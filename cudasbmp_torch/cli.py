@@ -9,6 +9,10 @@
     python -m cudasbmp_torch.cli sweep [--impl vmap|arena|stream] [--scenarios N] [...]
     python -m cudasbmp_torch.cli probe [--planner naive|costprop] [--width W]
                                        [--rows R] [--device cuda|cpu]
+    python -m cudasbmp_torch.cli sharded [--n-tree D] [--checkpoint-dir DIR
+                                         [--checkpoint-every N] [--resume-from F]]
+    python -m cudasbmp_torch.cli profile --trace-dir DIR [...]
+    python -m cudasbmp_torch.cli viz --artifacts DIR [--out tree.png]
 
 ``demo`` plans the reference demo scenario, ``plan`` a ``configurations/``
 directory (its numR1/numR2 files set the grid unless a flag does). Config
@@ -21,7 +25,8 @@ line of the solved path (``shortcut: cost A -> B (N -> M edges)``,
 shortcut.py::shortcut_path) and ``--refine`` the refinement line (``refine:
 cost A -> B (kept|rejected — original retained; hard-revalidation
 ok|FAILED)``, refine.py::refine_path, whose Adam steps run on kernel R1 on
-the card). Exit code 0 when solved, 1 when not, 2 on a usage error.
+the card); ``--plot`` with ``--out-dir`` also draws ``tree.png`` there
+(viz.py). Exit code 0 when solved, 1 when not, 2 on a usage error.
 
 ``record`` solves the demo one iteration at a time (KGMT.plan_recorded),
 dumping the per-iteration CSVs under ``--out-dir`` every ``--dump-every``
@@ -43,13 +48,24 @@ Naive and CostProp planners, no collision checks) on the demo's root and
 prints the reference's two lines (``Kernel execution time: ...``, ``Tree
 size: ...``) and a JSON line of rollouts/s.
 
+``sharded`` solves the demo with one logical tree over ``--n-tree`` shards
+(parallel/sharded_tree.py; default and divisor: the number of cards, so
+D = 1 on one card and with ``--device cpu``), in
+``--checkpoint-every``-iteration chunks with a checkpoint after each when
+``--checkpoint-dir`` is given (``--resume-from`` continues one), and prints
+the JAX CLI's JSON summary; exit 0 when solved, 1 when not.
+
+``profile`` solves the demo once outside the trace (nvcc and the first
+launches), then once inside a ``torch.profiler`` trace written to
+``--trace-dir`` (utils/profiling.py::trace_to), and prints where it went.
+``viz`` plots a dumped artifact directory to ``--out``. The plots need
+matplotlib, which the package does not depend on: without it ``viz`` and
+``--plot`` exit 2 with a message before any work.
+
 ``--device`` is explicit and defaults to ``cuda``, where the rollouts run
 through the hand-written CUDA kernels; without a CUDA device the CLI stops
 with an error instead of moving to the CPU. ``--device cpu`` runs the plain
 PyTorch versions.
-
-Not yet ported (exit 2): ``--plot`` and the subcommands ``viz``,
-``profile`` and ``sharded``.
 """
 
 from __future__ import annotations
@@ -58,9 +74,6 @@ import argparse
 import dataclasses
 import json
 import sys
-
-NOT_PORTED_COMMANDS = ("viz", "profile", "sharded")
-NOT_PORTED_FLAGS = ("plot",)
 
 
 def _add_config_args(p: argparse.ArgumentParser) -> None:
@@ -109,10 +122,11 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                    help="several sub-waves per iteration so every frontier "
                    "node gets its full fan-out")
     p.add_argument("--exchange-frac", type=float, default=None,
-                   help="sharded-tree exchange fraction (kept in the config; "
-                   "the sharded planner is not yet ported)")
+                   help="sharded-tree mode: fraction of each wave expanding "
+                   "the cross-shard frontier-exchange pool (0 disables)")
     p.add_argument("--exchange-k", type=int, default=None,
-                   help="sharded-tree exchange pool size (kept in the config)")
+                   help="sharded-tree mode: goal-nearest frontier nodes "
+                   "each shard publishes per iteration")
     p.add_argument("--need-path", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="--no-need-path runs the pathless feasibility "
@@ -134,9 +148,9 @@ def _add_plan_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--refine", action="store_true",
                    help="post-process the solution with gradient trajectory "
                    "refinement (hard-revalidated)")
-    for flag in NOT_PORTED_FLAGS:
-        p.add_argument(f"--{flag}", action="store_true",
-                       help="not yet ported (exits 2)")
+    p.add_argument("--plot", action="store_true",
+                   help="with --out-dir, also draw the tree to tree.png there "
+                   "(needs matplotlib)")
 
 
 def _config_from_args(args: argparse.Namespace):
@@ -164,6 +178,16 @@ def _error(msg: str) -> int:
     return 2
 
 
+def _plot_error() -> int:
+    """2 with a message when matplotlib, which the plots need, is absent."""
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        return _error("matplotlib is not installed; the plots (viz, --plot) "
+                      "need it")
+    return 0
+
+
 def _device_error(args: argparse.Namespace) -> int:
     """2 with a message when --device names CUDA on a host without it."""
     import torch
@@ -183,18 +207,17 @@ def _run_plan(args: argparse.Namespace, scenario) -> int:
         summarize_result,
     )
 
-    wants = [f"--{f}" for f in NOT_PORTED_FLAGS if getattr(args, f)]
-    if wants:
-        return _error(f"{', '.join(wants)}: not yet ported to cudasbmp_torch")
     if rc := _device_error(args):
         return rc
     device = args.device
     cfg = _config_from_args(args)
-    if not cfg.need_path and (args.out_dir or args.shortcut or args.refine):
+    if not cfg.need_path and (args.out_dir or args.shortcut or args.refine or args.plot):
         wants = [f for f, v in (("--shortcut", args.shortcut), ("--refine", args.refine),
-                                ("--out-dir", args.out_dir)) if v]
+                                ("--out-dir", args.out_dir), ("--plot", args.plot)) if v]
         return _error("--no-need-path keeps no tree/path; incompatible with "
                       + ", ".join(wants))
+    if args.plot and args.out_dir and (rc := _plot_error()):
+        return rc
     planner = KGMT(cfg, device=device)
     print(f"Goal: {scenario.goal[0]:f}, {scenario.goal[1]:f}")
     result = planner.plan(scenario)
@@ -223,6 +246,13 @@ def _run_plan(args: argparse.Namespace, scenario) -> int:
     if args.out_dir:
         written = write_artifacts(result.state, cfg, args.out_dir)
         print(f"wrote {len(written)} artifact CSVs to {args.out_dir}")
+        if args.plot:
+            from cudasbmp_torch.viz import plot_tree
+
+            out = plot_tree(result=result, config=cfg, obstacles=scenario.obstacles,
+                            out_path=f"{args.out_dir}/tree.png",
+                            footprint=cfg.footprint)
+            print(f"wrote {out}")
     return 0 if result.solved else 1
 
 
@@ -338,17 +368,74 @@ def _run_probe(args: argparse.Namespace) -> int:
     return 0
 
 
-def _first_command(argv: list[str]) -> str | None:
-    return next((a for a in argv if not a.startswith("-")), None)
+def _run_sharded(args: argparse.Namespace) -> int:
+    import torch
+
+    from cudasbmp_torch.config import Scenario
+    from cudasbmp_torch.parallel import ShardedTreePlanner, make_planner_mesh
+    from cudasbmp_torch.parallel.mesh import device_count
+
+    if args.resume_from and not args.checkpoint_dir:
+        return _error("--resume-from requires --checkpoint-dir")
+    if rc := _batch_usage_error(args):
+        return rc
+    cfg = _config_from_args(args)
+    # every shard lives on the one device; the tree axis defaults to, and
+    # must divide, the number of cards, as the JAX CLI's does its devices
+    n_dev = device_count() if torch.device(args.device).type == "cuda" else 1
+    n_tree = args.n_tree or n_dev
+    if n_dev % n_tree != 0:
+        return _error(f"--n-tree {n_tree} must divide the device count {n_dev}")
+    planner = ShardedTreePlanner(cfg, mesh=make_planner_mesh(
+        n_scenario=n_dev // n_tree, n_tree=n_tree, device=args.device))
+    sc = Scenario.demo()
+    if args.checkpoint_dir:
+        res = planner.plan_checkpointed(sc, args.checkpoint_dir,
+                                        checkpoint_every=args.checkpoint_every,
+                                        resume_from=args.resume_from)
+    else:
+        res = planner.plan(sc)
+    print(json.dumps({
+        "n_tree": n_tree,
+        "solved": res.solved,
+        "cost": res.cost if res.solved else None,
+        "iterations": res.iterations,
+        "total_tree_size": res.total_tree_size,
+        "best_shard": res.best_shard,
+        "path_crosses_shards": bool(len(set(res.path_shards.tolist())) > 1),
+        "wall_time_s": res.wall_time_s,
+    }, indent=2))
+    return 0 if res.solved else 1
+
+
+def _run_profile(args: argparse.Namespace) -> int:
+    from cudasbmp_torch.config import Scenario
+    from cudasbmp_torch.planners.kgmt import KGMT
+    from cudasbmp_torch.utils.profiling import trace_to
+
+    if rc := _device_error(args):
+        return rc
+    planner = KGMT(_config_from_args(args), device=args.device)
+    planner.plan(Scenario.demo())  # the build and first launches, outside
+    with trace_to(args.trace_dir):
+        result = planner.plan(Scenario.demo())
+    print(f"trace written to {args.trace_dir}; "
+          f"solved={result.solved} wall={result.wall_time_s:.3f}s")
+    return 0
+
+
+def _run_viz(args: argparse.Namespace) -> int:
+    if rc := _plot_error():
+        return rc
+    from cudasbmp_torch.viz import plot_tree
+
+    out = plot_tree(artifacts_dir=args.artifacts, out_path=args.out)
+    print(f"wrote {out}")
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    cmd = _first_command(argv)
-    if cmd in NOT_PORTED_COMMANDS:
-        return _error(f"subcommand {cmd!r}: not yet ported to cudasbmp_torch "
-                      "(use python -m cudasbmp_tpu.cli)")
-
     parser = argparse.ArgumentParser(prog="cudasbmp_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     p_demo = sub.add_parser("demo", help="plan the reference demo scenario")
@@ -401,12 +488,38 @@ def main(argv: list[str] | None = None) -> int:
     p_probe.add_argument("--rows", type=int, default=1)
     p_probe.add_argument("--device", default="cuda",
                          help="torch device (default cuda; cpu runs on the CPU)")
-    for name in NOT_PORTED_COMMANDS:
-        sub.add_parser(name, help="not yet ported (exits 2)")
+    p_viz = sub.add_parser("viz", help="plot a dumped artifact directory")
+    p_viz.add_argument("--artifacts", required=True)
+    p_viz.add_argument("--out", default="tree.png")
+    p_prof = sub.add_parser("profile", help="capture a torch.profiler trace of "
+                            "one solve (view in TensorBoard/Perfetto)")
+    _add_config_args(p_prof)
+    p_prof.add_argument("--trace-dir", required=True)
+    p_sharded = sub.add_parser(
+        "sharded", help="ONE logical tree sharded over the mesh 'tree' axis "
+        "(global guidance + cross-shard frontier exchange); optional chunked "
+        "checkpointing with exact resume")
+    _add_config_args(p_sharded)
+    p_sharded.add_argument("--n-tree", type=int, default=0,
+                           help="tree-axis size (0 = the number of cards)")
+    p_sharded.add_argument("--checkpoint-dir", default=None,
+                           help="run in chunks, writing a full-state "
+                           "checkpoint after each (plan_checkpointed)")
+    p_sharded.add_argument("--checkpoint-every", type=int, default=4,
+                           help="iterations per chunk/checkpoint")
+    p_sharded.add_argument("--resume-from", default=None,
+                           help="checkpoint npz to resume from "
+                           "(requires --checkpoint-dir)")
     args = parser.parse_args(argv)
 
     if args.cmd == "probe":
         return _run_probe(args)
+    if args.cmd == "sharded":
+        return _run_sharded(args)
+    if args.cmd == "profile":
+        return _run_profile(args)
+    if args.cmd == "viz":
+        return _run_viz(args)
 
     if args.cmd == "record":
         return _run_record(args)

@@ -33,12 +33,27 @@ def save_checkpoint(state: KGMTState | PathlessState, path: str | os.PathLike) -
     name = type(state).__name__
     if name not in _STATE_TYPES:
         raise TypeError(f"cannot checkpoint a {name}; expected one of {sorted(_STATE_TYPES)}")
+    write_state_npz(path, name, state_to_numpy(state))
+
+
+def write_state_npz(path: str | os.PathLike, name: str,
+                    fields: dict[str, np.ndarray]) -> None:
+    """The atomic write of ``save_checkpoint``: the arrays ``fields`` and the
+    marker ``name`` to ``path`` (``.npz`` appended where missing). The
+    sharded tree's stacked state goes through it too."""
     path = str(path)
     if not path.endswith(".npz"):
         path += ".npz"
     tmp = path + ".tmp.npz"
-    np.savez(tmp, **{_TYPE_FIELD: np.asarray(name)}, **state_to_numpy(state))
+    np.savez(tmp, **{_TYPE_FIELD: np.asarray(name)}, **fields)
     os.replace(tmp, path)
+
+
+def read_state_npz(path: str | os.PathLike) -> tuple[str, dict[str, np.ndarray]]:
+    """(marker, arrays) of a checkpoint file; no marker means KGMTState."""
+    with np.load(path) as z:
+        name = str(z[_TYPE_FIELD]) if _TYPE_FIELD in z.files else "KGMTState"
+        return name, {k: z[k] for k in z.files if k != _TYPE_FIELD}
 
 
 def load_checkpoint(path: str | os.PathLike, device: torch.device | str = "cuda"
@@ -46,7 +61,5 @@ def load_checkpoint(path: str | os.PathLike, device: torch.device | str = "cuda"
     """The state a checkpoint holds, its tensors on ``device``. Files
     without the marker (written before pathless states could be saved) hold
     a KGMTState."""
-    with np.load(path) as z:
-        name = str(z[_TYPE_FIELD]) if _TYPE_FIELD in z.files else "KGMTState"
-        fields = {k: z[k] for k in z.files if k != _TYPE_FIELD}
+    name, fields = read_state_npz(path)
     return state_from_numpy(_STATE_TYPES[name], fields, resolve_device(device))

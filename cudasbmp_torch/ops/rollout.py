@@ -1,7 +1,8 @@
 """Batched propagate-and-check in plain PyTorch: the plain version of the
 rollout kernel's exact path (counterpart of
 cudasbmp_tpu/ops/rollout.py::rollout_batch), and the unchecked propagation
-of the probe planners (``rollout_unchecked``).
+of the probe planners (``rollout_unchecked``) and its every-state form
+(``rollout_states``, the edge replay of viz.py).
 
 B rollouts advance in lockstep for ``num_disc`` Euler steps with an
 ``alive`` mask in place of the reference's ``break``: a rollout freezes at
@@ -65,3 +66,17 @@ def rollout_unchecked(system, x0: torch.Tensor, controls: torch.Tensor,
     for _ in range(num_disc):
         state = system.step(state, ctrl, dt)
     return state
+
+
+def rollout_states(system, x0: torch.Tensor, controls: torch.Tensor,
+                   num_disc: int) -> torch.Tensor:
+    """``rollout_unchecked`` keeping every state: x0 [..., state_dim],
+    controls [..., control_dim] (duration last) -> [..., num_disc + 1,
+    state_dim], x0 first (the edge replay of the reference's MATLAB
+    cross-check, visualizationKGMT_Single.m:86-112)."""
+    ctrl = controls[..., :-1]
+    dt = div(controls[..., -1], num_disc)
+    states = [x0]
+    for _ in range(num_disc):
+        states.append(system.step(states[-1], ctrl, dt))
+    return torch.stack(states, dim=-2)

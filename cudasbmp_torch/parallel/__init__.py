@@ -1,10 +1,12 @@
 from cudasbmp_torch.parallel.batch_kgmt import ArenaMultiQueryPlanner
+from cudasbmp_torch.parallel.mesh import device_count, make_planner_mesh
 from cudasbmp_torch.parallel.monte_carlo import MonteCarloPlanner, random_scenarios
 from cudasbmp_torch.parallel.multi_query import (
     MultiQueryPlanner,
     MultiQueryResult,
     stack_scenarios,
 )
+from cudasbmp_torch.parallel.sharded_tree import ShardedTreePlanner, ShardedTreeResult
 from cudasbmp_torch.parallel.streaming_mc import StreamingMonteCarloPlanner
 
 __all__ = [
@@ -12,7 +14,11 @@ __all__ = [
     "MonteCarloPlanner",
     "MultiQueryPlanner",
     "MultiQueryResult",
+    "ShardedTreePlanner",
+    "ShardedTreeResult",
     "StreamingMonteCarloPlanner",
+    "device_count",
+    "make_planner_mesh",
     "random_scenarios",
     "stack_scenarios",
 ]

@@ -58,7 +58,9 @@ from cudasbmp_torch.ops.rollout_cuda import (
     rollout_batched_cuda,
     sample_and_rollout_batched_cuda,
 )
+from cudasbmp_torch.planners.kgmt import _fresh_target, _num_waves
 from cudasbmp_torch.systems.registry import get_system
+from cudasbmp_torch.utils.profiling import phase_scope
 
 Tensor = torch.Tensor
 
@@ -265,12 +267,94 @@ def _rollout(cfg: KGMTConfig, system, k_ctrl: Tensor, x0: Tensor,
     return x1, controls, valid
 
 
+def batched_wave(cfg: KGMTConfig, system, grid: RegionGrid, goals: Tensor,
+                 obstacles: Tensor, s, slot: Tensor, parent_rows: Tensor,
+                 parent_cost: Tensor, parent_ids: Tensor, slot_active: Tensor,
+                 k_ctrl: Tensor, k_accept: Tensor, r1_score: Tensor, r2_seen: Tensor,
+                 id_base: Tensor | None = None
+                 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """One wave of every tree of a batch ([B, R] lanes), in place on ``s``
+    (a MultiQueryState or the sharded tree's ShardedState): one rollout
+    launch from ``parent_rows`` [B, R, SAMPLE_DIM], the region statistics
+    as exact integer ``index_add_`` counts into [B, ...], acceptance from
+    ``k_accept``, the commit (an exclusive cumsum within each tree, children
+    to slots ``tree_size_b + pos`` in lane order with parent ``parent_ids``,
+    those past M to a scratch row of their own past the trees) and the goal
+    test, the first lane winning ties; ``slot`` is ``arange(R)`` and
+    ``id_base`` [B], where given, is added to a goal node's slot. Updates tree_size, the r1 counters and r2_avail.
+    Returns (d1, d2, valid, within, samples1, r2_seen with the wave's
+    arrivals)."""
+    B, M, _ = s.tree_samples.shape
+    R = cfg.rollouts_per_iter
+    dev = goals.device
+    with phase_scope("kgmt_expand", dev):
+        x0 = parent_rows[..., :system.state_dim].contiguous()
+        x1, controls, valid = _rollout(cfg, system, k_ctrl, x0, obstacles)
+        valid = valid & slot_active
+        samples1 = torch.cat([x1, controls], dim=-1)
+
+    with phase_scope("kgmt_region_stats", dev):
+        r1, r2 = grid.region_indices(x1[..., 0:2])
+        in_r1, in_r2 = r1 >= 0, r2 >= 0
+        r1c, r2c = r1.clamp(min=0).long(), r2.clamp(min=0).long()
+        pair = torch.stack([slot_active.to(torch.int32), valid.to(torch.int32)], -1)
+        row = torch.arange(B, device=dev)[:, None]
+
+        def counts(n: int, idx: Tensor, inside: Tensor) -> Tensor:
+            z = torch.zeros((B * n, 2), dtype=torch.int32, device=dev)
+            z.index_add_(0, (row * n + idx).reshape(-1),
+                         (pair * inside[..., None]).reshape(-1, 2))
+            return z.view(B, n, 2)
+
+        d1 = counts(cfg.num_r1, r1c, in_r1)
+        d2 = counts(cfg.num_r2, r2c, in_r2)
+        u = rng.uniform(k_accept, (R,))
+        score_r = torch.where(in_r1, r1_score.gather(1, r1c), 0.0)
+        seen_r = torch.where(in_r2, r2_seen.gather(1, r2c), 0)
+        accept = valid & ((u <= score_r) | ~in_r2 | (seen_r == 0))
+        r2_seen = r2_seen | (d2[..., 1] > 0).to(torch.int32)
+
+    with phase_scope("kgmt_commit", dev):
+        accept_i = accept.to(torch.int64)
+        pos = torch.cumsum(accept_i, dim=1) - accept_i
+        ts = s.tree_size
+        within = accept & (ts[:, None] + pos < M)
+        child_cost = parent_cost + controls[..., -1]
+        scratch = B * M + row * R + slot
+        dst = torch.where(within, row * M + ts[:, None] + pos, scratch).reshape(-1)
+        s.flat_samples.index_copy_(0, dst, samples1.reshape(-1, SAMPLE_DIM))
+        s.flat_parent.index_copy_(0, dst, parent_ids.to(torch.int32).reshape(-1))
+        s.flat_costs.index_copy_(0, dst, child_cost.reshape(-1))
+
+    with phase_scope("kgmt_goal", dev):
+        dx = x1[..., 0] - goals[:, None, 0]
+        dy = x1[..., 1] - goals[:, None, 1]
+        in_goal = within & (dx * dx + dy * dy < cfg.goal_threshold ** 2)
+        goal_costs = torch.where(in_goal, child_cost, float("inf"))
+        best = torch.argmin(goal_costs, dim=1, keepdim=True)
+        best_cost = goal_costs.gather(1, best)[:, 0]
+        improved = best_cost < s.cost_to_goal
+        s.cost_to_goal = torch.where(improved, best_cost, s.cost_to_goal)
+        node = ts + pos.gather(1, best)[:, 0]
+        if id_base is not None:
+            node = id_base + node
+        s.goal_node = torch.where(improved, node.to(torch.int32), s.goal_node)
+
+    s.tree_size = ts + within.sum(dim=1)
+    s.r1_total += d1[..., 0]
+    s.r1_valid += d1[..., 1]
+    s.r1_invalid += d1[..., 0] - d1[..., 1]
+    s.r1_avail |= (d1[..., 1] > 0).to(torch.int32)
+    s.r2_avail |= (d2[..., 1] > 0).to(torch.int32)
+    return d1, d2, valid, within, samples1, r2_seen
+
+
 def multi_query_trip(cfg: KGMTConfig, system, grid: RegionGrid, goals: Tensor,
                      obstacles: Tensor, s: MultiQueryState) -> bool:
     """One trip of the vmapped flat loop: one wave for every running
     problem, in place. Returns whether any problem still runs (the trip's
     one read from the device)."""
-    B, M, _ = s.tree_samples.shape
+    B = s.tree_samples.shape[0]
     R = cfg.rollouts_per_iter
     dev = goals.device
     run = s.running
@@ -281,13 +365,10 @@ def multi_query_trip(cfg: KGMTConfig, system, grid: RegionGrid, goals: Tensor,
     s.fl0 = torch.where(is0, s.frontier_lo, s.fl0)
     s.ts0 = torch.where(is0, s.tree_size, s.ts0)
     frontier_size = s.ts0 - s.fl0
-    fresh = torch.minimum(cfg.fanout * frontier_size, M - s.ts0)
-    if not cfg.adaptive_waves:
-        fresh = fresh.clamp(max=R)
-    s.n_tgt = torch.where(is0, fresh, s.n_tgt)
+    s.n_tgt = torch.where(is0, _fresh_target(cfg, frontier_size, s.ts0), s.n_tgt)
     s.r2_seen = torch.where(is0[:, None], s.r2_avail, s.r2_seen)
 
-    # expand: round-robin parents over each frontier, one kernel launch
+    # expand: round-robin parents over each frontier, then the wave
     slot = torch.arange(R, dtype=torch.int64, device=dev)
     gslot = s.w[:, None] * R + slot
     slot_active = (gslot < s.n_tgt[:, None]) & run[:, None]
@@ -297,72 +378,14 @@ def multi_query_trip(cfg: KGMTConfig, system, grid: RegionGrid, goals: Tensor,
     parent_rows = s.tree_samples.gather(
         1, parent_idx[..., None].expand(B, R, SAMPLE_DIM))
     parent_cost = s.costs.gather(1, parent_idx)
-    x0 = parent_rows[..., :system.state_dim].contiguous()
     k_ctrl, k_accept = _wave_keys(s)
-    x1, controls, valid = _rollout(cfg, system, k_ctrl, x0, obstacles)
-    valid = valid & slot_active
-    samples1 = torch.cat([x1, controls], dim=-1)
-
-    # region statistics (exact integer counts) and acceptance
-    nr1, nr2 = cfg.num_r1, cfg.num_r2
-    r1, r2 = grid.region_indices(x1[..., 0:2])
-    in_r1, in_r2 = r1 >= 0, r2 >= 0
-    r1c, r2c = r1.clamp(min=0).long(), r2.clamp(min=0).long()
-    pair = torch.stack([slot_active.to(torch.int32), valid.to(torch.int32)], -1)
-    row = torch.arange(B, device=dev)[:, None]
-
-    def counts(n: int, idx: Tensor, inside: Tensor) -> Tensor:
-        z = torch.zeros((B * n, 2), dtype=torch.int32, device=dev)
-        z.index_add_(0, (row * n + idx).reshape(-1),
-                     (pair * inside[..., None]).reshape(-1, 2))
-        return z.view(B, n, 2)
-
-    d1 = counts(nr1, r1c, in_r1)
-    d2 = counts(nr2, r2c, in_r2)
-    u = rng.uniform(k_accept, (R,))
-    score_r = torch.where(in_r1, s.r1_score.gather(1, r1c), 0.0)
-    seen_r = torch.where(in_r2, s.r2_seen.gather(1, r2c), 0)
-    accept = valid & ((u <= score_r) | ~in_r2 | (seen_r == 0))
-    s.r2_seen = s.r2_seen | (d2[..., 1] > 0).to(torch.int32)
-
-    # commit in lane order; children past M go to the lanes' scratch rows
-    accept_i = accept.to(torch.int64)
-    pos = torch.cumsum(accept_i, dim=1) - accept_i
-    ts = s.tree_size
-    within = accept & (ts[:, None] + pos < M)
-    child_cost = parent_cost + controls[..., -1]
-    scratch = B * M + row * R + slot
-    dst = torch.where(within, row * M + ts[:, None] + pos, scratch).reshape(-1)
-    s.flat_samples.index_copy_(0, dst, samples1.reshape(-1, SAMPLE_DIM))
-    s.flat_parent.index_copy_(0, dst, parent_idx.to(torch.int32).reshape(-1))
-    s.flat_costs.index_copy_(0, dst, child_cost.reshape(-1))
-
-    # goal: the cheapest child inside the radius, the first lane on ties
-    dx = x1[..., 0] - goals[:, None, 0]
-    dy = x1[..., 1] - goals[:, None, 1]
-    in_goal = within & (dx * dx + dy * dy < cfg.goal_threshold ** 2)
-    goal_costs = torch.where(in_goal, child_cost, float("inf"))
-    best = torch.argmin(goal_costs, dim=1, keepdim=True)
-    best_cost = goal_costs.gather(1, best)[:, 0]
-    improved = best_cost < s.cost_to_goal
-    s.cost_to_goal = torch.where(improved, best_cost, s.cost_to_goal)
-    s.goal_node = torch.where(improved, (ts + pos.gather(1, best)[:, 0]).to(torch.int32),
-                              s.goal_node)
-
-    s.tree_size = ts + within.sum(dim=1)
-    s.r1_total += d1[..., 0]
-    s.r1_valid += d1[..., 1]
-    s.r1_invalid += d1[..., 0] - d1[..., 1]
-    s.r1_avail |= (d1[..., 1] > 0).to(torch.int32)
-    s.r2_avail |= (d2[..., 1] > 0).to(torch.int32)
+    *_, s.r2_seen = batched_wave(cfg, system, grid, goals, obstacles, s, slot,
+                                 parent_rows, parent_cost, parent_idx, slot_active,
+                                 k_ctrl, k_accept, s.r1_score, s.r2_seen)
 
     # iteration boundary, per problem
     w2 = s.w + 1
-    if cfg.adaptive_waves:
-        n_waves = (s.n_tgt + R - 1) // R
-    else:
-        n_waves = s.n_tgt.clamp(max=1)
-    last = run & (w2 >= n_waves)
+    last = run & (w2 >= _num_waves(cfg, s.n_tgt))
     stalled = s.tree_size == s.ts0
     if cfg.keep_frontier_on_stall:
         new_lo = torch.where(stalled, s.fl0, s.ts0)

@@ -30,8 +30,10 @@ Per wave, as in the JAX package:
 
 ``KGMT.resume`` continues a (checkpointed, io/checkpoint.py) state to its
 end; ``KGMT.plan_recorded`` steps ``kgmt_iteration`` with per-iteration
-artifact dumps. Not in this package yet: the sharded exchange pool
-(``expansion_wave`` raises when given one).
+artifact dumps. ``expansion_wave`` also takes the sharded tree's exchange
+pool and global-id base (parallel/sharded_tree.py drives the batched form).
+The phases run under ``utils.profiling.phase_scope``, named as the JAX
+package's ``named_scope``s, so a ``trace_to`` trace shows them.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from cudasbmp_torch.geometry.grid import RegionGrid
 from cudasbmp_torch.ops.rollout import rollout_batch
 from cudasbmp_torch.ops.rollout_cuda import rollout_cuda, sample_and_rollout_cuda
 from cudasbmp_torch.systems.registry import get_system
+from cudasbmp_torch.utils.profiling import phase_scope
 
 Tensor = torch.Tensor
 
@@ -299,17 +302,41 @@ def _goal_biased(cfg: KGMTConfig, frontier: Tensor, goal: Tensor,
     return out
 
 
+def apply_pool(cfg: KGMTConfig, gslot: Tensor, parent_rows: Tensor,
+               parent_cost: Tensor, parent_gid: Tensor, slot_active: Tensor,
+               pool: tuple[Tensor, Tensor, Tensor]):
+    """The exchange pool's share of a wave (cudasbmp_tpu/planners/kgmt.py:
+    361-374): the last ``round(exchange_frac * R)`` slots of the wave take
+    pool entry ``j = gslot % P`` as their parent wherever its global id is
+    not the padding -1, and are active whatever ``n_target`` says (a shard
+    whose own frontier is sterile still expands foreign nodes). ``gslot``
+    [R] is the wave's slot numbering; the parent tensors are [..., R] (and
+    [..., R, SAMPLE_DIM]); the pool is (rows [P, SAMPLE_DIM], ids i32 [P],
+    costs [P]). Returns the four tensors with the pool applied."""
+    pool_rows, pool_ids, pool_costs = pool
+    R = cfg.rollouts_per_iter
+    n_pool = int(round(cfg.exchange_frac * R))
+    j = gslot % pool_ids.shape[0]
+    slot = torch.arange(R, device=gslot.device)
+    use = (slot >= R - n_pool) & (pool_ids[j] >= 0)
+    return (torch.where(use[:, None], pool_rows[j], parent_rows),
+            torch.where(use, pool_costs[j], parent_cost),
+            torch.where(use, pool_ids[j].to(parent_gid.dtype), parent_gid),
+            slot_active | use)
+
+
 def expansion_wave(cfg: KGMTConfig, system, obstacles: Tensor, goal: Tensor,
                    s: KGMTState, wave: int = 0, frontier_lo: int | None = None,
                    frontier_size: int | None = None,
                    n_target: int | None = None, pool=None, gid_base: int = 0):
     """Sub-wave ``wave`` of iteration ``s.itr``: slot ``wave*R + i`` maps
     round-robin onto the frontier range (goal-biased slots first, see
-    ``_goal_biased``); slots at or past ``n_target`` are inactive. Returns
-    (slot_active, parent_idx, parent_cost, x1, controls, valid, samples1,
-    k_accept)."""
-    if pool is not None or gid_base:
-        raise NotImplementedError("the sharded exchange pool is not yet ported")
+    ``_goal_biased``); slots at or past ``n_target`` are inactive. With
+    ``pool`` (the sharded tree's exchange pool, ``apply_pool``) the wave's
+    last slots expand pool entries; ``gid_base`` (shard * M) turns local
+    parent indices into global ids. Returns (slot_active, parent_gid,
+    parent_cost, x1, controls, valid, samples1, k_accept); with no pool and
+    ``gid_base`` 0 the parent ids are the local indices."""
     M, R = cfg.max_tree_size, cfg.rollouts_per_iter
     dev = s.tree_samples.device
     if frontier_lo is None:
@@ -327,12 +354,16 @@ def expansion_wave(cfg: KGMTConfig, system, obstacles: Tensor, goal: Tensor,
             parent_idx, frontier_lo)
     parent_rows = s.tree_samples[parent_idx]
     parent_cost = s.costs[parent_idx]
+    parent_gid = parent_idx + gid_base if gid_base else parent_idx
+    if pool is not None:
+        parent_rows, parent_cost, parent_gid, slot_active = apply_pool(
+            cfg, gslot, parent_rows, parent_cost, parent_gid, slot_active, pool)
     x0 = parent_rows[:, :system.state_dim].contiguous()
     k_ctrl, k_accept = _wave_keys(s.key, s.itr, wave)
     x1, controls, valid = _expand_rollout(cfg, system, k_ctrl, x0, obstacles)
     valid = valid & slot_active
     samples1 = torch.cat([x1, controls], dim=-1)
-    return (slot_active, parent_idx.to(torch.int32), parent_cost, x1,
+    return (slot_active, parent_gid.to(torch.int32), parent_cost, x1,
             controls, valid, samples1, k_accept)
 
 
@@ -412,32 +443,37 @@ def _wave_step(cfg: KGMTConfig, system, grid: RegionGrid, obstacles: Tensor,
     r2_seen, solved)``. Updates the state in place."""
     M = cfg.max_tree_size
     w, s, r2_seen = carry
-    (slot_active, parent_idx, parent_cost, x1, controls, valid, samples1,
-     k_accept) = expansion_wave(cfg, system, obstacles, goal, s, wave=w,
-                                frontier_lo=frontier_lo0,
-                                frontier_size=tree_size0 - frontier_lo0,
-                                n_target=n_target)
-    d1, d2, accept, r2_seen = _region_stats_and_accept(
-        cfg, grid, x1, slot_active, valid, r1_score, r2_seen, k_accept)
+    dev = s.tree_samples.device
+    with phase_scope("kgmt_expand", dev):
+        (slot_active, parent_idx, parent_cost, x1, controls, valid, samples1,
+         k_accept) = expansion_wave(cfg, system, obstacles, goal, s, wave=w,
+                                    frontier_lo=frontier_lo0,
+                                    frontier_size=tree_size0 - frontier_lo0,
+                                    n_target=n_target)
+    with phase_scope("kgmt_region_stats", dev):
+        d1, d2, accept, r2_seen = _region_stats_and_accept(
+            cfg, grid, x1, slot_active, valid, r1_score, r2_seen, k_accept)
 
     ts = s.tree_size
-    incl, accept_pos, within = _commit_plan(accept, ts, M)
-    child_cost = parent_cost + controls[:, -1]
-    goal_costs = _goal_costs(cfg, x1, goal, within, child_cost)
-    best = torch.argmin(goal_costs)  # first index on ties
-    best_cost = goal_costs[best]
-    improved = best_cost < s.cost_to_goal
-    s.cost_to_goal = torch.where(improved, best_cost, s.cost_to_goal)
-    s.goal_node = torch.where(improved, (ts + accept_pos[best]).to(torch.int32),
-                              s.goal_node)
+    with phase_scope("kgmt_goal", dev):
+        incl, accept_pos, within = _commit_plan(accept, ts, M)
+        child_cost = parent_cost + controls[:, -1]
+        goal_costs = _goal_costs(cfg, x1, goal, within, child_cost)
+        best = torch.argmin(goal_costs)  # first index on ties
+        best_cost = goal_costs[best]
+        improved = best_cost < s.cost_to_goal
+        s.cost_to_goal = torch.where(improved, best_cost, s.cost_to_goal)
+        s.goal_node = torch.where(improved, (ts + accept_pos[best]).to(torch.int32),
+                                  s.goal_node)
 
-    n_sum, n_valid, solved = _readout(accept, valid, s.cost_to_goal)
-    n_acc = min(n_sum, M - ts)
-    if n_acc:
-        lanes = _first_accepted(incl, n_acc)
-        s.tree_samples[ts:ts + n_acc] = samples1[lanes]
-        s.tree_parent[ts:ts + n_acc] = parent_idx[lanes]
-        s.costs[ts:ts + n_acc] = child_cost[lanes]
+    with phase_scope("kgmt_commit", dev):
+        n_sum, n_valid, solved = _readout(accept, valid, s.cost_to_goal)
+        n_acc = min(n_sum, M - ts)
+        if n_acc:
+            lanes = _first_accepted(incl, n_acc)
+            s.tree_samples[ts:ts + n_acc] = samples1[lanes]
+            s.tree_parent[ts:ts + n_acc] = parent_idx[lanes]
+            s.costs[ts:ts + n_acc] = child_cost[lanes]
     s.tree_size = ts + n_acc
     s.r1_total += d1[:, 0]
     s.r1_valid += d1[:, 1]
@@ -463,14 +499,22 @@ def _keep_going(cfg: KGMTConfig, s, solved: bool) -> bool:
     return s.itr < cfg.num_iterations and s.tree_size < cfg.max_tree_size
 
 
-def _fresh_target(cfg: KGMTConfig, frontier_size: int, tree_size: int) -> int:
-    n_tgt = min(cfg.fanout * frontier_size, cfg.max_tree_size - tree_size)
-    return n_tgt if cfg.adaptive_waves else min(n_tgt, cfg.rollouts_per_iter)
+def _minimum(a, b):
+    return a.clamp(max=b) if isinstance(a, Tensor) else min(a, b)
 
 
-def _num_waves(cfg: KGMTConfig, n_tgt: int) -> int:
+def _fresh_target(cfg: KGMTConfig, frontier_size, tree_size):
+    """The iteration's rollout target: ``fanout`` children a frontier node,
+    at most the free slots (and one wave's R without adaptive waves). Host
+    ints, or int64 tensors of one target a tree (the batched planners)."""
+    n_tgt = _minimum(cfg.fanout * frontier_size, cfg.max_tree_size - tree_size)
+    return n_tgt if cfg.adaptive_waves else _minimum(n_tgt, cfg.rollouts_per_iter)
+
+
+def _num_waves(cfg: KGMTConfig, n_tgt):
+    """The iteration's sub-waves for target ``n_tgt`` (int or tensor)."""
     R = cfg.rollouts_per_iter
-    return (n_tgt + R - 1) // R if cfg.adaptive_waves else min(n_tgt, 1)
+    return (n_tgt + R - 1) // R if cfg.adaptive_waves else _minimum(n_tgt, 1)
 
 
 def kgmt_run(cfg: KGMTConfig, system, grid: RegionGrid, goal: Tensor,
@@ -482,9 +526,11 @@ def kgmt_run(cfg: KGMTConfig, system, grid: RegionGrid, goal: Tensor,
     solved = bool(torch.isfinite(s.cost_to_goal))
     w = fl0 = ts0 = n_tgt = 0
     r1_score, r1_thr, r2_seen = s.r1_score, s.r1_threshold, s.r2_avail
+    dev = s.tree_samples.device
     while w > 0 or _keep_going(cfg, s, solved):
         if w == 0:
-            r1_score, r1_thr = update_region_scores(cfg, s)
+            with phase_scope("kgmt_scores", dev):
+                r1_score, r1_thr = update_region_scores(cfg, s)
             fl0, ts0 = s.frontier_lo, s.tree_size
             n_tgt = _fresh_target(cfg, ts0 - fl0, ts0)
             r2_seen = s.r2_avail.clone()
@@ -514,15 +560,19 @@ def kgmt_iteration(cfg: KGMTConfig, system, grid: RegionGrid, obstacles: Tensor,
     on (or stays, on a stall with retry). The body of the reference's host
     loop (KGMT.cu:118-292), for ``KGMT.plan_recorded``'s step-by-step
     dumps; ``kgmt_run`` runs the same waves. Updates the state in place."""
-    r1_score, r1_thr = update_region_scores(cfg, s)
-    fl0, ts0 = s.frontier_lo, s.tree_size
-    n_tgt = _fresh_target(cfg, ts0 - fl0, ts0)
+    dev = s.tree_samples.device
+    with phase_scope("kgmt_scores", dev):
+        r1_score, r1_thr = update_region_scores(cfg, s)
+    with phase_scope("kgmt_frontier", dev):
+        fl0, ts0 = s.frontier_lo, s.tree_size
+        n_tgt = _fresh_target(cfg, ts0 - fl0, ts0)
     carry = (0, s, s.r2_avail.clone())
     it = s.itr
-    for _ in range(_num_waves(cfg, n_tgt)):
-        w, s, r2_seen, _ = _wave_step(cfg, system, grid, obstacles, goal, fl0, ts0,
-                                      n_tgt, r1_score, carry)
-        carry = (w, s, r2_seen)
+    with phase_scope("kgmt_waves", dev):
+        for _ in range(_num_waves(cfg, n_tgt)):
+            w, s, r2_seen, _ = _wave_step(cfg, system, grid, obstacles, goal, fl0,
+                                          ts0, n_tgt, r1_score, carry)
+            carry = (w, s, r2_seen)
     s.stalled = s.tree_size == ts0
     s.frontier_lo = fl0 if cfg.keep_frontier_on_stall and s.stalled else ts0
     s.r1_score, s.r1_threshold = r1_score, r1_thr
@@ -555,7 +605,8 @@ def kgmt_run_pathless(cfg: KGMTConfig, system, grid: RegionGrid, goal: Tensor,
     slot = torch.arange(R, dtype=torch.int64, device=dev)
     while w > 0 or _keep_going(cfg, s, solved):
         if w == 0:
-            r1_score, r1_thr = update_region_scores(cfg, s)
+            with phase_scope("kgmt_scores", dev):
+                r1_score, r1_thr = update_region_scores(cfg, s)
             n_tgt = _fresh_target(cfg, s.n_frontier, s.tree_size)
             r2_seen = s.r2_avail.clone()
             n_next = 0

@@ -4,12 +4,15 @@ equal to KGMT.plan's, the flag-over-file override rule of the JAX CLI, the
 artifact dump, the batch subcommands ``multi`` and ``sweep`` (the JAX CLI's
 JSON keys, values equal to the library call's; the vmapped multi-query
 planner by default), ``--shortcut``, ``--refine``, the throughput probe
-``probe``, and exit code 2 for what is not yet ported."""
+``probe``, the sharded tree ``sharded``, ``profile``, ``viz`` and
+``--plot``."""
 
 import argparse
 import json
 import pathlib
 import re
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -104,15 +107,110 @@ def test_flag_overrides_config_file_as_in_the_jax_cli(tmp_path):
     assert got.to_dict() == want.to_dict()
 
 
-@pytest.mark.parametrize("argv", [
-    ["viz", "--artifacts", "x"], ["viz", "--out", "tree.png"],
-    ["profile", "--trace-dir", "x"], ["sharded"],
-    ["plan", "--configurations", CONFIGURATIONS, "--device", "cpu", "--plot"],
-    ["demo", "--device", "cpu", "--plot"],
-])
-def test_not_yet_ported_exits_2(capsys, argv):
-    rc, out, err = run(capsys, *argv)
-    assert rc == 2 and "not yet ported" in err and out == ""
+SHARDED_SMALL = ["--num-iterations", "60", "--max-tree-size", "2048",
+                 "--rollouts-per-iter", "512", "--no-adaptive-waves"]
+SOLVING = ["--max-tree-size", "16384", "--rollouts-per-iter", "2048"]  # seed 0 solves
+SHARDED_KEYS = ["n_tree", "solved", "cost", "iterations", "total_tree_size",
+                "best_shard", "path_crosses_shards", "wall_time_s"]
+
+
+@pytest.fixture(scope="module")
+def artifacts(tmp_path_factory):
+    """A demo's artifact CSVs, dumped by the CLI."""
+    out = tmp_path_factory.mktemp("artifacts")
+    assert cli.main(["demo", "--device", "cpu", *SMALL, "--out-dir", str(out)]) in (0, 1)
+    assert (out / "samples.csv").exists()
+    return out
+
+
+@pytest.mark.parametrize("case", ["viz", "viz_out", "profile", "sharded", "plan_plot",
+                                  "demo_plot_without_out_dir"])
+def test_ported_commands_run(capsys, tmp_path, monkeypatch, artifacts, case):
+    """The commands the JAX CLI has (cudasbmp_tpu/cli.py:158-166, 309-314,
+    393-460), at small sizes on the CPU: ``viz`` writes its plot,
+    ``profile`` its trace, ``sharded`` the JAX CLI's JSON keys with the
+    library call's values, ``--plot`` tree.png beside the artifacts, and
+    ``--plot`` without ``--out-dir`` draws nothing, as in the JAX CLI."""
+    if case.startswith("viz"):
+        argv = ["viz", "--artifacts", str(artifacts)]
+        if case == "viz_out":
+            png = tmp_path / "v.png"
+            argv += ["--out", str(png)]
+        else:  # the default --out, tree.png in the working directory
+            png = pathlib.Path("tree.png")
+            monkeypatch.chdir(tmp_path)
+        rc, out, err = run(capsys, *argv)
+        assert rc == 0 and out == f"wrote {png}\n" and png.stat().st_size > 10_000
+    elif case == "profile":
+        rc, out, err = run(capsys, "profile", "--device", "cpu", "--trace-dir",
+                           str(tmp_path / "trace"), *SOLVING)
+        assert rc == 0
+        assert re.fullmatch(rf"trace written to {re.escape(str(tmp_path / 'trace'))}; "
+                            r"solved=True wall=\d+\.\d{3}s", out.strip())
+        assert len(list((tmp_path / "trace").glob("*.pt.trace.json"))) == 1
+    elif case == "sharded":
+        rc, out, err = run(capsys, "sharded", "--device", "cpu", "--seed", "3",
+                           *SHARDED_SMALL)
+        got = json_of(out)
+        assert list(got) == SHARDED_KEYS and got["n_tree"] == 1
+        from cudasbmp_torch.parallel import ShardedTreePlanner, make_planner_mesh
+
+        cfg = ct.KGMTConfig(num_iterations=60, max_tree_size=2048, rollouts_per_iter=512,
+                            adaptive_waves=False, seed=3)
+        want = ShardedTreePlanner(cfg, mesh=make_planner_mesh(n_tree=1, device="cpu")
+                                  ).plan(ct.Scenario.demo())
+        assert (got["solved"], got["iterations"], got["total_tree_size"],
+                got["best_shard"]) == (want.solved, want.iterations,
+                                       want.total_tree_size, want.best_shard)
+        assert got["cost"] == (want.cost if want.solved else None)
+        assert rc == (0 if want.solved else 1)
+    elif case == "plan_plot":
+        rc, out, err = run(capsys, "plan", "--configurations", CONFIGURATIONS,
+                           "--device", "cpu", *SMALL, "--plot", "--out-dir", str(tmp_path))
+        assert rc in (0, 1) and f"wrote {tmp_path}/tree.png" in out
+        assert (tmp_path / "tree.png").stat().st_size > 10_000
+    else:
+        rc, out, err = run(capsys, "demo", "--device", "cpu", *SOLVING, "--plot")
+        assert rc == 0 and "wrote" not in out and summary_of(out)["solved"]
+
+
+def test_sharded_checkpoints_resume_and_refusals(capsys, tmp_path):
+    """--checkpoint-dir writes a checkpoint a chunk and ends as the plain
+    run; --resume-from continues one to the same summary; --resume-from
+    without --checkpoint-dir, an --n-tree that does not divide the device
+    count and --no-need-path exit 2, as in the JAX CLI."""
+    rc, out, _ = run(capsys, "sharded", "--device", "cpu", *SHARDED_SMALL)
+    plain = without_timing(json_of(out))
+    rc2, out, _ = run(capsys, "sharded", "--device", "cpu", *SHARDED_SMALL,
+                      "--checkpoint-dir", str(tmp_path / "a"), "--checkpoint-every", "5")
+    assert rc2 == rc and without_timing(json_of(out)) == plain
+    ckpts = sorted((tmp_path / "a").glob("sharded_checkpoint_*.npz"),
+                   key=lambda q: int(q.stem.split("_")[-1]))
+    assert [int(q.stem.split("_")[-1]) for q in ckpts][:2] == [5, 10]
+    rc3, out, _ = run(capsys, "sharded", "--device", "cpu", *SHARDED_SMALL,
+                      "--checkpoint-dir", str(tmp_path / "b"), "--resume-from", str(ckpts[0]))
+    assert rc3 == rc and without_timing(json_of(out)) == plain
+    for argv, msg in ((["--resume-from", str(ckpts[0])], "requires --checkpoint-dir"),
+                      (["--n-tree", "2"], "must divide the device count 1"),
+                      (["--no-need-path"], "--no-need-path")):
+        rc, out, err = run(capsys, "sharded", "--device", "cpu", *argv)
+        assert rc == 2 and msg in err and out == ""
+
+
+def test_plots_without_matplotlib_exit_2(artifacts):
+    """Where matplotlib is absent (the package does not depend on it), viz
+    and demo --plot --out-dir exit 2 with a message, before any solve."""
+    code = ("import sys; sys.modules['matplotlib'] = None\n"
+            "import importlib.util as u; u.find_spec = lambda name, *a: None\n"
+            "from cudasbmp_torch import cli\n"
+            "sys.exit(cli.main(sys.argv[1:]))\n")
+    for argv in (["viz", "--artifacts", str(artifacts)],
+                 ["demo", "--device", "cpu", "--plot", "--out-dir", str(artifacts / "x")]):
+        p = subprocess.run([sys.executable, "-c", code, *argv], cwd=REPO,
+                           capture_output=True, text=True, timeout=120)
+        assert p.returncode == 2 and p.stdout == "", p.stderr
+        assert "matplotlib is not installed" in p.stderr
+    assert not (artifacts / "x").exists()
 
 
 @pytest.mark.parametrize("planner,width,rows", [("naive", 256, 3),
@@ -146,7 +244,8 @@ def test_device_cuda_without_a_card_fails_loudly(capsys):
     assert "Goal:" not in out
 
 
-@pytest.mark.parametrize("argv", [["--help"], ["demo", "--help"], ["plan", "--help"]])
+@pytest.mark.parametrize("argv", [["--help"], ["demo", "--help"], ["plan", "--help"],
+                                  ["sharded", "--help"], ["profile", "--help"]])
 def test_help_renders(capsys, argv):
     """argparse %-formats help strings: a stray '%' would crash --help."""
     with pytest.raises(SystemExit) as e:
@@ -304,7 +403,7 @@ def test_sweep_vmap_refuses_max_extensions():
 
 @pytest.mark.parametrize("argv", [
     ["multi", "--impl", "arena"], ["sweep", "--impl", "arena"],
-    ["sweep", "--impl", "stream"]])
+    ["sweep", "--impl", "stream"], ["sharded"]])
 def test_batch_subcommands_reject_no_need_path(capsys, argv):
     rc, out, err = run(capsys, *argv, "--no-need-path", "--device", "cpu")
     assert rc == 2 and "--no-need-path" in err and out == ""

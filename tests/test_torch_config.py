@@ -70,8 +70,8 @@ def test_from_file_matches_jax():
 
 def test_unsupported_options_raise():
     """goal_bias, footprint_width and fast_math plan now, on every system of
-    the registry; what the port still lacks raises: the sharded exchange
-    pool, and a system name no registry knows."""
+    the registry, and expansion_wave takes the sharded exchange pool; a
+    system name no registry knows raises."""
     import torch as _torch
 
     from cudasbmp_torch import KGMT
@@ -86,9 +86,12 @@ def test_unsupported_options_raise():
     planner = KGMT(cfg, device="cpu")
     sc = tconfig.Scenario.demo()
     s = tk.init_state(cfg, planner.grid, _torch.tensor(sc.init), tk.rng.key(0))
-    with pytest.raises(NotImplementedError, match="pool"):
-        tk.expansion_wave(cfg, planner.system, _torch.tensor(sc.obstacles),
-                          _torch.tensor(sc.goal), s, pool=(None, None, None))
+    pool = (_torch.ones((2, 7)), _torch.tensor([5, -1], dtype=_torch.int32),
+            _torch.ones(2))
+    gid = tk.expansion_wave(cfg, planner.system, _torch.tensor(sc.obstacles),
+                            _torch.tensor(sc.goal), s, pool=pool, gid_base=256)[1]
+    n_pool = round(cfg.exchange_frac * 64)
+    assert (gid[64 - n_pool:][::2] == 5).all() and (gid[:64 - n_pool] == 256).all()
     with pytest.raises(KeyError, match="unknown system"):
         KGMT(tconfig.KGMTConfig(system="quadrotor"), device="cpu")
 
@@ -105,7 +108,9 @@ def test_package_imports_and_solves_with_jax_blocked():
     with JAX and the JAX package blocked, and the single query, the arena
     sweep, the streaming sweep, the vmap sweep and multi-query planner, the
     shortcut, the probe planners, the throughput probe, the refinement, the
-    recorded solve and a resume from its checkpoint run."""
+    recorded solve and a resume from its checkpoint, the sharded tree
+    (chunked, with checkpoints), the state validator, the Agent model, a
+    profiler trace and the edge replay of the plots run."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -159,6 +164,26 @@ def test_package_imports_and_solves_with_jax_blocked():
         "r = p.plan_recorded(sc, d, checkpoint_every=1)\n"
         "assert p.resume(load_checkpoint(d + '/checkpoint_1.npz', device='cpu'),\n"
         "                sc).tree_size == r.tree_size\n"
+        "for name in ('models', 'viz', 'utils.validate', 'utils.profiling',\n"
+        "             'parallel.mesh', 'parallel.sharded_tree'):\n"
+        "    assert 'cudasbmp_torch.' + name in sys.modules, name\n"
+        "mesh = parallel.make_planner_mesh(n_tree=2, device='cpu')\n"
+        "res = parallel.ShardedTreePlanner(cfg, mesh=mesh).plan_checkpointed(\n"
+        "    sc, d + '/sharded', checkpoint_every=1)\n"
+        "assert res.iterations == 2 and res.tree_sizes_by_shard.shape == (2,), res\n"
+        "from cudasbmp_torch.utils.validate import validate_state\n"
+        "assert validate_state(r.state, cfg)['tree_size'] == r.tree_size\n"
+        "from cudasbmp_torch.models import Agent\n"
+        "a = Agent(v=1.0)\n"
+        "a.update_state(1.0, 0.1, 0.1)\n"
+        "assert a.x > 0 and a.v > 1.0, a\n"
+        "from cudasbmp_torch.utils.profiling import trace_to\n"
+        "with trace_to(d + '/trace'):\n"
+        "    p.plan(sc)\n"
+        "from cudasbmp_torch import viz\n"
+        "t = r.state.tree_samples[:r.tree_size].numpy()\n"
+        "e = viz._integrate_edges(p.system, t[:-1], t[1:, 4:7], cfg.num_disc)\n"
+        "assert e.shape == (r.tree_size - 1, cfg.num_disc + 1, 4), e.shape\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
         "print('ok')\n"
     )

@@ -842,3 +842,42 @@ def test_refine_wrapper_rejects_bad_inputs(dev):
         rf._launch(system, x0, c, w, goal, obs, **dict(REFINE_KW, num_disc=2 ** 30))
     with pytest.raises(ValueError, match="several devices"):
         rf.refine_penalty_cuda(system, x0.cpu(), c, w, goal, obs, **REFINE_KW)
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda_rng"])
+@pytest.mark.parametrize("D", [1, 4])
+def test_sharded_trips_equal_the_twin(dev, D, backend, monkeypatch):
+    """ShardedTreePlanner at KGMTConfig()'s widths (8 iterations): every
+    trip is one launch of B6 (auto) or of B6's Philox form (cuda_rng) over
+    D shards x 4,096 lanes with the one box set given to every shard, and
+    its rows equal the plain twin's on the same card and inputs to the
+    bit."""
+    from cudasbmp_torch.parallel import ShardedTreePlanner, make_planner_mesh
+    from cudasbmp_torch.parallel import multi_query as mq
+
+    calls = []
+    rollout = mq._rollout
+
+    def spy(cfg, system, k_ctrl, x0, obstacles):
+        out = rollout(cfg, system, k_ctrl, x0, obstacles)
+        calls.append((system, k_ctrl, x0, obstacles, *out))
+        return out
+
+    monkeypatch.setattr(mq, "_rollout", spy)
+    rc.reset_launch_counts()
+    cfg = ctt.KGMTConfig(num_iterations=8, rollout_backend=backend)
+    planner = ShardedTreePlanner(cfg, mesh=make_planner_mesh(n_tree=D))
+    planner.plan(Scenario.demo())
+    wrapper = (rc.rollout_batched_cuda if backend == "auto"
+               else rc.sample_and_rollout_batched_cuda)
+    assert wrapper.launches == len(calls) == planner.last_state.trips > 0
+    for system, k_ctrl, x0, obstacles, x1, controls, valid in calls:
+        assert x0.shape == (D, cfg.rollouts_per_iter, 4) and obstacles.shape[0] == D
+        assert bool((obstacles == obstacles[0]).all())
+        if backend == "auto":
+            tx1, tvalid = rc.rollout_soa(system, x0, controls, obstacles, **KW)
+        else:
+            tx1, tc, tvalid = rc.sample_and_rollout_torch(system, k_ctrl, x0, obstacles,
+                                                          **KW)
+            assert _bitwise(tc, controls)
+        assert _bitwise(tx1, x1) and torch.equal(tvalid, valid)

@@ -3,6 +3,7 @@
     python3 time_kernels.py [--root CHECKOUT] [--reps 5] [--no-groups]
                             [--group-lanes 4096,32768] [--group-splits 1,4]
                             [--only b5,p1a,p1b,p2] [--sass] [--clocks]
+                            [--demo-tts]
 
 Imports cudasbmp_torch from CHECKOUT (default: the directory of this
 script), builds its kernels, and times, on the demo's obstacles (K=8):
@@ -47,6 +48,15 @@ kept, ``digests``: the sha256 (first 16 hex digits) of P1a's output at 64
 and 16,384 links and of P2's at each table size, and of both at a ragged
 size (chip_smoke.py::ragged_chain_inputs), so two checkouts can be shown
 to give the same bits.
+
+``--demo-tts`` also solves the reference demo at KGMTConfig() once to
+warm up, then 3 times over seeds 0-7, and adds ``demo_tts``: the time to
+solution (``KGMTResult.wall_time_s``) p50, p90, least and most, a digest
+of every solve's (solved, iterations, tree size, cost), so two checkouts
+can be shown to solve alike, and, where the checkout names its phases
+(``utils/profiling.py``), the host cost in us of one ``phase_scope`` on
+the card and of one NVTX push and pop. ``--only demo_tts --demo-tts``
+times the demo alone.
 
 ``--clocks`` also runs each row kept back to back for 2 s while
 nvidia-smi reads the SM clock and the power draw every 0.1-0.2 s, and adds
@@ -94,6 +104,7 @@ import subprocess
 import sys
 import threading
 import time
+import timeit
 from collections import Counter
 
 
@@ -367,6 +378,43 @@ def hold_clocks(fn, seconds: float = 2.0) -> dict:
         if v}}
 
 
+def demo_tts(root: pathlib.Path, seeds: int = 8, passes: int = 3) -> dict:
+    """The ``--demo-tts`` reading (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from cudasbmp_torch import KGMT, KGMTConfig, Scenario
+
+    planner = KGMT(KGMTConfig(), device="cuda")
+    planner.plan(Scenario.demo(), seed=100)
+    walls, results = [], []
+    for _ in range(passes):
+        for seed in range(seeds):
+            r = planner.plan(Scenario.demo(), seed=seed)
+            walls.append(r.wall_time_s)
+            results.append([r.solved, r.iterations, r.tree_size, r.cost])
+    out = {"solves": len(walls), "tts_p50_s": float(np.percentile(walls, 50)),
+           "tts_p90_s": float(np.percentile(walls, 90)), "tts_min_s": min(walls),
+           "tts_max_s": max(walls),
+           "results_digest": hashlib.sha256(json.dumps(results).encode()).hexdigest()[:16]}
+    if (root / "cudasbmp_torch" / "utils" / "profiling.py").exists():
+        from cudasbmp_torch.utils import profiling
+
+        dev, n = torch.device("cuda", 0), 20_000
+
+        def scope():
+            with profiling.phase_scope("kgmt_expand", dev):
+                pass
+
+        def push_pop():
+            torch.cuda.nvtx.range_push("kgmt_expand")
+            torch.cuda.nvtx.range_pop()
+
+        out["phase_scope_us"] = timeit.timeit(scope, number=n) / n * 1e6
+        out["nvtx_push_pop_us"] = timeit.timeit(push_pop, number=n) / n * 1e6
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=pathlib.Path,
@@ -385,6 +433,8 @@ def main() -> int:
                     "instructions of their loops")
     ap.add_argument("--clocks", action="store_true",
                     help="read the SM clock and power draw while each row runs 2 s")
+    ap.add_argument("--demo-tts", action="store_true",
+                    help="also time 24 demo solves and a phase scope's host cost")
     args = ap.parse_args()
     import torch
 
@@ -530,6 +580,8 @@ def main() -> int:
             digests[f"p2_{rows}"] = digest(cc.gather_chain_cuda(tbl, idx, rf.GATHER_CHAIN))
             digests[f"p2_{rows}_ragged"] = digest(cc.gather_chain_cuda(
                 *ragged_chain_inputs(dev, rows), rf.GATHER_CHAIN))
+    if args.demo_tts:
+        result["demo_tts"] = demo_tts(root)
     if args.clocks:
         result["clocks"] = {name: hold_clocks(fn) for name, fn in runs.items()}
     if args.sass:
