@@ -1,10 +1,12 @@
 """Drive the cudasbmp_torch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # phases 1-31, one GPU, no network
+    python3 chip_smoke.py            # phases 1-33, one GPU, no network
     python3 chip_smoke.py --profile  # also: torch.profiler over a demo solve,
                                      # an arena solve and a streaming sweep
     python3 chip_smoke.py --compare OLD.json NEW.json  # two runs' records:
                                      # do their solves agree? (no GPU needed)
+    python3 chip_smoke.py --ranks N  # phase 33 alone over N processes (a card
+                                     # a rank: nccl), after [16], [22], [30]
 
 Run from the root of a checkout. The CUDA kernels build from
 cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
@@ -155,7 +157,23 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     naming the sharded iteration's phases; validate_state on a demo solve;
 31. the CLI's sharded (with --checkpoint-dir and --resume-from), profile
     (its trace's phase names) and demo --plot --out-dir and viz (exit 2
-    with a message without matplotlib) as subprocesses on the card.
+    with a message without matplotlib) as subprocesses on the card;
+32. the sharded multi-query planner at full width: the CLI multi default's
+    64 jittered demo pairs x 4 shards each at KGMTConfig(), under 'auto'
+    (every trip one launch of B6 over 64 x 4 x 4,096 lanes) and 'cuda_rng'
+    (B6's Philox form): solve rate, cost quantiles, iterations, trips,
+    launches (equal to the trips), launches and host reads an iteration and
+    a trip, wall, solves/s; problems 0-3 equal ShardedTreePlanner's solves
+    under their keys, bitwise; the first trips' rows bitwise the twin's on
+    the card; every solved path replays;
+33. two processes on the one card joined by gloo (this script's
+    --two-ranks-child, a rank each, killed if they outlive the timeout):
+    the sharded tree at D = 4 (two shards a rank) seeds 0-3 under both
+    backends, plan_checkpointed (rank 0 writes; the file resumes in a fresh
+    one-process planner), MultiQueryPlanner over the two ranks at the CLI
+    multi default and run_sharded at 4,096 scenarios (a pool of 1,024 a
+    rank): every result bitwise [30]'s, [22]'s and [16]'s one-process
+    results; each rank's walls, launches a trip and host reads an iteration.
 
 Then the card's name and power limit, a JSON line of the kernels and,
 last, {"ok": true, "device": {...}}. Each kernel entry has its device
@@ -1120,9 +1138,11 @@ def quantiles(costs: np.ndarray) -> list[float]:
             else [math.nan] * 3)
 
 
-def arena_config4(dev, backend: str) -> dict:
+def arena_config4(dev, backend: str) -> tuple[dict, str]:
     """Phase 14: BASELINE config 4 through the batched arena, as bench.py
-    measures it (warm-up seed 7, measured seed 8 with one extension)."""
+    measures it (warm-up seed 7, measured seed 8 with one extension).
+    Returns the record and the result's digest ([33] holds the ranks to
+    it)."""
     from cudasbmp_torch import KGMTConfig
     from cudasbmp_torch.ops import rollout_cuda as rc
     from cudasbmp_torch.parallel import ArenaMultiQueryPlanner
@@ -1160,7 +1180,7 @@ def arena_config4(dev, backend: str) -> dict:
             "solves_per_sec": res.solves_per_sec, "wall_time_s": res.wall_time_s,
             "waves": waves, "launches": kernel.launches, "split": G,
             "splits": dict(kernel.splits), "budget_exhausted": int(res.budget_exhausted.sum()),
-            "replay_max_err": worst}
+            "replay_max_err": worst}, arena_digest(res)
 
 
 def arena_extension(dev) -> dict:
@@ -1252,16 +1272,17 @@ def mc_sweep(dev) -> dict:
             "launches": rc.rollout_batched_cuda.launches, "splits": dict(splits)}
 
 
-def stream_sweep(dev) -> dict:
+def stream_sweep(dev) -> tuple[dict, dict]:
     """Phase 16: the streaming sweep at bench.py's width under 'auto' (B6)
     and 'cuda_rng' (B6's Philox form), then the partition and pool-size
-    invariances at 256 scenarios."""
+    invariances at 256 scenarios. Returns the record and, by backend, the
+    sweep's digest of costs and iterations and its wall (phase 33)."""
     from cudasbmp_torch import KGMTConfig
     from cudasbmp_torch.ops import rollout_cuda as rc
     from cudasbmp_torch.parallel import StreamingMonteCarloPlanner
     from cudasbmp_torch.parallel import streaming_mc as sm
 
-    out = {}
+    out, sweeps = {}, {}
     for backend, kernel in (("auto", rc.rollout_batched_cuda),
                             ("cuda_rng", rc.sample_and_rollout_batched_cuda)):
         cfg = KGMTConfig(**SWEEP, rollout_backend=backend)
@@ -1304,7 +1325,8 @@ def stream_sweep(dev) -> dict:
                         "mean_iters": s.mean_iters, "iterations": iters,
                         "launches": main_launches, "invariance_256": inv,
                         "solve_rate_256": single.solve_rate}
-    return out
+        sweeps[backend] = {"digest": digest(s.costs, s.iters), "wall_time_s": s.wall_time_s}
+    return out, sweeps
 
 
 def run_batch_cli() -> dict:
@@ -1430,6 +1452,29 @@ def single_solve(cfg, planner, init, goal, obstacles, key) -> list:
             samples[:int(length)].cpu().numpy().view(np.uint32).tolist()]
 
 
+def digest(*arrays) -> str:
+    """sha256 of the arrays' bytes, in order (their bits, not their values)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def multi_digest(res) -> str:
+    """A MultiQueryResult's solve fields as one digest."""
+    return digest(res.solved, res.costs, res.iterations, res.tree_sizes, res.paths,
+                  res.path_lengths)
+
+
+def arena_digest(res) -> str:
+    """An arena result's solve fields, its exhausted flags too, as one
+    digest."""
+    return digest(res.solved, res.costs, res.iterations, res.tree_sizes, res.paths,
+                  res.path_lengths, res.budget_exhausted)
+
+
 def batched_row(res, b: int) -> list:
     """Problem b of a MultiQueryResult in single_solve's layout."""
     n = int(res.path_lengths[b])
@@ -1550,7 +1595,8 @@ def multi_query_default(dev) -> tuple[dict, dict]:
             "replay_max_err": worst, "trip_costs": {str(k): v for k, v in costs.items()}}
         if backend == "auto":
             batch = {"paths": res.paths, "path_lengths": res.path_lengths,
-                     "costs": res.costs, "goals": goals, "obstacles": obstacles}
+                     "costs": res.costs, "goals": goals, "obstacles": obstacles,
+                     "digest": multi_digest(res), "wall_time_s": res.wall_time_s}
     return out, batch
 
 
@@ -2298,10 +2344,11 @@ def traced_scopes(log_dir: pathlib.Path) -> list[str]:
     return sorted({e["name"] for e in events if e.get("cat") == "user_annotation"})
 
 
-def iteration_costs(planner, dev, iterations: int = 3) -> dict:
+def iteration_costs(planner, dev, iterations: int = 3, start=None, mesh=None) -> dict:
     """Kernel launches and host reads an iteration of the sharded loop over
-    ``iterations`` iterations of a fresh demo solve (seed 0): launches by
-    the profiler's runtime-API records, host reads by torch's
+    ``iterations`` iterations of a fresh solve (``start() -> (state, goal,
+    boxes)``; default the demo's at seed 0), with ``mesh``'s collectives:
+    launches by the profiler's runtime-API records, host reads by torch's
     synchronization warnings (torch.cuda.set_sync_debug_mode)."""
     import warnings
 
@@ -2311,18 +2358,23 @@ def iteration_costs(planner, dev, iterations: int = 3) -> dict:
     from cudasbmp_torch.parallel import sharded_tree as st
 
     cfg = planner.config
-    goal, boxes = planner._inputs(Scenario.demo())
+    if start is None:
+        goal, boxes = planner._inputs(Scenario.demo())
+
+        def start():
+            return planner._init(Scenario.demo(), 0, None), goal, boxes
     out = {}
     for mode in ("launches", "reads"):
-        s = planner._init(Scenario.demo(), 0, None)
-        _, trips = st.sharded_readout(cfg, s)
+        s, goal, boxes = start()
+        _, trips = st.sharded_readout(cfg, s, mesh)
         torch.cuda.synchronize()
 
         def run():
             nonlocal trips
             for _ in range(iterations):
-                st.sharded_iteration(cfg, planner.system, planner.grid, goal, boxes, s, trips)
-                _, trips = st.sharded_readout(cfg, s)
+                st.sharded_iteration(cfg, planner.system, planner.grid, goal, boxes, s, trips,
+                                     mesh)
+                _, trips = st.sharded_readout(cfg, s, mesh)
 
         if mode == "launches":
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2346,7 +2398,14 @@ def iteration_costs(planner, dev, iterations: int = 3) -> dict:
     return out
 
 
-def sharded_tree(dev, out_dir: pathlib.Path) -> tuple[dict, dict]:
+def sharded_fields(r) -> list:
+    """A ShardedTreeResult's solve fields, the path as a digest of its bits."""
+    return [bool(r.solved), float(r.cost), int(r.best_shard), int(r.iterations),
+            int(r.total_tree_size), r.tree_sizes_by_shard.tolist(), digest(r.path),
+            r.path_shards.tolist()]
+
+
+def sharded_tree(dev, out_dir: pathlib.Path) -> tuple[dict, dict, dict]:
     """Phase 30: ShardedTreePlanner on the demo at KGMTConfig() (M = 30,000
     slots a shard, R = 4,096, adaptive waves, exchange_frac 0.25,
     exchange_k 64) at D = 1 (the CLI's tree axis on one card) and D = 4
@@ -2359,7 +2418,8 @@ def sharded_tree(dev, out_dir: pathlib.Path) -> tuple[dict, dict]:
     on the card, bitwise; plan_checkpointed (a checkpoint every 2 iterations)
     and a resume from its first checkpoint equal plan() to the bit; a
     trace names the sharded iteration's phases; validate_state on a demo
-    single solve. Returns the record and the launches by kernel."""
+    single solve. Returns the record, the launches by kernel and, by backend,
+    the D = 4 solves' fields (sharded_fields) and walls (phase 33)."""
     import shutil
 
     from cudasbmp_torch import KGMT, KGMTConfig, Scenario
@@ -2370,10 +2430,11 @@ def sharded_tree(dev, out_dir: pathlib.Path) -> tuple[dict, dict]:
 
     demo = Scenario.demo()
     obstacles = demo.padded_obstacles(KGMTConfig().max_obstacles)[0]
-    out, launches = {}, Counter()
+    out, launches, d4 = {}, Counter(), {}
     for backend, kernel in (("auto", rc.rollout_batched_cuda),
                             ("cuda_rng", rc.sample_and_rollout_batched_cuda)):
         cfg = KGMTConfig(rollout_backend=backend)
+        d4[backend] = {"fields": [], "walls": []}
         for D in SHARDED_D:
             tag = f"{backend}_D{D}"
             planner = ShardedTreePlanner(cfg, mesh=make_planner_mesh(n_tree=D,
@@ -2384,6 +2445,9 @@ def sharded_tree(dev, out_dir: pathlib.Path) -> tuple[dict, dict]:
             for seed in SHARDED_SEEDS:
                 r = planner.plan(demo, seed=seed)
                 trips += planner.last_state.trips
+                if D == 4:
+                    d4[backend]["fields"].append(sharded_fields(r))
+                    d4[backend]["walls"].append(r.wall_time_s)
                 check(bool((r.r1_scores_by_shard == r.r1_scores_by_shard[0]).all()),
                       f"sharded {tag}: seed {seed}: score rows differ")
                 check(r.tree_sizes_by_shard.shape == (D,) and r.total_tree_size
@@ -2424,7 +2488,8 @@ def sharded_tree(dev, out_dir: pathlib.Path) -> tuple[dict, dict]:
                 **iteration_costs(planner, dev)}
             check(out[tag]["host_reads_per_iteration"] == 1,
                   f"sharded {tag}: host reads an iteration {out[tag]}")
-            out[tag]["twin_trips_bitwise"] = sharded_twin_check(planner, demo, kernel)
+            out[tag]["twin_trips_bitwise"] = sharded_twin_check(
+                planner, lambda: planner.plan(demo, seed=0), kernel)
     # plan_checkpointed and resume, D = 4, auto
     cfg = KGMTConfig()
     planner = ShardedTreePlanner(cfg, mesh=make_planner_mesh(n_tree=4, device=str(dev)))
@@ -2464,13 +2529,13 @@ def sharded_tree(dev, out_dir: pathlib.Path) -> tuple[dict, dict]:
     out["validate_state"] = validate_state(single.state, cfg)
     check(out["validate_state"]["solved"] and out["validate_state"]["tree_size"]
           == single.tree_size, f"validate_state {out['validate_state']}")
-    return out, dict(launches)
+    return out, dict(launches), d4
 
 
-def sharded_twin_check(planner, demo, kernel) -> int:
-    """Every trip of a seed-0 solve: the rows of B6 (or its Philox form)
-    equal the plain twin's driven on the card, on the same inputs, to the
-    bit. Returns the trips compared."""
+def sharded_twin_check(planner, solve, kernel, trips: int | None = None) -> int:
+    """Every trip of ``solve()`` (or its first ``trips``): the rows of B6
+    (or its Philox form) equal the plain twin's driven on the card, on the
+    same inputs, to the bit. Returns the trips compared."""
     from cudasbmp_torch.ops import rollout_cuda as rc
     from cudasbmp_torch.parallel import multi_query as mq
 
@@ -2481,6 +2546,8 @@ def sharded_twin_check(planner, demo, kernel) -> int:
     def spy(c, sys_, k_ctrl, x0, obstacles):
         nonlocal compared
         x1, controls, valid = rollout(c, sys_, k_ctrl, x0, obstacles)
+        if trips is not None and compared >= trips:
+            return x1, controls, valid
         if kernel is rc.rollout_batched_cuda:
             tx1, tvalid = rc.rollout_soa(sys_, x0, controls, obstacles, **kw)
         else:
@@ -2493,7 +2560,7 @@ def sharded_twin_check(planner, demo, kernel) -> int:
 
     mq._rollout = spy
     try:
-        planner.plan(demo, seed=0)
+        solve()
     finally:
         mq._rollout = rollout
     return compared
@@ -2560,16 +2627,305 @@ def sharded_cli(out_dir: pathlib.Path) -> dict:
     return out
 
 
+SMQ_D = 4  # [32]: the CLI multi default's problems, four shards each
+TWO_RANKS = 2  # [33]: ranks on the one card
+TWO_RANKS_TIMEOUT_S = 420
+
+
+def sharded_multi_query(dev) -> tuple[dict, dict]:
+    """Phase 32: ShardedMultiQueryPlanner at full width: the CLI multi
+    default's 64 jittered demo pairs x D = 4 shards each at KGMTConfig()
+    (M = 30,000 slots a shard, R = 4,096, adaptive waves, the exchange pool),
+    under 'auto' (every trip one launch of B6 over 64 x 4 x 4,096 lanes, a
+    box set a tree) and 'cuda_rng' (B6's Philox form, a key a tree): solve
+    rate, cost quantiles, iterations, trips, launches (equal to the trips),
+    launches and host reads an iteration and a trip, wall, solves/s;
+    problems 0-3 equal ShardedTreePlanner's solves under their keys
+    fold_in(key(seed), b), bitwise; the first trips' rows equal the plain
+    twin's driven on the card; every solved path replays. Returns the
+    record and the launches by kernel."""
+    from cudasbmp_torch import KGMTConfig, Scenario, rng
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.parallel import (
+        ShardedMultiQueryPlanner,
+        ShardedTreePlanner,
+        make_planner_mesh,
+    )
+    from cudasbmp_torch.parallel import sharded_tree as st
+
+    out, launches = {}, Counter()
+    B, D = MULTI_B, SMQ_D
+    for backend, kernel in (("auto", rc.rollout_batched_cuda),
+                            ("cuda_rng", rc.sample_and_rollout_batched_cuda)):
+        cfg = KGMTConfig(rollout_backend=backend)
+        inits, goals, obstacles = jittered_demo(B, cfg.seed)
+        mesh = make_planner_mesh(n_tree=D, device=str(dev))
+        planner = ShardedMultiQueryPlanner(cfg, mesh=mesh)
+        planner.plan_batch(inits[:2], goals[:2], obstacles, seed=7)  # warm-up
+        rc.reset_launch_counts()
+        res = planner.plan_batch(inits, goals, obstacles, seed=cfg.seed)
+        trips = planner.last_state.trips
+        counts = {w.__name__: w.launches for w in rc.WRAPPERS}
+        main = counts.pop(kernel.__name__)
+        G = rc.lanes_per_rollout(B * D * cfg.rollouts_per_iter, rc.sm_count(dev.index or 0))
+        check(main == trips and set(counts.values()) == {0} and kernel.splits == {G: trips},
+              f"sharded multi {backend}: launches {main} {counts} at G {dict(kernel.splits)} "
+              f"for {trips} trips")
+        launches[kernel.__name__] += main
+        splits = dict(kernel.splits)
+        one = ShardedTreePlanner(cfg, mesh=mesh)
+        boxes = torch.tensor(obstacles, device=dev).expand(D, -1, -1).contiguous()
+        for b in range(4):
+            sc = Scenario(init=inits[b], goal=goals[b], obstacles=obstacles)
+            s = one._init(sc, None, None, key=rng.fold_in(rng.key(cfg.seed, dev), b))
+            st.sharded_run(cfg, one.system, one.grid, torch.tensor(goals[b], device=dev),
+                           boxes, s)
+            want = sharded_fields(one._build_result(s, time.perf_counter()))
+            got = [bool(res.solved[b]), float(res.costs[b]), int(res.best_shards[b])
+                   if res.solved[b] else want[2], int(res.iterations[b]),
+                   int(res.total_tree_sizes[b]), want[5], digest(res.paths[b]),
+                   res.path_shards[b].tolist()]
+            check(got == want, f"sharded multi {backend}: problem {b} {got[:5]} != "
+                  f"ShardedTreePlanner's {want[:5]}")
+        lengths = np.array([len(p) for p in res.paths])
+        padded = np.zeros((B, max(lengths.max(), 1), 7), np.float32)
+        for b, p in enumerate(res.paths):
+            padded[b, :len(p)] = p
+        worst = check_paths(f"sharded multi {backend}", planner.system, cfg, padded,
+                            lengths, res.costs, goals, obstacles)
+        rate = float(res.solved.mean())
+        check(rate >= 0.5, f"sharded multi {backend}: solve rate {rate}")
+        twin = sharded_twin_check(planner, lambda: planner.plan_batch(
+            inits, goals, obstacles, seed=cfg.seed), kernel, trips=3)
+
+        def start():
+            roots, goal_rows, tree_boxes = planner._inputs(inits, goals, obstacles)
+            return planner._init(B, roots, cfg.seed), goal_rows, tree_boxes
+
+        costs = iteration_costs(planner, dev, start=start)
+        check(costs["host_reads_per_iteration"] == 1,
+              f"sharded multi {backend}: host reads an iteration {costs}")
+        out[backend] = {
+            "batch": B, "n_tree": D, "lanes_per_trip": B * D * cfg.rollouts_per_iter,
+            "solve_rate": rate, "cost_p10_p50_p90": quantiles(res.costs),
+            "iterations_max": int(res.iterations.max()),
+            "iterations_p50": float(np.median(res.iterations)), "trips": trips,
+            "launches": main, "splits": splits, "checked_problems": [0, 1, 2, 3],
+            "replay_max_err": worst, "twin_trips_bitwise": twin,
+            "wall_time_s": res.wall_time_s, "solves_per_sec": res.solves_per_sec,
+            **{k: v for k, v in costs.items() if k != "measured_trips"}}
+    return out, dict(launches)
+
+
+def two_ranks(out_dir: pathlib.Path, sharded_d4: dict, multi_batch: dict,
+              stream_sweeps: dict, arena_rng: dict, ranks: int = TWO_RANKS) -> dict:
+    """Phase 33: ``ranks`` processes, two on the one card by default, joined
+    by the backend's rule (gloo when ranks share a card: NCCL refuses two
+    ranks on one device; nccl with a card a rank): each rank runs this
+    script's --two-ranks-child (the sharded tree at D = 4, 4 / ranks shards
+    a rank, seeds 0-3 under 'auto' and 'cuda_rng'; plan_checkpointed every
+    2 iterations; MultiQueryPlanner over the ranks at the CLI multi default;
+    ArenaMultiQueryPlanner over the ranks at config 4 under 'cuda_rng', each
+    rank's wave one B2 launch from its lane offset; run_sharded at 4,096
+    scenarios, a pool of 1,024 a rank). Every rank must exit 0 within the
+    timeout and report [30]'s D = 4 fields and path digests, [22]'s 'auto'
+    batch, [14]'s 'cuda_rng' arena with its B2 launches (and no B1 launch)
+    and [16]'s 'auto' sweep, bit for bit; the
+    checkpoint rank 0 wrote resumes in a fresh one-process planner to
+    plan()'s solve. Every child is killed on the way out."""
+    import os
+    import shutil
+    import socket
+
+    from cudasbmp_torch import KGMTConfig, Scenario
+    from cudasbmp_torch.parallel import ShardedTreePlanner, make_planner_mesh
+    from cudasbmp_torch.parallel.mesh import backend_for
+
+    base = out_dir / "two_ranks"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(ranks):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(ranks),
+                       LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(ranks),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--two-ranks-child", str(base)],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=TWO_RANKS_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    pg_backend = backend_for("cuda", ranks)
+    reports = []
+    for r, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"two ranks: rank {r} exit {p.returncode}\n{stderr[-3000:]}")
+        reports.append(json.loads(stdout.strip().splitlines()[-1]))
+    for r, got in enumerate(reports):
+        check(got["backend"] == pg_backend and got["world"] == ranks and got["rank"] == r,
+              f"two ranks: rank {r} joined {got['backend']} {got['world']} {got['rank']}")
+        for backend in ("auto", "cuda_rng"):
+            check(got["sharded"][backend]["fields"] == sharded_d4[backend]["fields"],
+                  f"two ranks: rank {r} sharded {backend} {got['sharded'][backend]['fields']} "
+                  f"!= [30]'s {sharded_d4[backend]['fields']}")
+        check(got["checkpointed"] == sharded_d4["auto"]["fields"][0],
+              f"two ranks: rank {r} plan_checkpointed {got['checkpointed']} != plan()'s")
+        check(got["multi"]["digest"] == multi_batch["digest"],
+              f"two ranks: rank {r} MultiQueryPlanner differs from [22]'s batch")
+        check(got["arena"]["digest"] == arena_rng["digest"],
+              f"two ranks: rank {r} ArenaMultiQueryPlanner differs from [14]'s cuda_rng")
+        check(got["arena"]["launches"] == {"sample_and_rollout_cuda": arena_rng["launches"]},
+              f"two ranks: rank {r} arena launches {got['arena']['launches']}, [14]'s "
+              f"B2 {arena_rng['launches']}")
+        check(got["stream"]["digest"] == stream_sweeps["auto"]["digest"],
+              f"two ranks: rank {r} run_sharded differs from [16]'s sweep")
+    files = sorted((base / "ck").glob("sharded_checkpoint_*.npz"),
+                   key=lambda q: int(q.stem.split("_")[-1]))
+    check(len(files) > 1, f"two ranks: checkpoints {files}")
+    resumed = ShardedTreePlanner(KGMTConfig(), mesh=make_planner_mesh(n_tree=4, device="cuda"))
+    r = resumed.plan_checkpointed(Scenario.demo(), base / "resumed", checkpoint_every=2,
+                                  resume_from=files[0])
+    check(sharded_fields(r) == sharded_d4["auto"]["fields"][0],
+          f"two ranks: the one-process resume from {files[0].name} != plan()")
+    shutil.rmtree(base)
+    out = {"ranks": ranks, "backend": pg_backend, "wall_s": wall,
+           "resumed_from": files[0].name, "checkpoints": [q.name for q in files],
+           "equal_to_one_process": True}
+    for r, got in enumerate(reports):
+        out[f"rank{r}"] = {k: v for k, v in got.items() if k not in ("backend", "rank")}
+    out["one_process_wall_s"] = {
+        "sharded_auto_p50": float(np.median(sharded_d4["auto"]["walls"])),
+        "sharded_cuda_rng_p50": float(np.median(sharded_d4["cuda_rng"]["walls"])),
+        "multi": multi_batch["wall_time_s"], "arena": arena_rng["wall_time_s"],
+        "stream": stream_sweeps["auto"]["wall_time_s"]}
+    return out
+
+
+def two_ranks_child(base: pathlib.Path) -> int:
+    """One rank of phase 33 (torchrun's environment set by the parent): join
+    the process group, solve, print one JSON line of the results."""
+    import torch.distributed as dist
+
+    from cudasbmp_torch import KGMTConfig, Scenario
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.parallel import (
+        ArenaMultiQueryPlanner,
+        MultiQueryPlanner,
+        ShardedTreePlanner,
+        StreamingMonteCarloPlanner,
+        make_planner_mesh,
+        maybe_initialize_distributed,
+    )
+
+    check(maybe_initialize_distributed("cuda", timeout_s=300), "no process group")
+    dev = torch.device(make_planner_mesh(device="cuda").device)
+    demo = Scenario.demo()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "rank": dist.get_rank(), "sharded": {}}
+    for backend, kernel in (("auto", rc.rollout_batched_cuda),
+                            ("cuda_rng", rc.sample_and_rollout_batched_cuda)):
+        mesh = make_planner_mesh(n_tree=4, device="cuda")
+        planner = ShardedTreePlanner(KGMTConfig(rollout_backend=backend), mesh=mesh)
+        planner.plan(demo, seed=100)  # warm-up
+        rc.reset_launch_counts()
+        rows, walls, trips = [], [], 0
+        for seed in SHARDED_SEEDS:
+            r = planner.plan(demo, seed=seed)
+            rows.append(sharded_fields(r))
+            walls.append(r.wall_time_s)
+            trips += planner.last_state.trips
+        check(kernel.launches == trips, f"rank {out['rank']}: {kernel.launches} launches "
+              f"for {trips} trips")
+        out["sharded"][backend] = {"fields": rows, "walls": walls,
+                                   "wall_p50_s": float(np.median(walls)), "trips": trips,
+                                   "launches": kernel.launches, "splits": dict(kernel.splits),
+                                   **iteration_costs(planner, dev, mesh=mesh)}
+    planner = ShardedTreePlanner(KGMTConfig(), mesh=make_planner_mesh(n_tree=4, device="cuda"))
+    out["checkpointed"] = sharded_fields(planner.plan_checkpointed(
+        demo, base / "ck", checkpoint_every=2, seed=0))
+    cfg = KGMTConfig()
+    inits, goals, obstacles = jittered_demo(MULTI_B, cfg.seed)
+    planner = MultiQueryPlanner(cfg, mesh=make_planner_mesh(device="cuda"))
+    planner.plan_batch(inits[:8], goals[:8], obstacles, seed=7)  # warm-up
+    rc.reset_launch_counts()
+    res = planner.plan_batch(inits, goals, obstacles, seed=cfg.seed)
+    out["multi"] = {"digest": multi_digest(res), "wall_time_s": res.wall_time_s,
+                    "trips": planner.last_state.trips,
+                    "launches": rc.rollout_batched_cuda.launches,
+                    "problems": int(planner.last_state.tree_size.shape[0])}
+    acfg = KGMTConfig(**SWEEP, rollout_backend="cuda_rng")
+    inits, goals, obstacles = jittered_demo(ARENA_B, acfg.seed)
+    arena = ArenaMultiQueryPlanner(acfg, mesh=make_planner_mesh(device="cuda"),
+                                   auto_capacity=True)
+    arena.plan_batch(inits, goals, obstacles, seed=7)  # warm-up
+    rc.reset_launch_counts()
+    res = arena.plan_batch(inits, goals, obstacles, seed=8, max_extensions=1)
+    out["arena"] = {"digest": arena_digest(res), "wall_time_s": res.wall_time_s,
+                    "solves_per_sec": res.solves_per_sec,
+                    "launches": {w.__name__: w.launches for w in rc.WRAPPERS if w.launches}}
+    sweep = StreamingMonteCarloPlanner(KGMTConfig(**SWEEP), pool=STREAM_POOL, device="cuda")
+    rc.reset_launch_counts()
+    s = sweep.run_sharded(STREAM_N, mesh=make_planner_mesh(device="cuda"), seed=1,
+                          num_obstacles=8)
+    out["stream"] = {"digest": digest(s.costs, s.iters), "wall_time_s": s.wall_time_s,
+                     "solve_rate": s.solve_rate,
+                     "launches": rc.rollout_batched_cuda.launches}
+    dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def ranks_only(n: int) -> int:
+    """``chip_smoke.py --ranks N``: phase 33 alone over N processes (on N
+    cards, nccl), after the one-process runs it is held to ([16]'s, [22]'s
+    and [30]'s); no kernel line, not the one-card gate."""
+    from cudasbmp_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip()
+    _build.build()
+    _build.load()
+    dev = torch.device("cuda", 0)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    _, sweeps = stream_sweep(dev)
+    _, batch = multi_query_default(dev)
+    arena_rec, arena_rng = arena_config4(dev, "cuda_rng")
+    sh, _, d4 = sharded_tree(dev, out_dir)
+    tr = two_ranks(out_dir, d4, batch, sweeps, {"digest": arena_rng, **arena_rec}, ranks=n)
+    (out_dir / f"ranks_{n}.json").write_text(json.dumps(
+        {"nvidia_smi": smi, "sharded_tree": sh, "ranks": tr}, indent=1))
+    print(smi.replace("\n", " | "))
+    print(json.dumps({k: v for k, v in tr.items() if not k.startswith("rank")}))
+    for r in range(n):
+        v = tr[f"rank{r}"]
+        print(f"rank {r}: " + json.dumps({
+            "sharded": {b: {k: v["sharded"][b][k] for k in (
+                "wall_p50_s", "trips", "launches", "launches_per_iteration",
+                "launches_per_trip", "host_reads_per_iteration")} for b in v["sharded"]},
+            "multi": v["multi"], "arena": v["arena"], "stream": v["stream"]}))
+    return 0
+
+
 # the phases whose solves two runs of the same kernels' results must share
 SOLVE_PHASES = ("tree_auto", "tree_cuda_rng", "pathless_auto", "forty_boxes",
                 "all_options", "other_systems", "arena_config4", "arena_extension",
                 "monte_carlo", "streaming", "multi_query", "multi_query_bench",
                 "monte_carlo_vmap", "shortcut", "refine", "checkpoint", "sharded_tree",
-                "sharded_cli")
+                "sharded_cli", "sharded_multi_query", "two_ranks")
 
 
 def compare_records(old: dict, new: dict) -> tuple[int, list[str]]:
-    """The fields of SOLVE_PHASES (phases 5-16, 22-25 and 28-31: solve rates,
+    """The fields of SOLVE_PHASES (phases 5-16, 22-25 and 28-33: solve rates,
     costs, iterations, tree sizes, launches, path checks) in two records of
     this script, times left out (names starting ``tts`` or ending ``_s``,
     ``_ms`` or holding ``per_sec``, ``wall`` or ``regular``), and phases
@@ -2611,6 +2967,10 @@ def main() -> int:
               f"compared, {len(differ)} differ; in one record only: "
               f"{one_sided or 'none'}", *differ, sep="\n")
         return 1 if differ else 0
+    if sys.argv[1:2] == ["--two-ranks-child"]:
+        return two_ranks_child(pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--ranks"]:
+        return ranks_only(int(sys.argv[2]))
     out_dir = ROOT / "chiprun_out"
     record: dict = {}
     # 1. device
@@ -2848,7 +3208,8 @@ def main() -> int:
     # 14. the batched arena at config 4's width, auto (B1) and cuda_rng (B2)
     t0 = time.perf_counter()
     arena = {b: arena_config4(dev, b) for b in ("auto", "cuda_rng")}
-    record["arena_config4"] = arena
+    arena_rng = {"digest": arena["cuda_rng"][1], **arena["cuda_rng"][0]}
+    arena = record["arena_config4"] = {b: v[0] for b, v in arena.items()}
     extension = record["arena_extension"] = arena_extension(dev)
     print("[14 arena B=256] " + " | ".join(
         f"{b}: rate {v['solve_rate']:.4f} cost p10/p50/p90 "
@@ -2872,7 +3233,7 @@ def main() -> int:
 
     # 16. the streaming sweep, B6 and its Philox form; invariances
     t0 = time.perf_counter()
-    stream = stream_sweep(dev)
+    stream, stream_sweeps = stream_sweep(dev)
     record["streaming"] = stream
     print("[16 streaming 4096/1024] " + " | ".join(
         f"{b}: rate {v['solve_rate']:.4f} cost p10/p50/p90 "
@@ -3078,7 +3439,7 @@ def main() -> int:
 
     # 30. the sharded tree, B6 and B6 Philox; 31. its CLI, profile and plots
     t0 = time.perf_counter()
-    sh, sharded_launches = sharded_tree(dev, out_dir)
+    sh, sharded_launches, sharded_d4 = sharded_tree(dev, out_dir)
     record["sharded_tree"] = sh
     print("[30 sharded tree] " + " | ".join(
         f"{k}: rate {v['solve_rate']:.2f} cost p50 {v['cost_p50']:.4f} iterations "
@@ -3100,6 +3461,43 @@ def main() -> int:
           f"matplotlib {scli['plots']['matplotlib']}, demo --plot exit "
           f"{scli['plots']['demo_plot_exit']}, viz exit {scli['plots']['viz_exit']} "
           f"({scli['plots']['message']}) ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # 32. the sharded multi-query planner at full width; 33. two processes
+    t0 = time.perf_counter()
+    smq, smq_launches = sharded_multi_query(dev)
+    record["sharded_multi_query"] = smq
+    print("[32 sharded multi B=64 x D=4] " + " | ".join(
+        f"{k}: rate {v['solve_rate']:.4f} cost p10/p50/p90 "
+        f"{'/'.join(f'{q:.3f}' for q in v['cost_p10_p50_p90'])} iterations p50 "
+        f"{v['iterations_p50']:.0f} max {v['iterations_max']} trips {v['trips']} launches "
+        f"{v['launches']} at G {v['splits']} over {v['lanes_per_trip']} lanes, "
+        f"{v['launches_per_iteration']:.1f} launches and {v['host_reads_per_iteration']:.0f} "
+        f"host read an iteration ({v['launches_per_trip']:.1f} a trip), wall "
+        f"{v['wall_time_s']:.2f} s, solves/s {v['solves_per_sec']:.1f}, problems 0-3 == "
+        f"ShardedTreePlanner, {v['twin_trips_bitwise']} trips bitwise the twin's, replay "
+        f"err {v['replay_max_err']:.2g}" for k, v in smq.items())
+        + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    tr = record["two_ranks"] = two_ranks(out_dir, sharded_d4, multi_batch, stream_sweeps,
+                                         arena_rng)
+    one = tr["one_process_wall_s"]
+    print(f"[33 two ranks, {tr['backend']}] both ranks == one process: sharded D=4 (2 shards "
+          f"a rank) seeds 0-3 auto/cuda_rng, plan_checkpointed (resumed in one process from "
+          f"{tr['resumed_from']}), MultiQueryPlanner B=64, arena B=256 cuda_rng (B2 "
+          f"launches {tr['rank1']['arena']['launches']} on rank 1), run_sharded 4096/1024 "
+          f"a rank | "
+          + " | ".join(
+              f"rank {r}: sharded wall p50 auto {v['sharded']['auto']['wall_p50_s'] * 1e3:.0f} "
+              f"ms cuda_rng {v['sharded']['cuda_rng']['wall_p50_s'] * 1e3:.0f} ms, "
+              f"{v['sharded']['auto']['launches_per_trip']:.1f} launches a trip and "
+              f"{v['sharded']['auto']['host_reads_per_iteration']:.0f} host reads an iteration;"
+              f" multi {v['multi']['wall_time_s']:.2f} s; arena {v['arena']['wall_time_s']:.2f}"
+              f" s; stream {v['stream']['wall_time_s']:.2f} s"
+              for r, v in ((r, tr[f"rank{r}"]) for r in range(TWO_RANKS)))
+          + f" | one process: sharded p50 auto {one['sharded_auto_p50'] * 1e3:.0f} ms cuda_rng "
+          f"{one['sharded_cuda_rng_p50'] * 1e3:.0f} ms, multi {one['multi']:.2f} s, arena "
+          f"{one['arena']:.2f} s, stream "
+          f"{one['stream']:.2f} s ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     if "--profile" in sys.argv[1:]:
         out_dir.mkdir(exist_ok=True)
@@ -3129,7 +3527,7 @@ def main() -> int:
     # the one of most launches
     b6_splits = Counter(mc["splits"]) + Counter({1: stream["auto"]["launches"]}) \
         + sum((Counter(v["splits"]) for k, v in sh.items() if k.startswith("auto_")),
-              Counter()) \
+              Counter()) + Counter(smq["auto"]["splits"]) \
         + Counter({multi["auto"]["split"]: multi["auto"]["launches"]}) \
         + Counter({mcv["split"]: mcv["launches"]}) \
         + sum((Counter({v["split"]: v["b6_launches"]}) for k, v in short.items()
@@ -3137,7 +3535,7 @@ def main() -> int:
     G_b6 = max(b6_splits, key=b6_splits.get)
     rng_splits = Counter({1: stream["cuda_rng"]["launches"]}) \
         + sum((Counter(v["splits"]) for k, v in sh.items() if k.startswith("cuda_rng_")),
-              Counter()) \
+              Counter()) + Counter(smq["cuda_rng"]["splits"]) \
         + Counter({multi["cuda_rng"]["split"]: multi["cuda_rng"]["launches"]}) \
         + Counter({bench["split"]: bench["launches"]})
     cms, creg = cal["calibration"]["ms"], cal["calibration"]["regular"]
@@ -3177,6 +3575,8 @@ def main() -> int:
          "replaces": "cudasbmp_tpu/ops/rollout_pallas.py:593",
          "systems": list(SYSTEMS),
          "launches": sum(b2_splits.values()), "splits": dict(b2_splits),
+         "launches_two_ranks": sum(tr[f"rank{r}"]["arena"]["launches"][
+             "sample_and_rollout_cuda"] for r in range(TWO_RANKS)),
          "max_abs_err": max(b2["max_abs_err"], inst_err),
          "ms": main["b2_ms"], "plain_ms": main["twin_ms"],
          "launch_ms": main["b2_launch_ms"], "plain_launch_ms": main["twin_launch_ms"],
@@ -3212,6 +3612,10 @@ def main() -> int:
          "systems": list(SYSTEMS),
          "launches": sum(b6_splits.values()),
          "launches_sharded": sharded_launches["rollout_batched_cuda"],
+         "launches_sharded_multi_query": smq_launches["rollout_batched_cuda"],
+         "launches_two_ranks": sum(
+             v["sharded"]["auto"]["launches"] + v["multi"]["launches"]
+             + v["stream"]["launches"] for v in (tr[f"rank{r}"] for r in range(TWO_RANKS))),
          "max_abs_err": max(b6["max_abs_err"], shapes["max_abs_err"]),
          "ms": bt["b6_ms"], "plain_ms": bt["plain_ms"],
          "ms_64x4096": st["b6_ms"], "plain_ms_64x4096": st["plain_ms"],
@@ -3229,6 +3633,9 @@ def main() -> int:
          "systems": list(SYSTEMS),
          "launches": sum(rng_splits.values()), "splits": dict(rng_splits),
          "launches_sharded": sharded_launches["sample_and_rollout_batched_cuda"],
+         "launches_sharded_multi_query": smq_launches["sample_and_rollout_batched_cuda"],
+         "launches_two_ranks": sum(tr[f"rank{r}"]["sharded"]["cuda_rng"]["launches"]
+                                   for r in range(TWO_RANKS)),
          "max_abs_err": max(b6["max_abs_err"], shapes["max_abs_err"]),
          "ms_64x4096": st["b6_rng_ms"], "plain_ms_64x4096": st["rng_plain_ms"],
          "bound_ms_64x4096": rf.bound_ms(

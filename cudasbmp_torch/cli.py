@@ -49,11 +49,18 @@ prints the reference's two lines (``Kernel execution time: ...``, ``Tree
 size: ...``) and a JSON line of rollouts/s.
 
 ``sharded`` solves the demo with one logical tree over ``--n-tree`` shards
-(parallel/sharded_tree.py; default and divisor: the number of cards, so
-D = 1 on one card and with ``--device cpu``), in
+(parallel/sharded_tree.py; default and divisor: the world's devices, one a
+rank under torchrun, else the number of cards, so D = 1 on one card and
+with ``--device cpu``), in
 ``--checkpoint-every``-iteration chunks with a checkpoint after each when
 ``--checkpoint-dir`` is given (``--resume-from`` continues one), and prints
 the JAX CLI's JSON summary; exit 0 when solved, 1 when not.
+
+Under torchrun (``torchrun --nproc-per-node N -m cudasbmp_torch.cli multi
+...``) ``multi``, ``sweep`` and ``sharded`` join the process group
+(parallel/mesh.py::maybe_initialize_distributed: ``nccl`` with a card a
+rank, ``gloo`` on the CPU or with ranks on one card), lay their batch,
+scenarios or shards over the ranks, and rank 0 alone prints the summary.
 
 ``profile`` solves the demo once outside the trace (nvcc and the first
 launches), then once inside a ``torch.profiler`` trace written to
@@ -188,6 +195,14 @@ def _plot_error() -> int:
     return 0
 
 
+def _print_json(summary: dict) -> None:
+    """The JSON summary, printed by rank 0 alone under a process group."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(summary, indent=2))
+
+
 def _device_error(args: argparse.Namespace) -> int:
     """2 with a message when --device names CUDA on a host without it."""
     import torch
@@ -284,7 +299,11 @@ def _run_multi(args: argparse.Namespace) -> int:
     import numpy as np
 
     from cudasbmp_torch.config import Scenario
-    from cudasbmp_torch.parallel import ArenaMultiQueryPlanner, MultiQueryPlanner
+    from cudasbmp_torch.parallel import (
+        ArenaMultiQueryPlanner,
+        MultiQueryPlanner,
+        make_planner_mesh,
+    )
 
     if rc := _batch_usage_error(args):
         return rc
@@ -298,9 +317,9 @@ def _run_multi(args: argparse.Namespace) -> int:
                                 (B, 2)).astype(np.float32)
     obstacles, _ = base.padded_obstacles(cfg.max_obstacles)
     cls = ArenaMultiQueryPlanner if args.impl == "arena" else MultiQueryPlanner
-    planner = cls(cfg, device=args.device)
+    planner = cls(cfg, mesh=make_planner_mesh(device=args.device))
     res = planner.plan_batch(inits, goals, obstacles, seed=cfg.seed)
-    print(json.dumps({
+    _print_json({
         "batch": B,
         "solved": int(res.solved.sum()),
         "solve_rate": float(res.solved.mean()),
@@ -308,7 +327,7 @@ def _run_multi(args: argparse.Namespace) -> int:
         if res.solved.any() else None,
         "wall_time_s": res.wall_time_s,
         "solves_per_sec": res.solves_per_sec,
-    }, indent=2))
+    })
     return 0
 
 
@@ -323,7 +342,7 @@ def _run_sweep(args: argparse.Namespace) -> int:
                                         device=args.device)
         s = mc.run(num_scenarios=args.scenarios, seed=cfg.seed,
                    num_obstacles=args.obstacles)
-        print(json.dumps({
+        _print_json({
             "scenarios": s.num_scenarios,
             "solve_rate": s.solve_rate,
             "mean_cost_solved": s.mean_cost_solved,
@@ -331,14 +350,15 @@ def _run_sweep(args: argparse.Namespace) -> int:
             "num_budget_exhausted": s.num_budget_exhausted,
             "wall_time_s": s.wall_time_s,
             "solves_per_sec": s.solves_per_sec,
-        }, indent=2))
+        })
         return 0
-    from cudasbmp_torch.parallel import MonteCarloPlanner
+    from cudasbmp_torch.parallel import MonteCarloPlanner, make_planner_mesh
 
-    mc = MonteCarloPlanner(cfg, impl=args.impl, device=args.device)
+    mc = MonteCarloPlanner(cfg, mesh=make_planner_mesh(device=args.device),
+                           impl=args.impl)
     s = mc.run(num_scenarios=args.scenarios, seed=cfg.seed,
                num_obstacles=args.obstacles)
-    print(json.dumps({
+    _print_json({
         "scenarios": s.num_scenarios,
         "solve_rate": s.solve_rate,
         "mean_cost_solved": s.mean_cost_solved,
@@ -346,7 +366,7 @@ def _run_sweep(args: argparse.Namespace) -> int:
         "wall_time_s": s.wall_time_s,
         "solves_per_sec": s.solves_per_sec,
         "num_budget_exhausted": s.num_budget_exhausted,
-    }, indent=2))
+    })
     return 0
 
 
@@ -370,6 +390,7 @@ def _run_probe(args: argparse.Namespace) -> int:
 
 def _run_sharded(args: argparse.Namespace) -> int:
     import torch
+    import torch.distributed as dist
 
     from cudasbmp_torch.config import Scenario
     from cudasbmp_torch.parallel import ShardedTreePlanner, make_planner_mesh
@@ -380,9 +401,10 @@ def _run_sharded(args: argparse.Namespace) -> int:
     if rc := _batch_usage_error(args):
         return rc
     cfg = _config_from_args(args)
-    # every shard lives on the one device; the tree axis defaults to, and
-    # must divide, the number of cards, as the JAX CLI's does its devices
-    n_dev = device_count() if torch.device(args.device).type == "cuda" else 1
+    # the tree axis defaults to, and must divide, the world's devices (one a
+    # rank under torchrun, else the cards), as the JAX CLI's does its devices
+    n_dev = (device_count() if torch.device(args.device).type == "cuda"
+             or dist.is_initialized() else 1)
     n_tree = args.n_tree or n_dev
     if n_dev % n_tree != 0:
         return _error(f"--n-tree {n_tree} must divide the device count {n_dev}")
@@ -395,7 +417,7 @@ def _run_sharded(args: argparse.Namespace) -> int:
                                         resume_from=args.resume_from)
     else:
         res = planner.plan(sc)
-    print(json.dumps({
+    _print_json({
         "n_tree": n_tree,
         "solved": res.solved,
         "cost": res.cost if res.solved else None,
@@ -404,7 +426,7 @@ def _run_sharded(args: argparse.Namespace) -> int:
         "best_shard": res.best_shard,
         "path_crosses_shards": bool(len(set(res.path_shards.tolist())) > 1),
         "wall_time_s": res.wall_time_s,
-    }, indent=2))
+    })
     return 0 if res.solved else 1
 
 
@@ -514,6 +536,12 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.cmd == "probe":
         return _run_probe(args)
+    if args.cmd in ("multi", "sweep", "sharded"):
+        # under torchrun: one process a rank, each solving its part
+        from cudasbmp_torch.parallel.mesh import maybe_initialize_distributed
+
+        if _device_error(args) == 0:
+            maybe_initialize_distributed(args.device)
     if args.cmd == "sharded":
         return _run_sharded(args)
     if args.cmd == "profile":

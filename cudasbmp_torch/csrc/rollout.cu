@@ -258,6 +258,7 @@ struct Params {
   float pad;     // B5: how far the body reaches from (x, y): hl + hypot(hl, hw)
   int split, split_log2;  // G threads a rollout (1 with windows) and log2 G
   int reg_boxes;          // ceil(K / G) <= kRegBoxes: boxes in registers
+  unsigned lane0;         // sample: the Philox counter of a problem's lane 0
 };
 
 // B5's window plan, by value among the culled kernels' parameters: n
@@ -809,9 +810,9 @@ __device__ __forceinline__ float draw(uint32_t bits, float lo, float hi) {
 
 struct Bounds { float lo0, lo1, lo2, hi0, hi1, hi2; };
 
-// Lane r of problem b draws at counter (r, 0, 0, 0) under the key words
-// keys[key_stride * b]; every sub-lane of its group draws the same bits,
-// and sub-lane 0 writes them.
+// Lane r of problem b draws at counter (lane0 + r, 0, 0, 0) under the key
+// words keys[key_stride * b]; every sub-lane of its group draws the same
+// bits, and sub-lane 0 writes them.
 template <class Sys, bool kFootprint, bool kFast, bool kCull>
 __global__ void __launch_bounds__(kThreads)
     sample_and_rollout_kernel(Sys sys, Params p, PlanOf<kCull> plan,
@@ -830,7 +831,7 @@ __global__ void __launch_bounds__(kThreads)
   if (active) s = x0[i];
   const int64_t* key = keys + static_cast<size_t>(key_stride) * b;
   const uint4 bits =
-      philox4x32_10(make_uint4(static_cast<uint32_t>(r), 0u, 0u, 0u),
+      philox4x32_10(make_uint4(p.lane0 + static_cast<uint32_t>(r), 0u, 0u, 0u),
                     static_cast<uint32_t>(key[0]),
                     static_cast<uint32_t>(key[1]));
   const float c0 = draw(bits.x, bounds.lo0, bounds.hi0);
@@ -1006,7 +1007,7 @@ int prepare(int device, int flags, const void* obstacles, int K,
               per_problem ? 4 * static_cast<size_t>(K) : 0, K, R, num_disc,
               per > 0 ? static_cast<int>(per) : 1, width, height, hl, hw,
               windows, pad, split, split_log2,
-              !windows && ((K + split - 1) >> split_log2) <= kRegBoxes};
+              !windows && ((K + split - 1) >> split_log2) <= kRegBoxes, 0u};
   return 0;
 }
 
@@ -1023,8 +1024,10 @@ int prepare(int device, int flags, const void* obstacles, int K,
 // that many windows (at most kMaxPlan) at `plan`, host memory, one byte a
 // window: its steps (1 to kCullSteps, summing to num_disc), with the union
 // boxes padded by `pad`; `split` is G, the threads a rollout (1, 2, 4 or
-// 8; 1 with windows). Each launches on `stream` without synchronising and
-// returns 0 or a cudaError_t.
+// 8; 1 with windows). `lane0` (sample only, >= 0) is the Philox counter of
+// a problem's lane 0: a launch of lanes [lane0, lane0 + R) of a larger
+// batch draws their controls. Each launches on `stream` without
+// synchronising and returns 0 or a cudaError_t.
 
 extern "C" int cudasbmp_smem_optin(int device) { return smem_optin(device); }
 
@@ -1057,7 +1060,8 @@ extern "C" int cudasbmp_sample_and_rollout(
     void* valid, int P, int R, int num_disc, float width, float height,
     float param, float hl, float hw, int windows, const void* plan,
     float pad, float lo0, float lo1, float lo2, float hi0, float hi1,
-    float hi2, int split, void* stream) {
+    float hi2, int lane0, int split, void* stream) {
+  if (lane0 < 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   Buffers b{};
   const int err = prepare(device, flags, obstacles, K, per_problem, P, R,
@@ -1065,6 +1069,7 @@ extern "C" int cudasbmp_sample_and_rollout(
                           static_cast<const unsigned char*>(plan), pad, split,
                           &p, &b);
   if (err || b.blocks == 0) return err;
+  p.lane0 = static_cast<unsigned>(lane0);
   b.x0 = x0;
   b.x1 = x1;
   b.controls_out = controls;

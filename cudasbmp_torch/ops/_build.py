@@ -49,10 +49,11 @@ SIGNATURES = {
                          _F, _F, _F, _F, _F, _I, _P, _F, _I, _P),
     # device, system, flags, keys, x0, obstacles, K, per_problem, x1,
     # controls, valid, P, R, num_disc, width, height, param, hl, hw,
-    # windows, plan, pad, lo0, lo1, lo2, hi0, hi1, hi2, split, stream
+    # windows, plan, pad, lo0, lo1, lo2, hi0, hi1, hi2, lane0, split, stream
     "cudasbmp_sample_and_rollout": (_I, _I, _I, _P, _P, _P, _I, _I, _P, _P,
                                     _P, _I, _I, _I, _F, _F, _F, _F, _F, _I,
-                                    _P, _F, _F, _F, _F, _F, _F, _F, _I, _P),
+                                    _P, _F, _F, _F, _F, _F, _F, _F, _I, _I,
+                                    _P),
     # device, x, s, c, n, stream
     "cudasbmp_sincos": (_I, _P, _P, _P, _I, _P),
     # device, kernel (P1b's op or P1a), x, y, n, program, chain, grid, stream

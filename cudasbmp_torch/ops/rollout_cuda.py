@@ -541,20 +541,24 @@ def _rollout(wrapper, system, x0: torch.Tensor, controls: torch.Tensor,
 def _sample_and_rollout(wrapper, system, keys: torch.Tensor, x0: torch.Tensor,
                         obstacles: torch.Tensor, per_problem: bool, *,
                         num_disc: int, width: float, height: float, footprint,
-                        fast_math: bool, cull, split: int | None
+                        fast_math: bool, cull, split: int | None, lane0: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``sample_and_rollout_kernel`` on the card for ``wrapper`` (B2, or B6
     with ``per_problem``; B5 with ``cull``), or the plain twin on the CPU."""
     kw = dict(num_disc=num_disc, width=width, height=height,
               footprint=footprint, fast_math=fast_math, cull=cull)
     _check_split(split, cull)
+    if not 0 <= lane0 <= 2**31 - 1 - x0.shape[-2]:
+        raise ValueError(f"lane0 {lane0}: the lanes [lane0, lane0 + "
+                         f"{x0.shape[-2]}) must lie in [0, 2^31 - 1)")
     device = _device_of(keys, x0, obstacles)
     if device.type == "cpu":
         if keys.dim() != 1 + per_problem or obstacles.dim() != 2 + per_problem:
             raise ValueError(f"keys {tuple(keys.shape)}, obstacles "
                              f"{tuple(obstacles.shape)}: expected "
                              f"{'[B, 2], [B, K, 4]' if per_problem else '[2], [K, 4]'}")
-        return sample_and_rollout_torch(system, keys, x0, obstacles, **kw)
+        return sample_and_rollout_torch(system, keys, x0, obstacles, lane0=lane0,
+                                        **kw)
     windows, plan = _plan_arg(cull, num_disc)
     dev, sid, flags, P, R, K, param, hl, hw = _kernel_args(
         system, x0, obstacles, footprint, fast_math, per_problem, windows)
@@ -572,7 +576,7 @@ def _sample_and_rollout(wrapper, system, keys: torch.Tensor, x0: torch.Tensor,
         K, int(per_problem), x1.data_ptr(), controls.data_ptr(),
         valid.data_ptr(), P, R, num_disc, width, height, param, hl, hw,
         windows, plan, footprint_pad(footprint) if windows else 0.0,
-        *spec.lo, *spec.hi, G, torch.cuda.current_stream(device).cuda_stream)
+        *spec.lo, *spec.hi, lane0, G, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, "sample_and_rollout_kernel")
     _count(wrapper, system, flags, windows, G)
     return x1, controls, valid
@@ -617,16 +621,16 @@ def sample_and_rollout_torch(system, key: torch.Tensor, x0: torch.Tensor,
                              width: float, height: float,
                              footprint: tuple[float, float] | None = None,
                              fast_math: bool = False,
-                             cull: bool | int | None = None
+                             cull: bool | int | None = None, lane0: int = 0
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of kernel B2, and of B6's Philox form for keys [B, 2] over
     lanes [B, R] and obstacles [B, K, 4]: lane r of each problem draws from
-    the counter (r, 0, 0, 0) under its problem's key, then ``rollout_soa``
-    (``rollout_culled_soa`` over warps with ``cull``). Returns (x1,
-    controls, valid)."""
+    the counter (lane0 + r, 0, 0, 0) under its problem's key, then
+    ``rollout_soa`` (``rollout_culled_soa`` over warps with ``cull``).
+    Returns (x1, controls, valid)."""
     spec = system.control_spec
     lo, hi = spec.bounds(x0.device)
-    u = rng.philox_uniform_lanes(key, x0.shape[-2], spec.dim)
+    u = rng.philox_uniform_lanes(key, x0.shape[-2], spec.dim, lane0=lane0)
     controls = lo + u * (hi - lo)
     x1, valid = _plain_rollout(system, x0, controls, obstacles, num_disc=num_disc,
                                width=width, height=height, footprint=footprint,
@@ -640,16 +644,18 @@ def sample_and_rollout_cuda(system, key: torch.Tensor, x0: torch.Tensor,
                             footprint: tuple[float, float] | None = None,
                             fast_math: bool = False,
                             cull: bool | int | None = None,
-                            split: int | None = None
+                            split: int | None = None, lane0: int = 0
                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel B2: draw each lane's controls from Philox-4x32-10 under the
-    threefry key data ``key`` (int64 [2]) at counter (lane, 0, 0, 0), then
-    roll out as B1 (B5 with ``cull``; ``split`` as B1's). Returns (x1
+    threefry key data ``key`` (int64 [2]) at counter (lane0 + lane, 0, 0,
+    0), then roll out as B1 (B5 with ``cull``; ``split`` as B1's). ``lane0``
+    makes the launch lanes [lane0, lane0 + B) of a larger batch. Returns (x1
     [B, 4], controls [B, 3], valid bool [B])."""
     return _sample_and_rollout(sample_and_rollout_cuda, system, key, x0,
                                obstacles, False, num_disc=num_disc, width=width,
                                height=height, footprint=footprint,
-                               fast_math=fast_math, cull=cull, split=split)
+                               fast_math=fast_math, cull=cull, split=split,
+                               lane0=lane0)
 
 
 def sample_and_rollout_batched_cuda(system, keys: torch.Tensor, x0: torch.Tensor,

@@ -31,6 +31,13 @@ proof that its one-hot and gather paths agree to the bit):
 
 The loop runs on the host, one device read per iteration: whether every
 problem is done.
+
+With a mesh (parallel/mesh.py) the problems are laid over the scenario
+axis. A rank solves its share, drawing its rows of each wave's batch-wide
+draws (the counters from its first problem's on: ``row0``), and every rank
+runs the same iterations, ended by whether every problem of every rank is
+done (one collective an iteration), so the results, gathered onto every
+rank, are bitwise the batch solved in one process.
 """
 
 from __future__ import annotations
@@ -53,6 +60,8 @@ from cudasbmp_torch.ops.rollout_cuda import (
     sample_and_rollout_batched_cuda,
     sample_and_rollout_cuda,
 )
+from cudasbmp_torch.parallel import collectives
+from cudasbmp_torch.parallel.mesh import PlannerMesh
 from cudasbmp_torch.parallel.multi_query import MultiQueryResult, stack_scenarios
 from cudasbmp_torch.planners.kgmt import resolve_device
 from cudasbmp_torch.systems.registry import get_system
@@ -162,7 +171,7 @@ def _goal_biased_parents(cfg: KGMTConfig, p_x0: Tensor, n_parents: Tensor,
 
 
 def _rollout_wave(cfg: KGMTConfig, system, x0: Tensor, obstacles: Tensor,
-                  key: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+                  key: Tensor, row0: int = 0) -> tuple[Tensor, Tensor, Tensor]:
     """One batched expansion wave: x0 [B, R, S] -> (x1, controls, valid).
 
     Shared obstacles ([K, 4]) flatten the batch into one launch of B*R
@@ -173,7 +182,9 @@ def _rollout_wave(cfg: KGMTConfig, system, x0: Tensor, obstacles: Tensor,
     ``key`` is one key [2] (the arena: one stream per wave; B6's Philox form
     then takes ``split(key, B)``) or one per slot, [B, 2] (the streaming
     sweep: streams keyed by scenario id); per-slot keys need per-problem
-    obstacles, as in the JAX package."""
+    obstacles, as in the JAX package. With one key, ``row0`` is the batch
+    index of x0's first problem: its rows of the batch-wide draws are the
+    ones from that problem's on (B2's lanes from ``row0 * R``)."""
     B, R = x0.shape[0], x0.shape[1]
     per_slot_keys = key.dim() == 2
     shared_obs = obstacles.dim() == 2
@@ -181,16 +192,18 @@ def _rollout_wave(cfg: KGMTConfig, system, x0: Tensor, obstacles: Tensor,
         raise ValueError("per-slot keys need per-problem obstacles")
     kw = dict(num_disc=cfg.num_disc, width=cfg.width, height=cfg.height,
               footprint=cfg.footprint, fast_math=cfg.fast_math)
+    spec = system.control_spec
     if cfg.rollout_backend == "cuda_rng":
         if shared_obs:
             x1, controls, valid = sample_and_rollout_cuda(
-                system, key, x0.reshape(B * R, -1), obstacles, **kw)
+                system, key, x0.reshape(B * R, -1), obstacles, lane0=row0 * R, **kw)
             return (x1.reshape(B, R, -1), controls.reshape(B, R, -1),
                     valid.reshape(B, R))
-        keys = key if per_slot_keys else rng.split(key, B)
+        keys = key if per_slot_keys else rng.split(key, B, offset=row0)
         return sample_and_rollout_batched_cuda(system, keys, x0, obstacles, **kw)
 
-    controls = system.control_spec.sample(key, (R,) if per_slot_keys else (B, R))
+    controls = (spec.sample(key, (R,)) if per_slot_keys
+                else spec.sample(key, (B, R), offset=row0 * R * spec.dim))
     if cfg.rollout_backend == "torch":
         x1, valid = rollout_batch(system, x0, controls, cfg.num_disc,
                                   obstacles if shared_obs else obstacles[:, None],
@@ -272,10 +285,12 @@ def arena_init(cfg: KGMTConfig, grid: RegionGrid, inits: Tensor, key: Tensor,
 
 def arena_iteration(cfg: KGMTConfig, system, grid: RegionGrid,
                     obstacles: Tensor, goals: Tensor, R: int,
-                    s: ArenaState) -> ArenaState:
+                    s: ArenaState, row0: int = 0) -> ArenaState:
     """One global iteration over the whole batch: score -> parents ->
     expand -> stats -> accept -> window commit -> goal -> frontier refresh.
-    Updates ``s`` in place and returns it."""
+    Updates ``s`` in place and returns it. ``row0``: the batch index of
+    ``s``'s first problem (a rank's share of a larger batch), whose rows of
+    the wave's batch-wide draws it takes."""
     B, M = s.tree_parent.shape
     dev = s.p_x0.device
     r1_score = _scores(cfg, s.r1_total, s.r1_valid, s.r2_valid)
@@ -291,14 +306,14 @@ def arena_iteration(cfg: KGMTConfig, system, grid: RegionGrid,
 
     # expansion
     k_ctrl, k_accept = rng.split(rng.fold_in(s.key, s.it)).unbind(0)
-    x1, controls, valid = _rollout_wave(cfg, system, x0, obstacles, k_ctrl)
+    x1, controls, valid = _rollout_wave(cfg, system, x0, obstacles, k_ctrl, row0)
     live = ~s.done
     valid = valid & live[:, None]
 
     # region statistics and lookups; acceptance (KGMT.cu:394-400)
     score_r, virgin = _wave_regions(cfg, grid, x1, live, valid, r1_score,
                                     s.r1_total, s.r1_valid, s.r2_valid)
-    u = rng.uniform(k_accept, (B, R))
+    u = rng.uniform(k_accept, (B, R), offset=row0 * R)
     accept = valid & ((u <= score_r) | virgin)
 
     # window commit, in place; the start clamps as dynamic_update_slice's
@@ -344,14 +359,25 @@ def arena_iteration(cfg: KGMTConfig, system, grid: RegionGrid,
 
 def arena_solve(cfg: KGMTConfig, system, grid: RegionGrid, inits: Tensor,
                 goals: Tensor, obstacles: Tensor, key: Tensor, M: int, R: int,
-                n_windows: int) -> ArenaState:
+                n_windows: int, row0: int = 0, mesh: PlannerMesh | None = None
+                ) -> ArenaState:
     """Iterate while ``it < n_windows`` and some problem is not done, as the
     JAX while_loop does (extra all-done iterations would change ``it``, the
-    iteration count of the unsolved problems)."""
+    iteration count of the unsolved problems). With ``mesh``, some problem
+    of any rank of the scenario axis: every rank runs the same iterations."""
     s = arena_init(cfg, grid, inits, key, M, R, system.state_dim)
-    while s.it < n_windows and not bool(s.done.all()):
-        arena_iteration(cfg, system, grid, obstacles, goals, R, s)
+    while s.it < n_windows and not _all_done(s, mesh):
+        arena_iteration(cfg, system, grid, obstacles, goals, R, s, row0)
     return s
+
+
+def _all_done(s: ArenaState, mesh: PlannerMesh | None) -> bool:
+    """Whether every problem is done, over the scenario axis (the
+    iteration's one read)."""
+    done = s.done.all()
+    if mesh is not None and mesh.spans("scenario"):
+        done = ~collectives.axis_any(mesh, "scenario", ~done)
+    return bool(done)
 
 
 def arena_extract_paths(s: ArenaState, max_len: int
@@ -377,21 +403,20 @@ def arena_extract_paths(s: ArenaState, max_len: int
 
 class ArenaMultiQueryPlanner:
     """Host-facing batched multi-query planner on one device (``cuda``
-    unless the caller asks for ``cpu``). Fixed-wave semantics: see the
-    module docstring. Sharding the problem axis over a mesh (the JAX
-    ``mesh`` argument) is not yet ported (ROADMAP item 23)."""
+    unless the caller asks for ``cpu``), or with ``mesh`` the problems over
+    its scenario axis, each rank on the mesh's device (pure data
+    parallelism: the arena exchanges nothing between problems). Fixed-wave
+    semantics: see the module docstring."""
 
-    def __init__(self, config: KGMTConfig | None = None, mesh=None, system=None,
+    def __init__(self, config: KGMTConfig | None = None,
+                 mesh: PlannerMesh | None = None, system=None,
                  auto_capacity: bool = False,
                  device: torch.device | str = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError("ArenaMultiQueryPlanner(mesh=...): the "
-                                      "sharded arena is not yet ported "
-                                      "(ROADMAP item 23)")
         cfg = self.config = config or KGMTConfig()
+        self.mesh = mesh
         self.system = system or get_system(cfg.system)
         self.auto_capacity = auto_capacity
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.grid = RegionGrid(width=cfg.width, height=cfg.height, N=cfg.N,
                                n=cfg.n)
         R = cfg.rollouts_per_iter
@@ -413,9 +438,10 @@ class ArenaMultiQueryPlanner:
                 f"{cfg.num_iterations}; raise max_tree_size or lower "
                 f"rollouts_per_iter to get the full budget", stacklevel=2)
 
-    def _solve(self, inits, goals, obstacles, key):
+    def _solve(self, inits, goals, obstacles, key, row0: int = 0):
         final = arena_solve(self.config, self.system, self.grid, inits, goals,
-                            obstacles, key, self.M, self.R, self.n_windows)
+                            obstacles, key, self.M, self.R, self.n_windows, row0,
+                            self.mesh)
         _, samples, lengths = arena_extract_paths(final, self.n_windows + 1)
         iters = torch.where(final.solved_at >= 0, final.solved_at, final.it)
         tree_sizes = final.tree_valid.sum(dim=-1, dtype=torch.int32)
@@ -429,15 +455,20 @@ class ArenaMultiQueryPlanner:
         B6). ``max_extensions`` > 0 re-plans problems that exhausted the
         window budget unsolved as fresh searches with a doubled budget, up
         to that many times; those still unsolved carry
-        ``budget_exhausted``."""
+        ``budget_exhausted``. With a mesh, B must be divisible by the
+        scenario-axis size; every rank returns the whole result."""
         B, dev = inits.shape[0], self.device
+        lo, hi = (0, B) if self.mesh is None else self.mesh.batch_range(B)
         obstacles = np.asarray(obstacles)
+        own_obs = obstacles if obstacles.ndim == 2 else obstacles[lo:hi]
         t0 = time.perf_counter()
-        outs = self._solve(torch.as_tensor(inits, dtype=torch.float32, device=dev),
-                           torch.as_tensor(goals, dtype=torch.float32, device=dev),
-                           torch.as_tensor(obstacles, dtype=torch.float32, device=dev),
-                           rng.key(seed, dev))
-        costs, tree_sizes, iters, samples, lengths = (t.cpu().numpy() for t in outs)
+        outs = self._solve(
+            torch.as_tensor(np.asarray(inits)[lo:hi], dtype=torch.float32, device=dev),
+            torch.as_tensor(np.asarray(goals)[lo:hi], dtype=torch.float32, device=dev),
+            torch.as_tensor(own_obs, dtype=torch.float32, device=dev),
+            rng.key(seed, dev), lo)
+        costs, tree_sizes, iters, samples, lengths = (
+            collectives.axis_gather(self.mesh, "scenario", t).cpu().numpy() for t in outs)
         wall = time.perf_counter() - t0
         solved = np.isfinite(costs)
         res = MultiQueryResult(
@@ -459,9 +490,11 @@ class ArenaMultiQueryPlanner:
                 seed: int, max_extensions: int) -> MultiQueryResult:
         """Progressive-doubling restarts: each round re-plans only the
         budget-exhausted problems (padded to a power-of-two bucket of at
-        least 8 with the first of them) with twice the previous round's
-        windows and the seed ``seed + 104729 * (round + 1)``; sub-planners
-        are cached per budget."""
+        least 8, rounded up to a multiple of the mesh's scenario axis, with
+        the first of them) with twice the previous round's windows and the
+        seed ``seed + 104729 * (round + 1)``; sub-planners are cached per
+        budget. Every rank holds the whole result, so every rank picks the
+        same problems and bucket."""
         windows = self.n_windows
         for ext in range(max_extensions):
             idx = np.flatnonzero(res.budget_exhausted)
@@ -471,11 +504,14 @@ class ArenaMultiQueryPlanner:
             sub = self._extensions.get(windows)
             if sub is None:
                 cfg2 = dataclasses.replace(self.config, num_iterations=windows)
-                sub = ArenaMultiQueryPlanner(cfg2, system=self.system,
+                sub = ArenaMultiQueryPlanner(cfg2, mesh=self.mesh, system=self.system,
                                              auto_capacity=True,
                                              device=self.device)
                 self._extensions[windows] = sub
             bucket = max(1 << (int(idx.size - 1)).bit_length(), 8)
+            if self.mesh is not None:
+                n_shard = self.mesh.n_scenario
+                bucket = -(-bucket // n_shard) * n_shard
             pad_idx = np.concatenate(
                 [idx, np.full(bucket - idx.size, idx[0], np.int64)])
             sub_obs = obstacles if obstacles.ndim == 2 else obstacles[pad_idx]

@@ -101,8 +101,9 @@ class MonteCarloPlanner:
     """Sweep many random scenarios on one device (``cuda`` unless the caller
     asks for ``cpu``): ``impl="vmap"`` through ``MultiQueryPlanner``,
     ``impl="arena"`` through ``ArenaMultiQueryPlanner`` (fixed-width
-    waves; honours cfg.goal_bias). ``mesh`` is not yet ported (ROADMAP item
-    23)."""
+    waves; honours cfg.goal_bias). With ``mesh`` the scenarios go over its
+    scenario axis (every rank generates the same scenarios, solves its
+    share and returns the whole summary)."""
 
     def __init__(self, config: KGMTConfig | None = None, mesh=None,
                  impl: str = "vmap", auto_capacity: bool = False,

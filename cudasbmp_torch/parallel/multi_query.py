@@ -39,6 +39,11 @@ A trip launches the same kernels whatever B is, and reads one value back:
 whether any problem is still running. Each problem's result equals the
 single-query solve (planners/kgmt.py) under the key ``fold_in(key(seed),
 b)``, field for field.
+
+With a mesh (parallel/mesh.py) the batch is laid over the scenario axis:
+each rank solves its problems under their global keys, with its own trips
+(the problems share nothing), and the results are gathered, so every rank
+returns the whole batch, bitwise the batch solved in one process.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ from cudasbmp_torch.ops.rollout_cuda import (
     rollout_batched_cuda,
     sample_and_rollout_batched_cuda,
 )
+from cudasbmp_torch.parallel import collectives
+from cudasbmp_torch.parallel.mesh import PlannerMesh
 from cudasbmp_torch.planners.kgmt import _fresh_target, _num_waves
 from cudasbmp_torch.systems.registry import get_system
 from cudasbmp_torch.utils.profiling import phase_scope
@@ -413,46 +420,48 @@ def multi_query_solve(cfg: KGMTConfig, system, grid: RegionGrid, inits: Tensor,
 
 class MultiQueryPlanner:
     """Plan B problems at once, each by the whole single-query solve, on one
-    device (``cuda`` unless the caller asks for ``cpu``). Sharding the batch
-    over a mesh (the JAX ``mesh`` argument) is not yet ported (ROADMAP item
-    23)."""
+    device (``cuda`` unless the caller asks for ``cpu``), or with ``mesh``
+    the batch over its scenario axis, each rank on the mesh's device."""
 
-    def __init__(self, config: KGMTConfig | None = None, mesh=None, system=None,
+    def __init__(self, config: KGMTConfig | None = None,
+                 mesh: PlannerMesh | None = None, system=None,
                  device: torch.device | str = "cuda"):
         from cudasbmp_torch.planners.kgmt import resolve_device
 
-        if mesh is not None:
-            raise NotImplementedError("MultiQueryPlanner(mesh=...): sharding the "
-                                      "batch is not yet ported (ROADMAP item 23)")
         cfg = self.config = config or KGMTConfig()
+        self.mesh = mesh
         self.system = system or get_system(cfg.system)
         self.grid = RegionGrid(width=cfg.width, height=cfg.height, N=cfg.N, n=cfg.n)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.last_state: MultiQueryState | None = None
 
     def plan_batch(self, inits: np.ndarray, goals: np.ndarray,
                    obstacles: np.ndarray, seed: int = 0) -> MultiQueryResult:
         """inits/goals [B, SAMPLE_DIM]; obstacles [B, K, 4] or [K, 4]
-        (shared). Problem b solves under the key ``fold_in(key(seed), b)``."""
+        (shared). Problem b solves under the key ``fold_in(key(seed), b)``.
+        With a mesh, B must be divisible by the scenario-axis size; each
+        rank solves its share and returns the whole result
+        (``last_state`` holds its share)."""
         from cudasbmp_torch.parallel.batch_kgmt import arena_extract_paths
 
         cfg, dev = self.config, self.device
         B = inits.shape[0]
+        lo, hi = (0, B) if self.mesh is None else self.mesh.batch_range(B)
         obstacles = np.asarray(obstacles, dtype=np.float32)
         if obstacles.ndim == 2:
             obstacles = np.broadcast_to(obstacles, (B,) + obstacles.shape)
-        keys = rng.fold_in(rng.key(seed, dev), torch.arange(B, device=dev))
+        keys = rng.fold_in(rng.key(seed, dev), torch.arange(lo, hi, device=dev))
         t0 = time.perf_counter()
         final = multi_query_solve(
             cfg, self.system, self.grid,
-            torch.as_tensor(np.asarray(inits), dtype=torch.float32, device=dev),
-            torch.as_tensor(np.asarray(goals), dtype=torch.float32, device=dev),
-            torch.as_tensor(np.ascontiguousarray(obstacles), device=dev), keys)
+            torch.as_tensor(np.asarray(inits)[lo:hi], dtype=torch.float32, device=dev),
+            torch.as_tensor(np.asarray(goals)[lo:hi], dtype=torch.float32, device=dev),
+            torch.as_tensor(np.ascontiguousarray(obstacles[lo:hi]), device=dev), keys)
         # the goal -> root walk of extract_path, per problem
         _, samples, lengths = arena_extract_paths(final, cfg.num_iterations + 1)
         costs, tree_sizes, iters, paths, lengths = (
-            t.cpu().numpy() for t in (final.cost_to_goal, final.tree_size,
-                                      final.itr, samples, lengths))
+            collectives.axis_gather(self.mesh, "scenario", t).cpu().numpy()
+            for t in (final.cost_to_goal, final.tree_size, final.itr, samples, lengths))
         wall = time.perf_counter() - t0
         self.last_state = final
         solved = np.isfinite(costs)

@@ -19,8 +19,11 @@ waves, drawing from scenario 0's stream as the JAX package does
 acceptance or result, so nothing it draws reaches an output.
 
 The loop runs on the host, one device read per iteration (the completed
-count). ``run_sharded``, one pool per device of a mesh, is not yet ported
-(ROADMAP item 23).
+count). ``run_sharded`` is the multi-device form: one pool for each
+position of a mesh axis, over the id range ``[k*per, (k+1)*per)`` of
+position k, each rank running its positions' pools; the pools share
+nothing, and the union, gathered onto every rank, is bitwise the
+single-pool sweep.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ from cudasbmp_torch.parallel.batch_kgmt import (
     _scores,
     _wave_regions,
 )
+from cudasbmp_torch.parallel import collectives
+from cudasbmp_torch.parallel.mesh import PlannerMesh
 from cudasbmp_torch.parallel.monte_carlo import padding_boxes, pick_free, random_boxes
 from cudasbmp_torch.planners.kgmt import resolve_device
 from cudasbmp_torch.systems.registry import get_system
@@ -252,20 +257,28 @@ class StreamingMonteCarloPlanner:
     """Host-facing streaming sweep on one device (``cuda`` unless the caller
     asks for ``cpu``). ``pool`` is the number of resident slots;
     ``cfg.num_iterations`` the per-scenario wave budget;
-    ``cfg.rollouts_per_iter`` the wave width. ``mesh`` and ``run_sharded``
-    (one pool per device) are not yet ported (ROADMAP item 23)."""
+    ``cfg.rollouts_per_iter`` the wave width. ``mesh``, as in the JAX
+    package, does not shard ``run``'s pool (every rank sweeps the whole
+    range on the mesh's device); ``run_sharded`` runs one pool a position
+    of a mesh axis."""
 
     def __init__(self, config: KGMTConfig | None = None, pool: int = 1024,
-                 mesh=None, system=None, device: torch.device | str = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError("StreamingMonteCarloPlanner(mesh=...) is "
-                                      "not yet ported (ROADMAP item 23)")
+                 mesh: PlannerMesh | None = None, system=None,
+                 device: torch.device | str = "cuda"):
         cfg = self.config = config or KGMTConfig()
         self.pool = pool
+        self.mesh = mesh
         self.system = system or get_system(cfg.system)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.grid = RegionGrid(width=cfg.width, height=cfg.height, N=cfg.N,
                                n=cfg.n)
+
+    def _pad_to(self, num_obstacles: int) -> int:
+        cfg = self.config
+        if num_obstacles > cfg.max_obstacles:
+            raise ValueError(
+                f"{num_obstacles} obstacles > max {cfg.max_obstacles}")
+        return min(cfg.max_obstacles, max(8, -(-num_obstacles // 8) * 8))
 
     def run(self, num_scenarios: int, seed: int = 0, num_obstacles: int = 8,
             id_lo: int = 0) -> StreamingMCSummary:
@@ -273,10 +286,7 @@ class StreamingMonteCarloPlanner:
         runs one partition of a larger sweep: its results are bitwise the
         matching slice of the unpartitioned run with the same seed."""
         cfg = self.config
-        if num_obstacles > cfg.max_obstacles:
-            raise ValueError(
-                f"{num_obstacles} obstacles > max {cfg.max_obstacles}")
-        pad_to = min(cfg.max_obstacles, max(8, -(-num_obstacles // 8) * 8))
+        pad_to = self._pad_to(num_obstacles)
         t0 = time.perf_counter()
         final = stream_solve(cfg, self.system, self.grid,
                              rng.key(seed, self.device), self.pool,
@@ -284,26 +294,53 @@ class StreamingMonteCarloPlanner:
                              num_obstacles, pad_to, id_lo=id_lo)
         costs = final.out_cost.cpu().numpy()
         iters = final.out_iters.cpu().numpy()
-        wall = time.perf_counter() - t0
-        solved = np.isfinite(costs)
-        q = (np.quantile(costs[solved], [0.1, 0.5, 0.9]).round(3).tolist()
-             if solved.any() else [float("nan")] * 3)
-        return StreamingMCSummary(
-            num_scenarios=num_scenarios,
-            solve_rate=float(solved.mean()),
-            mean_cost_solved=float(costs[solved].mean()) if solved.any()
-            else float("nan"),
-            cost_quantiles={"p10": q[0], "p50": q[1], "p90": q[2]},
-            mean_iters=float(iters.mean()),
-            num_budget_exhausted=int((~solved).sum()),
-            wall_time_s=wall,
-            solves_per_sec=num_scenarios / wall,
-            costs=costs,
-            iters=iters,
-        )
+        return _summary(costs, iters, time.perf_counter() - t0)
 
-    def run_sharded(self, num_scenarios: int, mesh, seed: int = 0,
-                    num_obstacles: int = 8, axis: str = "scenario"):
-        raise NotImplementedError("run_sharded (one pool per device) is not "
-                                  "yet ported (ROADMAP item 23); run "
-                                  "partitions with run(id_lo=...)")
+    def run_sharded(self, num_scenarios: int, mesh: PlannerMesh, seed: int = 0,
+                    num_obstacles: int = 8, axis: str = "scenario"
+                    ) -> StreamingMCSummary:
+        """The multi-device form: one independent pool of ``pool`` slots
+        for each position k of ``mesh``'s ``axis``, sweeping the global ids
+        [k*per, (k+1)*per), each rank its positions' pools one after the
+        other on the mesh's device, the result rows gathered over the axis.
+        No collective runs but that gather (slots never communicate), and
+        the union is bitwise the single-pool sweep (every stream is keyed
+        by global scenario id)."""
+        cfg = self.config
+        pad_to = self._pad_to(num_obstacles)
+        n_shards = mesh.shape[axis]
+        if num_scenarios % n_shards:
+            raise ValueError(
+                f"num_scenarios={num_scenarios} must divide evenly over "
+                f"{n_shards} '{axis}' shards")
+        per = num_scenarios // n_shards
+        device = resolve_device(mesh.device)
+        key = rng.key(seed, device)
+        lo, hi = mesh.local_range(axis)
+        t0 = time.perf_counter()
+        finals = [stream_solve(cfg, self.system, self.grid, key, self.pool,
+                               cfg.rollouts_per_iter, per, num_obstacles, pad_to,
+                               id_lo=k * per) for k in range(lo, hi)]
+        costs, iters = (
+            collectives.axis_gather(mesh, axis, torch.cat(parts)).cpu().numpy()
+            for parts in ([f.out_cost for f in finals], [f.out_iters for f in finals]))
+        return _summary(costs, iters, time.perf_counter() - t0)
+
+
+def _summary(costs: np.ndarray, iters: np.ndarray, wall: float) -> StreamingMCSummary:
+    solved = np.isfinite(costs)
+    q = (np.quantile(costs[solved], [0.1, 0.5, 0.9]).round(3).tolist()
+         if solved.any() else [float("nan")] * 3)
+    return StreamingMCSummary(
+        num_scenarios=costs.shape[0],
+        solve_rate=float(solved.mean()),
+        mean_cost_solved=float(costs[solved].mean()) if solved.any()
+        else float("nan"),
+        cost_quantiles={"p10": q[0], "p50": q[1], "p90": q[2]},
+        mean_iters=float(iters.mean()),
+        num_budget_exhausted=int((~solved).sum()),
+        wall_time_s=wall,
+        solves_per_sec=costs.shape[0] / wall,
+        costs=costs,
+        iters=iters,
+    )

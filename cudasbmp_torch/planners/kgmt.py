@@ -254,10 +254,14 @@ def update_region_scores(cfg: KGMTConfig, s: KGMTState | PathlessState
     integer_pow computes them (x^4 = (x*x)*(x*x)). The sum is ``row_sum``'s
     fixed pairwise order, so the batched planner's per-problem sums
     (parallel/multi_query.py) equal it on every device (XLA sums in an order
-    of its own, an ulp away at times)."""
+    of its own, an ulp away at times). The counters may carry leading axes
+    (the sharded multi-query planner's problems): every problem's row is
+    scored alone, and the threshold has the leading shape."""
     n2 = cfg.n * cfg.n
+    lead = s.r1_avail.shape[:-1]
     avail = s.r1_avail != 0
-    cov_r = div(s.r2_avail.reshape(cfg.num_r1, n2).sum(dim=1).to(torch.float32), n2)
+    cov_r = div(s.r2_avail.reshape(*lead, cfg.num_r1, n2).sum(dim=-1).to(torch.float32),
+                n2)
     valid_f = s.r1_valid.to(torch.float32)
     invalid_f = s.r1_invalid.to(torch.float32)
     free_vol = (cfg.epsilon + valid_f) / (cfg.epsilon + valid_f + invalid_f)
@@ -265,9 +269,9 @@ def update_region_scores(cfg: KGMTConfig, s: KGMTState | PathlessState
     fv2 = free_vol * free_vol
     score = (fv2 * fv2) / ((1.0 + cov_r) * (1.0 + count_f * count_f))
     score = torch.where(avail, score, 0.0)
-    total = row_sum(score)[0]
-    active = avail.sum().clamp(min=1)
-    r1_threshold = total / active.to(torch.float32)
+    total = row_sum(score)
+    active = avail.sum(dim=-1).clamp(min=1)
+    r1_threshold = total[..., 0] / active.to(torch.float32)
     r1_score = torch.where(avail, torch.where(total > 0, score / total, 1.0), 1.0)
     return r1_score, r1_threshold
 
@@ -311,17 +315,19 @@ def apply_pool(cfg: KGMTConfig, gslot: Tensor, parent_rows: Tensor,
     not the padding -1, and are active whatever ``n_target`` says (a shard
     whose own frontier is sterile still expands foreign nodes). ``gslot``
     [R] is the wave's slot numbering; the parent tensors are [..., R] (and
-    [..., R, SAMPLE_DIM]); the pool is (rows [P, SAMPLE_DIM], ids i32 [P],
-    costs [P]). Returns the four tensors with the pool applied."""
+    [..., R, SAMPLE_DIM]); the pool is (rows [..., P, SAMPLE_DIM], ids i32
+    [..., P], costs [..., P]), its leading axes broadcasting against the
+    parents' (one pool a problem). Returns the four tensors with the pool
+    applied."""
     pool_rows, pool_ids, pool_costs = pool
     R = cfg.rollouts_per_iter
     n_pool = int(round(cfg.exchange_frac * R))
-    j = gslot % pool_ids.shape[0]
+    j = gslot % pool_ids.shape[-1]
     slot = torch.arange(R, device=gslot.device)
-    use = (slot >= R - n_pool) & (pool_ids[j] >= 0)
-    return (torch.where(use[:, None], pool_rows[j], parent_rows),
-            torch.where(use, pool_costs[j], parent_cost),
-            torch.where(use, pool_ids[j].to(parent_gid.dtype), parent_gid),
+    use = (slot >= R - n_pool) & (pool_ids[..., j] >= 0)
+    return (torch.where(use[..., None], pool_rows[..., j, :], parent_rows),
+            torch.where(use, pool_costs[..., j], parent_cost),
+            torch.where(use, pool_ids[..., j].to(parent_gid.dtype), parent_gid),
             slot_active | use)
 
 

@@ -80,36 +80,39 @@ def fold_in(k: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
     return torch.stack([a, b], dim=-1)
 
 
-def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+def split(k: torch.Tensor, num: int = 2, offset: int = 0) -> torch.Tensor:
     """``jax.random.split``: key i is the hash of the counter (0, i);
-    returns [..., num, 2]."""
-    i = torch.arange(num, dtype=torch.int64, device=k.device)
+    returns [..., num, 2]. ``offset`` gives keys [offset, offset + num) of a
+    larger split (a rank's share of a batch's keys)."""
+    i = torch.arange(offset, offset + num, dtype=torch.int64, device=k.device)
     a, b = threefry2x32(k[..., 0, None], k[..., 1, None], torch.zeros_like(i), i)
     return torch.stack([a, b], dim=-1)
 
 
-def random_bits(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+def random_bits(k: torch.Tensor, shape: tuple[int, ...], offset: int = 0) -> torch.Tensor:
     """32-bit ``jax.random.bits``: element i (row-major) is the xor of the two
     hash words of the counter (i >> 32, i mod 2^32); returns
-    [..., *shape] for keys [..., 2]."""
+    [..., *shape] for keys [..., 2]. ``offset`` gives the elements from
+    ``offset`` on of a larger draw (a rank's rows of a batch's draw)."""
     n = 1
     for s in shape:
         n *= s
-    i = torch.arange(n, dtype=torch.int64, device=k.device)
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=k.device)
     a, b = threefry2x32(k[..., 0, None], k[..., 1, None], i >> 32, i & MASK32)
     return (a ^ b).reshape((*k.shape[:-1], *shape))
 
 
 def uniform(k: torch.Tensor, shape: tuple[int, ...],
             minval: float | torch.Tensor = 0.0,
-            maxval: float | torch.Tensor = 1.0) -> torch.Tensor:
+            maxval: float | torch.Tensor = 1.0, offset: int = 0) -> torch.Tensor:
     """f32 ``jax.random.uniform``: 23 random mantissa bits under exponent 0
     give [1, 2), minus 1, then ``max(minval, u * (maxval - minval) +
     minval)`` with each operation rounded once, as JAX computes it op by op
     (jitted on XLA:CPU the multiply-add may become one FMA). ``minval`` and
     ``maxval`` broadcast against ``shape`` from the right. At the defaults
-    the scaling is exact and the result is u. Returns [..., *shape]."""
-    bits = (random_bits(k, shape) >> 9) | 0x3F800000
+    the scaling is exact and the result is u. Returns [..., *shape];
+    ``offset`` as ``random_bits``'s."""
+    bits = (random_bits(k, shape, offset) >> 9) | 0x3F800000
     u = bits.to(torch.int32).view(torch.float32) - 1.0
     lo = _on(minval, torch.float32, k.device)
     hi = _on(maxval, torch.float32, k.device)
@@ -182,15 +185,17 @@ def philox4x32(counter: tuple[torch.Tensor, ...],
     return c
 
 
-def philox_uniform_lanes(k: torch.Tensor, n: int, words: int) -> torch.Tensor:
+def philox_uniform_lanes(k: torch.Tensor, n: int, words: int,
+                         lane0: int = 0) -> torch.Tensor:
     """The ``cuda_rng`` kernels' stream: lane i hashes the counter
     (i, 0, 0, 0) under key words (k[..., 0], k[..., 1]); word j becomes
     u = (bits >> 8) * 2^-24 in [0, 1). Returns f32 [..., n, words] for keys
     [..., 2], words <= 4: a batch of keys gives each problem its own
-    stream, as the batched kernel draws it."""
+    stream, as the batched kernel draws it. ``lane0`` gives lanes [lane0,
+    lane0 + n) of a larger launch."""
     if not 1 <= words <= 4:
         raise ValueError("Philox-4x32 gives at most 4 words per lane")
-    lane = torch.arange(n, dtype=torch.int64, device=k.device)
+    lane = torch.arange(lane0, lane0 + n, dtype=torch.int64, device=k.device)
     zero = torch.zeros_like(lane)
     out = philox4x32((lane, zero, zero, zero), k[..., 0, None], k[..., 1, None])
     top24 = torch.stack(out[:words], dim=-1) >> 8

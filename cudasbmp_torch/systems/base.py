@@ -32,12 +32,15 @@ class ControlSpec:
         copy from the host each draw would wait for the card."""
         return _bounds(self.lo, self.hi, torch.device(device))
 
-    def sample(self, key: torch.Tensor, shape: tuple[int, ...] = ()) -> torch.Tensor:
+    def sample(self, key: torch.Tensor, shape: tuple[int, ...] = (),
+               offset: int = 0) -> torch.Tensor:
         """Controls ``lo + u*(hi - lo)`` with u the threefry uniform stream
         of ``key`` (bitwise the JAX draw); [..., dim] on the key's device, a
-        batch of keys [..., 2] giving [..., *shape, dim]."""
+        batch of keys [..., 2] giving [..., *shape, dim]. ``offset`` (a
+        multiple of ``dim``) gives the controls from that element on of a
+        larger draw."""
         lo, hi = self.bounds(key.device)
-        u = rng.uniform(key, tuple(shape) + (self.dim,))
+        u = rng.uniform(key, tuple(shape) + (self.dim,), offset=offset)
         return lo + u * (hi - lo)
 
 

@@ -18,7 +18,7 @@ import torch
 
 from cudasbmp_torch.config import KGMTConfig, Scenario
 from cudasbmp_torch.ops.rollout import rollout_batch
-from cudasbmp_torch.parallel import ArenaMultiQueryPlanner, stack_scenarios
+from cudasbmp_torch.parallel import ArenaMultiQueryPlanner, make_planner_mesh, stack_scenarios
 from cudasbmp_torch.systems import get_system
 from cudasbmp_tpu import KGMTConfig as JConfig
 from cudasbmp_tpu.parallel.batch_kgmt import ArenaMultiQueryPlanner as JArena
@@ -159,5 +159,56 @@ def test_arena_runs_on_the_card_unless_asked_for_the_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ArenaMultiQueryPlanner(KGMTConfig(**ARENA))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-        ArenaMultiQueryPlanner(KGMTConfig(**ARENA), mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ArenaMultiQueryPlanner(KGMTConfig(**ARENA), mesh=make_planner_mesh(n_scenario=2))
+
+
+@pytest.mark.parametrize("layout,backend", [("shared", "auto"), ("per", "cuda_rng")])
+def test_one_process_mesh_equals_no_mesh(layout, backend):
+    """A mesh of two scenario slots on one process solves the batch as
+    mesh=None does, to the bit (tests/test_arena.py:85-98 asserts the same
+    for the JAX arena), and a batch that does not split evenly over the
+    scenario axis raises the JAX package's ValueError."""
+    cfg = KGMTConfig(**dict(ARENA, num_iterations=6, rollout_backend=backend))
+    inits, goals, shared, per = problems()
+    obstacles = shared if layout == "shared" else per
+    mesh = make_planner_mesh(n_scenario=2, device="cpu")
+    got = ArenaMultiQueryPlanner(cfg, mesh=mesh).plan_batch(inits, goals, obstacles, seed=2)
+    want = ArenaMultiQueryPlanner(cfg, device="cpu").plan_batch(inits, goals, obstacles,
+                                                                seed=2)
+    for f in ("solved", "costs", "tree_sizes", "iterations", "paths", "path_lengths",
+              "budget_exhausted"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
+    with pytest.raises(ValueError, match="must be divisible by the scenario-axis size 3"):
+        ArenaMultiQueryPlanner(cfg, mesh=make_planner_mesh(n_scenario=3, device="cpu")
+                               ).plan_batch(inits, goals, obstacles)
+
+
+@pytest.mark.parametrize("layout,backend", [("shared", "auto"), ("shared", "cuda_rng"),
+                                            ("per", "cuda_rng"), ("shared", "torch")])
+def test_a_share_of_a_wave_is_its_rows_of_the_whole_wave(layout, backend):
+    """A rank's share of the arena's wave, problems [row0, B) under the one
+    wave key, gives the whole wave's rows from row0 on, bit for bit: the
+    shared-box draws of B2 from lane row0 * R (its ``lane0``), of the other
+    backends from the same offset of the batch-wide draw, B6's keys from
+    split's row0-th."""
+    from cudasbmp_torch import rng
+    from cudasbmp_torch.parallel import batch_kgmt as bk
+
+    cfg = KGMTConfig(**dict(ARENA, rollout_backend=backend))
+    inits, _, shared, per = problems()
+    gen = np.random.default_rng(4)
+    x0 = (np.tile(inits[:, None, :4], (1, R, 1))
+          + gen.uniform(-0.5, 0.5, (B, R, 4))).astype(np.float32)
+    x0, key = torch.tensor(x0), rng.key(11, "cpu")
+    boxes = torch.tensor(shared if layout == "shared" else per)
+    system = get_system("bicycle")
+    whole = bk._rollout_wave(cfg, system, x0, boxes, key)
+    for row0 in (1, 3):
+        share = bk._rollout_wave(cfg, system, x0[row0:], boxes if layout == "shared"
+                                 else boxes[row0:], key, row0=row0)
+        for got, want in zip(share, whole):
+            assert torch.equal(got, want[row0:]), (row0, got.dtype)
+    with pytest.raises(ValueError, match="lane0"):
+        bk._rollout_wave(cfg.replace(rollout_backend="cuda_rng"), system, x0,
+                         torch.tensor(shared), key, row0=-1)

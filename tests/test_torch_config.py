@@ -109,8 +109,10 @@ def test_package_imports_and_solves_with_jax_blocked():
     sweep, the streaming sweep, the vmap sweep and multi-query planner, the
     shortcut, the probe planners, the throughput probe, the refinement, the
     recorded solve and a resume from its checkpoint, the sharded tree
-    (chunked, with checkpoints), the state validator, the Agent model, a
-    profiler trace and the edge replay of the plots run."""
+    (chunked, with checkpoints), the sharded multi-query planner,
+    ``run_sharded`` and the distribution layer's entry point (a no-op
+    without torchrun's environment), the state validator, the Agent model,
+    a profiler trace and the edge replay of the plots run."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -165,12 +167,20 @@ def test_package_imports_and_solves_with_jax_blocked():
         "assert p.resume(load_checkpoint(d + '/checkpoint_1.npz', device='cpu'),\n"
         "                sc).tree_size == r.tree_size\n"
         "for name in ('models', 'viz', 'utils.validate', 'utils.profiling',\n"
-        "             'parallel.mesh', 'parallel.sharded_tree'):\n"
+        "             'parallel.mesh', 'parallel.sharded_tree', 'parallel.collectives',\n"
+        "             'parallel.sharded_multi_query'):\n"
         "    assert 'cudasbmp_torch.' + name in sys.modules, name\n"
         "mesh = parallel.make_planner_mesh(n_tree=2, device='cpu')\n"
         "res = parallel.ShardedTreePlanner(cfg, mesh=mesh).plan_checkpointed(\n"
         "    sc, d + '/sharded', checkpoint_every=1)\n"
         "assert res.iterations == 2 and res.tree_sizes_by_shard.shape == (2,), res\n"
+        "mesh = parallel.make_planner_mesh(n_scenario=2, n_tree=2, device='cpu')\n"
+        "q = parallel.ShardedMultiQueryPlanner(cfg, mesh=mesh).plan_scenarios([sc, sc])\n"
+        "assert q.iterations.tolist() == [2, 2] and len(q.paths) == 2, q\n"
+        "s = parallel.StreamingMonteCarloPlanner(cfg, pool=2, device='cpu').run_sharded(\n"
+        "    4, mesh=mesh, num_obstacles=5)\n"
+        "assert s.iters.shape == (4,), s\n"
+        "assert parallel.maybe_initialize_distributed('cpu') is False\n"
         "from cudasbmp_torch.utils.validate import validate_state\n"
         "assert validate_state(r.state, cfg)['tree_size'] == r.tree_size\n"
         "from cudasbmp_torch.models import Agent\n"

@@ -77,6 +77,55 @@ def test_sample_and_rollout_kernel_matches_twin(dev, B):
     assert torch.equal(cpu.view(torch.int32), c.cpu().view(torch.int32))
 
 
+
+@pytest.mark.parametrize("lane0", [1, 4096 * 3, 2 ** 20 + 37])
+def test_sample_and_rollout_kernel_at_a_lane_offset(dev, lane0):
+    """B2 launched over lanes [lane0, lane0 + B) draws the Philox words of
+    those lanes (``philox_uniform_lanes(..., lane0)``) and rolls them out as
+    the twin does: a rank's share of the arena's batch-wide wave."""
+    B = 4096
+    x0, _ = demo_batch(B, 8, dev)
+    obs, key = _obstacles(dev), rng.key(9, dev)
+    x1, c, valid = rc.sample_and_rollout_cuda(KinematicBicycle(), key, x0, obs,
+                                              lane0=lane0, **KW)
+    lo, hi = KinematicBicycle().control_spec.bounds(dev)
+    u = rng.philox_uniform_lanes(key, B, 3, lane0=lane0)
+    assert torch.equal(c.view(torch.int32), (lo + u * (hi - lo)).view(torch.int32))
+    tx1, tc, tvalid = rc.sample_and_rollout_torch(KinematicBicycle(), key, x0, obs,
+                                                  lane0=lane0, **KW)
+    assert torch.equal(c.view(torch.int32), tc.view(torch.int32))
+    assert torch.equal(valid, tvalid)
+    assert torch.equal(x1.view(torch.int32), tx1.view(torch.int32))
+    # the rows of a launch over the whole batch from lane 0
+    whole = torch.cat([demo_batch(lane0, 9, dev)[0], x0]) if lane0 <= 4096 * 3 else None
+    if whole is not None:
+        w1, wc, wvalid = rc.sample_and_rollout_cuda(KinematicBicycle(), key, whole, obs,
+                                                    **KW)
+        assert torch.equal(wc[lane0:], c) and torch.equal(wvalid[lane0:], valid)
+        assert torch.equal(w1[lane0:].view(torch.int32), x1.view(torch.int32))
+
+
+@pytest.mark.parametrize("row0", [1, 37])
+def test_arena_share_from_row0_launches_b2(dev, row0):
+    """The arena's shared-box wave under cuda_rng on a rank's share of the
+    batch (problems from row0 on) is one launch of B2 at lane0 = row0 * R,
+    no launch of B1, and equals the twin's rows over the whole batch bit
+    for bit."""
+    from cudasbmp_torch.parallel import batch_kgmt as bk
+
+    cfg = ctt.KGMTConfig(rollouts_per_iter=128, rollout_backend="cuda_rng", **KW)
+    P, R = 64, cfg.rollouts_per_iter
+    x0 = demo_batch(P * R, 10, dev)[0].view(P, R, 4)
+    obs, key = _obstacles(dev), rng.key(13, dev)
+    system = KinematicBicycle()
+    rc.reset_launch_counts()
+    got = bk._rollout_wave(cfg, system, x0[row0:], obs, key, row0=row0)
+    assert rc.sample_and_rollout_cuda.launches == 1
+    assert rc.rollout_cuda.launches == 0
+    want = rc.sample_and_rollout_torch(system, key, x0.view(P * R, 4), obs, **KW)
+    for g, w in zip(got, want):
+        assert torch.equal(g.reshape(w[row0 * R:].shape), w[row0 * R:])
+
 def test_wrappers_reject_bad_inputs(dev):
     x0, ctrl = demo_batch(64, 7, dev)
     obs = _obstacles(dev)

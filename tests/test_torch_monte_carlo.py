@@ -11,7 +11,7 @@ import torch
 
 from cudasbmp_torch import rng
 from cudasbmp_torch.config import KGMTConfig
-from cudasbmp_torch.parallel import MonteCarloPlanner, random_scenarios
+from cudasbmp_torch.parallel import MonteCarloPlanner, make_planner_mesh, random_scenarios
 from cudasbmp_torch.planners.kgmt import kgmt_solve
 from cudasbmp_tpu import KGMTConfig as JConfig
 from cudasbmp_tpu.parallel.monte_carlo import random_scenarios as j_random_scenarios
@@ -74,8 +74,18 @@ def test_vmap_sweep_equals_single_solves_on_each_box_set():
         mc.run(num_scenarios=2, seed=3, num_obstacles=5, max_extensions=1)
 
 
-def test_mesh_is_not_yet_ported():
-    for impl in ("vmap", "arena"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-            MonteCarloPlanner(KGMTConfig(**ARENA), impl=impl, mesh=object(),
-                              device="cpu")
+@pytest.mark.parametrize("impl", ["vmap", "arena"])
+def test_one_process_mesh_equals_no_mesh(impl):
+    """MonteCarloPlanner(mesh=...) hands the mesh to its planner: two
+    scenario slots on one process give mesh=None's sweep to the bit, and an
+    odd count of scenarios does not split over them."""
+    cfg = KGMTConfig(**dict(ARENA, num_iterations=8) if impl == "arena" else
+                     dict(VMAP, num_iterations=10))
+    mesh = make_planner_mesh(n_scenario=2, device="cpu")
+    got = MonteCarloPlanner(cfg, impl=impl, mesh=mesh).run(4, seed=3, num_obstacles=5)
+    want = MonteCarloPlanner(cfg, impl=impl, device="cpu").run(4, seed=3, num_obstacles=5)
+    np.testing.assert_array_equal(got.costs, want.costs)
+    np.testing.assert_array_equal(got.solved, want.solved)
+    assert got.mean_tree_size == want.mean_tree_size
+    with pytest.raises(ValueError, match="divisible by the scenario-axis size 2"):
+        MonteCarloPlanner(cfg, impl=impl, mesh=mesh).run(3, seed=3, num_obstacles=5)

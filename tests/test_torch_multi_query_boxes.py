@@ -1,14 +1,15 @@
 """The vmapped multi-query planner with one box set per problem (a wall in
 problem 1 changes problem 1 only; stacked scenarios of different box counts
-against their single solves), budget_exhausted, zero iterations and the
-refusals (helpers: tests/test_torch_multi_query_batch.py)."""
+against their single solves), budget_exhausted, zero iterations, the
+refusals and a one-process mesh (helpers:
+tests/test_torch_multi_query_batch.py)."""
 
 import numpy as np
 import pytest
 import torch
 
 from cudasbmp_torch.config import KGMTConfig, Scenario
-from cudasbmp_torch.parallel import MultiQueryPlanner, stack_scenarios
+from cudasbmp_torch.parallel import MultiQueryPlanner, make_planner_mesh, stack_scenarios
 from test_torch_multi_query_batch import SMALL, assert_equals_single_solves, demo_batch
 
 torch.set_num_threads(2)
@@ -70,8 +71,24 @@ def test_zero_iterations_and_the_refusals():
                             device="cpu").plan_batch(inits, goals, obstacles)
     assert (res.iterations == 0).all() and (res.tree_sizes == 1).all()
     assert res.paths.shape == (2, 1, 7) and res.budget_exhausted.all()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-        MultiQueryPlanner(KGMTConfig(**SMALL), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="batch size 2 must be divisible by the "
+                       "scenario-axis size 4"):
+        MultiQueryPlanner(KGMTConfig(**SMALL), mesh=make_planner_mesh(
+            n_scenario=4, device="cpu")).plan_batch(inits, goals, obstacles)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             MultiQueryPlanner(KGMTConfig(**SMALL))
+
+
+def test_one_process_mesh_equals_no_mesh():
+    """A mesh of two scenario slots on one process: the batch solved as with
+    mesh=None, field for field (tests/test_parallel.py:77-92 asserts the
+    same for the JAX planner)."""
+    cfg = KGMTConfig(**SMALL)
+    inits, goals, obstacles = demo_batch(4, jitter_seed=5)
+    got = MultiQueryPlanner(cfg, mesh=make_planner_mesh(n_scenario=2, device="cpu")
+                            ).plan_batch(inits, goals, obstacles, seed=5)
+    want = MultiQueryPlanner(cfg, device="cpu").plan_batch(inits, goals, obstacles, seed=5)
+    for f in ("solved", "costs", "tree_sizes", "iterations", "paths", "path_lengths",
+              "budget_exhausted"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)

@@ -17,7 +17,7 @@ import torch
 from cudasbmp_torch import rng
 from cudasbmp_torch.config import KGMTConfig
 from cudasbmp_torch.geometry.grid import RegionGrid
-from cudasbmp_torch.parallel import StreamingMonteCarloPlanner
+from cudasbmp_torch.parallel import StreamingMonteCarloPlanner, make_planner_mesh
 from cudasbmp_torch.parallel import streaming_mc as tsm
 from cudasbmp_torch.systems import get_system
 from cudasbmp_tpu import KGMTConfig as JConfig
@@ -123,10 +123,22 @@ def test_drained_slots_draw_scenario_0s_stream_but_write_nothing():
     np.testing.assert_array_equal(padded.iters, small.iters)
 
 
-def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-        planner(4).run_sharded(8, mesh=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-        StreamingMonteCarloPlanner(TCFG, mesh=object(), device="cpu")
+def test_run_sharded_equals_one_pool_and_the_refusals():
+    """run_sharded over a one-process mesh of 4 scenario slots (one pool of
+    2 a slot, ids [2k, 2k + 2)) is bitwise run() on one pool
+    (tests/test_streaming_mc.py:75-83 for the JAX planner); an uneven split
+    raises the JAX package's ValueError (tests/test_streaming_mc.py:85-90),
+    as do too many obstacles; mesh= does not shard run()."""
+    mesh = make_planner_mesh(n_scenario=4, device="cpu")
+    sharded = planner(2).run_sharded(num_scenarios=8, mesh=mesh, seed=5, num_obstacles=5)
+    single = planner(4).run(num_scenarios=8, seed=5, num_obstacles=5)
+    np.testing.assert_array_equal(sharded.costs, single.costs)
+    np.testing.assert_array_equal(sharded.iters, single.iters)
+    assert sharded.num_scenarios == 8 and sharded.solve_rate == single.solve_rate
+    with pytest.raises(ValueError, match="divide evenly"):
+        planner(4).run_sharded(num_scenarios=6, mesh=mesh, seed=0, num_obstacles=5)
     with pytest.raises(ValueError, match="obstacles"):
         planner(4).run(num_scenarios=2, num_obstacles=40)
+    on_mesh = StreamingMonteCarloPlanner(TCFG, pool=4, mesh=mesh).run(
+        num_scenarios=8, seed=5, num_obstacles=5)
+    np.testing.assert_array_equal(on_mesh.costs, single.costs)
