@@ -1,10 +1,11 @@
 """Drive the cudasbmp_torch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # phases 1-33, one GPU, no network
+    python3 chip_smoke.py            # phases 1-34, one GPU, no network
     python3 chip_smoke.py --profile  # also: torch.profiler over a demo solve,
                                      # an arena solve and a streaming sweep
     python3 chip_smoke.py --compare OLD.json NEW.json  # two runs' records:
                                      # do their solves agree? (no GPU needed)
+    python3 chip_smoke.py --user-dynamics  # phases 1, 2 and 34 alone
     python3 chip_smoke.py --ranks N  # phase 33 alone over N processes (a card
                                      # a rank: nccl), after [16], [22], [30]
 
@@ -173,7 +174,25 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     one-process planner), MultiQueryPlanner over the two ranks at the CLI
     multi default and run_sharded at 4,096 scenarios (a pool of 1,024 a
     rank): every result bitwise [30]'s, [22]'s and [16]'s one-process
-    results; each rank's walls, launches a trip and host reads an iteration.
+    results; each rank's walls, launches a trip and host reads an iteration;
+34. user dynamics (register_system, a system's own device struct built into
+    a library of its own: both libraries below start building beside the
+    package's in phase 2): (a) the built-in bicycle's struct copied under
+    the name bicycle_copy is bitwise the built-in kernels: B1 and B2 at the
+    demo's 4,096 lanes, exact, with the footprint (B3) and with fast math
+    (B4); B6 and B6 Philox at 64 x 4,096; B5 at W = 4 on the cull table's
+    2^17 Morton-grouped starts on dense-24; R1 on the CLI demo path; its
+    demo solves at seeds 0-3 under 'auto' and 'cuda_rng' equal [5]'s and
+    [6]'s field for field, seed 0's path to the bit; (b) new dynamics, the
+    damped double integrator ``drift`` with its struct and torch hooks: B1,
+    B2, B6 and B6 Philox bitwise its twin; KGMTConfig(system="drift") on
+    the demo, seeds 0-3, both backends, every path replayed with error 0;
+    MultiQueryPlanner on the CLI multi default's 64 pairs; (c) the same
+    dynamics without a struct: under 'auto' the generic rollout (metrics
+    say so, no kernel launch) equal to (b)'s seed-0 solve; under 'cuda' it
+    raises. Each user library's nvcc seconds (first build, beside the
+    package's) and cached load, its registers, and device ms of the user
+    kernels beside their built-in twins at the same shapes.
 
 Then the card's name and power limit, a JSON line of the kernels and,
 last, {"ok": true, "device": {...}}. Each kernel entry has its device
@@ -2916,20 +2935,424 @@ def ranks_only(n: int) -> int:
     return 0
 
 
+# phase 34's user systems: the built-in bicycle's device struct copied
+# (csrc/rollout.cu's Bicycle with csrc/refine.cu's back()), and new
+# dynamics, a damped double integrator (x, y, vx, vy; controls ax, ay):
+# x += vx dt, y += vy dt, vx += (ax - c vx) dt, vy += (ay - c vy) dt
+BICYCLE_COPY_STRUCT = """
+struct UserSystem {  // (x, y, theta, v); controls (a, steering)
+  static constexpr bool kHeading = true, kFast = true;
+  float L;
+  struct Aux { float a, tan_s; };
+  struct Carry { float ct, st, dct, dst, dth; };
+  struct FastAux { float a, cc2, sc2, c2; };
+  __device__ Aux prepare(float a, float steering) const {
+    return {a, tanf(steering)};
+  }
+  __device__ float4 step(float4 s, Aux q, float dt) const {
+    const float2 cs = cos_sin(s.z);
+    return make_float4(advance(s.x, s.w, cs.x, dt),
+                       advance(s.y, s.w, cs.y, dt),
+                       add(s.z, mul(mul(__fdiv_rn(s.w, L), q.tan_s), dt)),
+                       add(s.w, mul(q.a, dt)));
+  }
+  __device__ void prepare_fast(float4 s, float a, float steering, float dt,
+                               Carry& k, FastAux& q) const {
+    const float tan_s = tanf(steering);
+    const float d0 = mul(mul(__fdiv_rn(s.w, L), tan_s), dt);
+    const float c2 = mul(mul(__fdiv_rn(mul(a, dt), L), tan_s), dt);
+    k = {cosf(s.z), sinf(s.z), cosf(d0), sinf(d0), d0};
+    q = {a, cosf(c2), sinf(c2), c2};
+  }
+  __device__ float4 step_fast(float4 s, Carry& k, FastAux q, float dt) const {
+    const float4 n = make_float4(advance(s.x, s.w, k.ct, dt),
+                                 advance(s.y, s.w, k.st, dt), add(s.z, k.dth),
+                                 add(s.w, mul(q.a, dt)));
+    rotate(k.ct, k.st, k.dct, k.dst);
+    rotate(k.dct, k.dst, q.cc2, q.sc2);
+    k.dth = add(k.dth, q.c2);
+    return n;
+  }
+  __device__ float4 back(float4 s, Aux q, float dt, float4 lam, Grad& g) const {
+    const float2 cs = cos_sin(s.z);
+    const float vc = mul(s.w, cs.x), vs = mul(s.w, cs.y);
+    const float vl = dvd(s.w, L), turn = mul(vl, q.tan_s);
+    const float g_vc = mul(lam.x, dt), g_vs = mul(lam.y, dt);
+    const float g_turn = mul(lam.z, dt);
+    g.dt = add(g.dt, add(add(add(mul(lam.x, vc), mul(lam.y, vs)),
+                             mul(lam.z, turn)), mul(lam.w, q.a)));
+    g.c0 = add(g.c0, mul(lam.w, dt));
+    g.c1 = add(g.c1, mul(mul(g_turn, vl), add(1.0f, mul(q.tan_s, q.tan_s))));
+    const float g_th = sub(mul(mul(g_vs, s.w), cs.x), mul(mul(g_vc, s.w), cs.y));
+    const float g_v = add(add(mul(g_vc, cs.x), mul(g_vs, cs.y)),
+                          dvd(mul(g_turn, q.tan_s), L));
+    return make_float4(lam.x, lam.y, add(lam.z, g_th), add(lam.w, g_v));
+  }
+};
+"""
+DRIFT_STRUCT = """
+struct UserSystem {  // damped double integrator: (x, y, vx, vy); controls (ax, ay)
+  static constexpr bool kHeading = false, kFast = false;
+  float c;  // damping
+  struct Aux { float ax, ay; };
+  __device__ Aux prepare(float ax, float ay) const { return {ax, ay}; }
+  __device__ float4 step(float4 s, Aux q, float dt) const {
+    return make_float4(add(s.x, mul(s.z, dt)), add(s.y, mul(s.w, dt)),
+                       add(s.z, mul(sub(q.ax, mul(c, s.z)), dt)),
+                       add(s.w, mul(sub(q.ay, mul(c, s.w)), dt)));
+  }
+};
+"""
+USER_STRUCTS = {"bicycle_copy": BICYCLE_COPY_STRUCT, "drift": DRIFT_STRUCT}
+
+
+def user_systems() -> dict:
+    """Phase 34's systems by registered name: ``bicycle_copy`` (the
+    built-in bicycle with the copied struct), ``drift`` (the damped double
+    integrator with its struct and torch hooks) and ``drift_generic`` (the
+    same dynamics with only ``step``, no struct)."""
+    import dataclasses
+    from typing import ClassVar
+
+    from cudasbmp_torch.systems import ControlSpec, KinematicBicycle
+
+    @dataclasses.dataclass(frozen=True)
+    class BicycleCopy(KinematicBicycle):
+        name: str = "bicycle_copy"
+        cuda_struct: ClassVar[str] = BICYCLE_COPY_STRUCT
+
+        @property
+        def cuda_param(self) -> float:
+            return self.agent_length
+
+    @dataclasses.dataclass(frozen=True)
+    class DriftGeneric:
+        name: str = "drift_generic"
+        state_dim: int = 4
+        damping: float = 0.3
+        control_spec: ControlSpec = dataclasses.field(default_factory=lambda: ControlSpec(
+            lo=(-3.0, -3.0, 0.05), hi=(3.0, 3.0, 1.05)))
+
+        def step(self, state, control, dt):
+            x, y, vx, vy = state.unbind(-1)
+            ax, ay = control[..., 0], control[..., 1]
+            return torch.stack([x + vx * dt, y + vy * dt,
+                                vx + (ax - self.damping * vx) * dt,
+                                vy + (ay - self.damping * vy) * dt], dim=-1)
+
+    @dataclasses.dataclass(frozen=True)
+    class Drift(DriftGeneric):
+        name: str = "drift"
+        cuda_struct: ClassVar[str] = DRIFT_STRUCT
+
+        @property
+        def cuda_param(self) -> float:
+            return self.damping
+
+        def soa_prepare(self, ctrl):
+            return tuple(ctrl)
+
+        def soa_step(self, comps, aux, dt):
+            x, y, vx, vy = comps
+            ax, ay = aux
+            return [x + vx * dt, y + vy * dt, vx + (ax - self.damping * vx) * dt,
+                    vy + (ay - self.damping * vy) * dt]
+
+    return {"bicycle_copy": BicycleCopy, "drift": Drift, "drift_generic": DriftGeneric}
+
+
+def start_user_builds() -> dict:
+    """Phase 34's two user libraries, each built in a thread of its own
+    (two nvcc each) beside the package's build: name -> (thread, result
+    list, filled with build()'s (path, seconds, log) or its exception)."""
+    import threading
+
+    from cudasbmp_torch.ops import _build
+
+    def run(struct: str, out: list) -> None:
+        try:
+            out.append(_build.build(struct))
+        except Exception as e:  # re-raised by phase 34
+            out.append(e)
+
+    builds = {}
+    for name, struct in USER_STRUCTS.items():
+        out: list = []
+        t = threading.Thread(target=run, args=(struct, out), daemon=True)
+        t.start()
+        builds[name] = (t, out)
+    return builds
+
+
+def user_dynamics(dev, builds: dict, record: dict) -> dict:
+    """Phase 34 (see the module's docstring). ``builds`` from
+    ``start_user_builds``; ``record`` holds [5]'s and [6]'s seeds where
+    the run has them, else the built-in's are solved here."""
+    from cudasbmp_torch import KGMT, KGMTConfig, Scenario, rng
+    from cudasbmp_torch.ops import _build
+    from cudasbmp_torch.ops import refine_cuda as rf
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.ops.rollout import rollout_batch
+    from cudasbmp_torch.parallel import MultiQueryPlanner
+    from cudasbmp_torch.probes import throughput as tp
+    from cudasbmp_torch.refine import RefineConfig
+    from cudasbmp_torch.systems import get_system, register_system
+    from cudasbmp_torch.systems.bicycle import KinematicBicycle
+
+    classes = user_systems()
+    for name, cls in classes.items():
+        register_system(name, cls)
+    out: dict = {"build": {}}
+    for name, (thread, res) in builds.items():
+        thread.join()
+        check(len(res) == 1, f"user library {name}: no build result")
+        if isinstance(res[0], Exception):
+            raise res[0]
+        path, seconds, log = res[0]
+        t0 = time.perf_counter()
+        _build.load(USER_STRUCTS[name])
+        load_s = time.perf_counter() - t0
+        check(_build.build(USER_STRUCTS[name])[1] == 0.0, f"{name}: rebuilt when cached")
+        ptxas = ptxas_table(log)
+        out["build"][name] = {
+            "library": path.name, "nvcc_s": seconds, "cached_load_s": load_s,
+            "ptxas": ptxas, "summary": ptxas_summary(ptxas, lambda k: True),
+            "kernels": len(ptxas)}
+    builtin = record.get("build", {}).get("ptxas", {})
+    copy_regs = {k.replace("UserSystem", "Bicycle"): v
+                 for k, v in out["build"]["bicycle_copy"]["ptxas"].items()}
+    out["build"]["bicycle_copy"]["registers_as_builtin"] = bool(builtin) and all(
+        builtin.get(k) == v for k, v in copy_regs.items() if not k.startswith("refine"))
+
+    cfg = KGMTConfig()
+    kw = dict(num_disc=cfg.num_disc, width=cfg.width, height=cfg.height)
+    R = cfg.rollouts_per_iter
+    obstacles = torch.tensor(Scenario.demo().padded_obstacles(cfg.max_obstacles)[0],
+                             device=dev)
+    key = rng.key(34, dev)
+    bike, copy = KinematicBicycle(agent_length=cfg.agent_length), classes["bicycle_copy"]()
+    drift = classes["drift"]()
+    checks = 0
+
+    def same(a, b, tag: str) -> None:
+        nonlocal checks
+        check(all(bitwise(x, y) if x.dtype == torch.float32 else torch.equal(x, y)
+                  for x, y in zip(a, b)), f"[34] {tag}: differs")
+        checks += 1
+
+    # (a) the copied struct against the built-in kernels; (b) drift's
+    # kernels against its twin, at the same shapes
+    x0, c = demo_batch(R, 34, dev)
+    d0 = torch.cat([x0[:, :2], torch.tensor(np.random.default_rng(34).uniform(
+        -3, 3, (R, 2)).astype(np.float32), device=dev)], 1)
+    dc = c * torch.tensor([0.6, 3.0 / math.pi, 1.0], device=dev)  # drift's box
+    for fp, fast, tag in ((None, False, "B1/B2"), (FOOTPRINT, False, "B3"),
+                          (FOOTPRINT, True, "B4")):
+        opts = dict(kw, footprint=fp, fast_math=fast)
+        same(rc.rollout_cuda(bike, x0, c, obstacles, **opts),
+             rc.rollout_cuda(copy, x0, c, obstacles, **opts), f"bicycle_copy {tag} B1")
+        same(rc.sample_and_rollout_cuda(bike, key, x0, obstacles, **opts),
+             rc.sample_and_rollout_cuda(copy, key, x0, obstacles, **opts),
+             f"bicycle_copy {tag} B2")
+        if not fast:
+            same(rc.rollout_cuda(drift, d0, dc, obstacles, **opts),
+                 rc.rollout_soa(drift, d0, dc, obstacles, **opts), f"drift {tag} B1")
+            same(rc.sample_and_rollout_cuda(drift, key, d0, obstacles, **opts),
+                 rc.sample_and_rollout_torch(drift, key, d0, obstacles, **opts),
+                 f"drift {tag} B2")
+    P = MULTI_B
+    bx0, bc = demo_batch(P * R, 35, dev)
+    bx0, bc = bx0.view(P, R, 4), bc.view(P, R, 3)
+    bd0 = torch.cat([bx0[..., :2], torch.tensor(np.random.default_rng(35).uniform(
+        -3, 3, (P, R, 2)).astype(np.float32), device=dev)], -1)
+    bdc = bc * torch.tensor([0.6, 3.0 / math.pi, 1.0], device=dev)
+    bobs = obstacles[None].expand(P, -1, -1).contiguous()
+    keys = rng.split(key, P)
+    same(rc.rollout_batched_cuda(bike, bx0, bc, bobs, **kw),
+         rc.rollout_batched_cuda(copy, bx0, bc, bobs, **kw), "bicycle_copy B6")
+    same(rc.sample_and_rollout_batched_cuda(bike, keys, bx0, bobs, **kw),
+         rc.sample_and_rollout_batched_cuda(copy, keys, bx0, bobs, **kw),
+         "bicycle_copy B6 Philox")
+    same(rc.rollout_batched_cuda(drift, bd0, bdc, bobs, **kw),
+         rc.rollout_soa(drift, bd0, bdc, bobs, **kw), "drift B6")
+    same(rc.sample_and_rollout_batched_cuda(drift, keys, bd0, bobs, **kw),
+         rc.sample_and_rollout_torch(drift, keys, bd0, bobs, **kw), "drift B6 Philox")
+    starts = tp.start_states(B_CHECK, dev, grouped=True)
+    dense = torch.tensor(Scenario.dense(24).obstacles, device=dev)  # the cull table's
+    same(rc.sample_and_rollout_cuda(bike, key, starts, dense, **kw, cull=4),
+         rc.sample_and_rollout_cuda(copy, key, starts, dense, **kw, cull=4),
+         "bicycle_copy B5 W=4")
+    # R1 on the CLI demo path
+    rcfg = RefineConfig()
+    rkw = refine_kw(cfg, rcfg)
+    demo = Scenario.demo()
+    path = KGMT(cfg, device=dev).plan(demo).path
+    L = len(path) - 1
+    one = [torch.tensor(np.ascontiguousarray(a), device=dev) for a in (
+        path[None, 0, :4], path[None, 1:, 4:], np.ones((1, L), np.float32),
+        demo.goal[None, :2], demo.obstacles)]
+    same(rf._launch(bike, *one, **rkw), rf._launch(copy, *one, **rkw), "bicycle_copy R1")
+    torch.cuda.synchronize()
+    out["checks"] = checks
+
+    # times: the user kernels beside their built-in twins at the same shapes
+    t: dict = {}
+    timed(t, "b1_builtin", lambda: rc.rollout_cuda(bike, x0, c, obstacles, **kw))
+    timed(t, "b1_copy", lambda: rc.rollout_cuda(copy, x0, c, obstacles, **kw))
+    timed(t, "b2_builtin", lambda: rc.sample_and_rollout_cuda(bike, key, x0, obstacles, **kw))
+    timed(t, "b2_copy", lambda: rc.sample_and_rollout_cuda(copy, key, x0, obstacles, **kw))
+    timed(t, "b6_builtin", lambda: rc.rollout_batched_cuda(bike, bx0, bc, bobs, **kw))
+    timed(t, "b6_copy", lambda: rc.rollout_batched_cuda(copy, bx0, bc, bobs, **kw))
+    di = get_system("double_integrator")
+    timed(t, "b1_double_integrator", lambda: rc.rollout_cuda(di, d0, dc, obstacles, **kw))
+    timed(t, "b1_drift", lambda: rc.rollout_cuda(drift, d0, dc, obstacles, **kw))
+    timed(t, "b6_drift", lambda: rc.rollout_batched_cuda(drift, bd0, bdc, bobs, **kw))
+    out["times"] = t
+
+    # the solves: the copy's demo seeds against [5]'s and [6]'s; drift's
+    main = Counter()  # the main path's launches: wrapper name -> user-struct launches
+    insts = Counter()
+    out["solves"] = {}
+    for backend, phase in (("auto", "tree_auto"), ("cuda_rng", "tree_cuda_rng")):
+        ucfg = cfg.replace(rollout_backend=backend, system="bicycle_copy")
+        planner = KGMT(ucfg, device=dev)
+        check(type(planner.system).__name__ == "BicycleCopy", "[34] registry")
+        rows = record.get(phase, {}).get("seeds") or solve_seeds(
+            cfg.replace(rollout_backend=backend), dev, replay=False)[1]
+        rc.reset_launch_counts()
+        got = [planner.plan(demo, seed=r["seed"]) for r in rows]
+        for w in rc.WRAPPERS:
+            main[w.__name__] += w.launches
+            insts.update({(w.__name__, *k): n for k, n in w.user_systems.items()})
+            check(not w.instantiations and w.launches == sum(w.user_systems.values()),
+                  f"[34] bicycle_copy {backend}: {w.__name__} launched the built-in")
+        for r, g in zip(rows, got):
+            check([g.solved, g.cost, g.iterations, g.tree_size]
+                  == [r["solved"], r["cost"], r["iterations"], r["tree_size"]],
+                  f"[34] bicycle_copy {backend} seed {r['seed']}: {g.cost} != {r['cost']}")
+        want = KGMT(cfg.replace(rollout_backend=backend), device=dev).plan(demo, seed=0)
+        check(got[0].path.tobytes() == want.path.tobytes(),
+              f"[34] bicycle_copy {backend}: seed 0's path differs from the built-in's")
+        out["solves"][f"bicycle_copy_{backend}"] = {
+            "seeds": len(rows), "equal_to_builtin": True,
+            "cost_p10_p50_p90": quantiles(np.array([g.cost for g in got]))}
+        dcfg = cfg.replace(rollout_backend=backend, system="drift")
+        planner = KGMT(dcfg, device=dev)
+        planner.plan(demo, seed=100)  # warm-up
+        rc.reset_launch_counts()
+        res = [planner.plan(demo, seed=s) for s in SEEDS]
+        for w in rc.WRAPPERS:
+            main[w.__name__] += w.launches
+            insts.update({(w.__name__, *k): n for k, n in w.user_systems.items()})
+        worst = 0.0
+        obs_demo = torch.tensor(demo.obstacles, device=dev)
+        for s, r in zip(SEEDS, res):
+            check(r.metrics["rollout"] == "kernel", f"[34] drift {backend}: route")
+            if r.solved:
+                pth = torch.tensor(r.path, device=dev)
+                x1, valid = rollout_batch(planner.system, pth[:-1, :4].contiguous(),
+                                          pth[1:, 4:].contiguous(), cfg.num_disc,
+                                          obs_demo, cfg.width, cfg.height)
+                err = float((x1 - pth[1:, :4]).abs().max())
+                worst = max(worst, err)
+                check(bool(valid.all()) and err == 0.0,
+                      f"[34] drift {backend} seed {s}: replay error {err}")
+                check(math.hypot(r.path[-1, 0] - demo.goal[0], r.path[-1, 1] - demo.goal[1])
+                      < cfg.goal_threshold, f"[34] drift {backend} seed {s}: off goal")
+        costs = np.array([r.cost for r in res])
+        rate = float(np.isfinite(costs).mean())
+        check(rate >= 0.5, f"[34] drift {backend}: solve rate {rate}")
+        out["solves"][f"drift_{backend}"] = {
+            "solve_rate": rate, "cost_p10_p50_p90": quantiles(costs),
+            "iterations": [r.iterations for r in res], "tree_sizes": [r.tree_size for r in res],
+            "tts_p50_s": float(np.median([r.wall_time_s for r in res])),
+            "replay_max_err": worst}
+        if backend == "auto":
+            drift_seed0 = res[0]
+
+    # drift through MultiQueryPlanner at the CLI multi default's 64 pairs
+    inits, goals, mobs = jittered_demo(MULTI_B, cfg.seed)
+    mq = MultiQueryPlanner(cfg.replace(system="drift"), device=dev)
+    mq.plan_batch(inits[:8], goals[:8], mobs, seed=7)  # warm-up
+    rc.reset_launch_counts()
+    m = mq.plan_batch(inits, goals, mobs, seed=cfg.seed)
+    check(rc.rollout_batched_cuda.launches == mq.last_state.trips
+          == sum(rc.rollout_batched_cuda.user_systems.values()),
+          f"[34] drift multi: B6 launches {rc.rollout_batched_cuda.launches}")
+    main["rollout_batched_cuda"] += rc.rollout_batched_cuda.launches
+    insts.update({("rollout_batched_cuda", *k): n
+                  for k, n in rc.rollout_batched_cuda.user_systems.items()})
+    worst = check_paths("[34] drift multi", mq.system, cfg, m.paths, m.path_lengths,
+                        m.costs, goals, mobs)
+    out["solves"]["drift_multi"] = {
+        "batch": MULTI_B, "solve_rate": float(m.solved.mean()),
+        "cost_p10_p50_p90": quantiles(m.costs), "trips": mq.last_state.trips,
+        "solves_per_sec": m.solves_per_sec, "wall_time_s": m.wall_time_s,
+        "replay_max_err": worst}
+
+    # (c) the same dynamics without a struct: the generic rollout under auto,
+    # refused under cuda
+    rc.reset_launch_counts()
+    gen = KGMT(cfg.replace(system="drift_generic"), device=dev).plan(demo, seed=0)
+    check(gen.metrics["rollout"] == "generic" and all(w.launches == 0 for w in rc.WRAPPERS),
+          "[34] drift_generic: a kernel ran")
+    check([gen.solved, gen.cost, gen.iterations, gen.tree_size] == [
+        drift_seed0.solved, drift_seed0.cost, drift_seed0.iterations, drift_seed0.tree_size],
+        f"[34] drift_generic: {gen.cost} != the struct's {drift_seed0.cost}")
+    try:
+        KGMT(cfg.replace(system="drift_generic", rollout_backend="cuda"),
+             device=dev).plan(demo)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    check("'auto'" in refused and "'torch'" in refused,
+          f"[34] drift_generic under cuda: not refused ({refused!r})")
+    out["generic"] = {"rollout": gen.metrics["rollout"], "solved": gen.solved,
+                      "cost": gen.cost, "equal_to_struct": True,
+                      "tts_s": gen.wall_time_s, "cuda_refusal": refused}
+    out["main_launches"] = dict(main)
+    out["user_systems"] = {"/".join(map(str, k)): n for k, n in insts.items()}
+    return out
+
+
+def print_user_dynamics(ud: dict, seconds: float) -> None:
+    b, t, sv = ud["build"], ud["times"], ud["solves"]
+    print("[34 user dynamics] " + " | ".join(
+        f"{k}: nvcc {v['nvcc_s']:.1f} s beside the package's, cached load "
+        f"{v['cached_load_s'] * 1e3:.1f} ms, {v['summary']}" for k, v in b.items())
+        + f", bicycle_copy's registers as the built-in's: "
+        f"{b['bicycle_copy']['registers_as_builtin']} | {ud['checks']} checks bitwise "
+        f"(bicycle_copy = built-in B1, B2, B3, B4, B6, B6 Philox, B5 W=4, R1; drift = "
+        f"its twin B1, B2, B3, B6, B6 Philox) | device ms, copy (built-in): B1 "
+        f"{t['b1_copy_ms']:.5f} ({t['b1_builtin_ms']:.5f}), B2 {t['b2_copy_ms']:.5f} "
+        f"({t['b2_builtin_ms']:.5f}), B6 64x4096 {t['b6_copy_ms']:.5f} "
+        f"({t['b6_builtin_ms']:.5f}); drift B1 {t['b1_drift_ms']:.5f} (double_integrator "
+        f"{t['b1_double_integrator_ms']:.5f}), B6 {t['b6_drift_ms']:.5f} | demo solves of "
+        f"bicycle_copy == [5]/[6] field for field | drift " + " | ".join(
+            f"{k[6:]}: rate {v['solve_rate']:.2f} cost p10/p50/p90 "
+            + "/".join(f"{q:.3f}" for q in v["cost_p10_p50_p90"])
+            + f" replay err {v['replay_max_err']}" for k, v in sv.items()
+            if k.startswith("drift"))
+        + f" | drift_generic under auto: {ud['generic']['rollout']}, == drift's seed 0, "
+        f"no kernel launch; under cuda refused | user launches {ud['main_launches']} "
+        f"({seconds:.1f} s)", flush=True)
+
+
 # the phases whose solves two runs of the same kernels' results must share
 SOLVE_PHASES = ("tree_auto", "tree_cuda_rng", "pathless_auto", "forty_boxes",
                 "all_options", "other_systems", "arena_config4", "arena_extension",
                 "monte_carlo", "streaming", "multi_query", "multi_query_bench",
                 "monte_carlo_vmap", "shortcut", "refine", "checkpoint", "sharded_tree",
-                "sharded_cli", "sharded_multi_query", "two_ranks")
+                "sharded_cli", "sharded_multi_query", "two_ranks", "user_dynamics")
 
 
 def compare_records(old: dict, new: dict) -> tuple[int, list[str]]:
-    """The fields of SOLVE_PHASES (phases 5-16, 22-25 and 28-33: solve rates,
+    """The fields of SOLVE_PHASES (phases 5-16, 22-25 and 28-34: solve rates,
     costs, iterations, tree sizes, launches, path checks) in two records of
-    this script, times left out (names starting ``tts`` or ending ``_s``,
-    ``_ms`` or holding ``per_sec``, ``wall`` or ``regular``), and phases
-    only one record has: how many were compared, and each that differs."""
+    this script, times left out (fields, and fields of dicts, whose names
+    start with ``tts`` or end with ``_s`` or ``_ms`` or hold ``per_sec``,
+    ``wall`` or ``regular``), and phases only one record has: how many were
+    compared, and each that differs."""
     def leaves(o, path):
         if isinstance(o, dict):
             for k, v in o.items():
@@ -2940,10 +3363,10 @@ def compare_records(old: dict, new: dict) -> tuple[int, list[str]]:
         else:
             yield path, o
 
-    def timed_field(path: str) -> bool:
-        name = path.rsplit("/", 1)[-1].split("[")[0]
-        return (name.startswith("tts") or name.endswith(("_s", "_ms"))
-                or "per_sec" in name or "wall" in name or "regular" in name)
+    def timed_field(path: str) -> bool:  # a time, or a field of a dict of times
+        return any(name.startswith("tts") or name.endswith(("_s", "_ms"))
+                   or "per_sec" in name or "wall" in name or "regular" in name
+                   for name in (seg.split("[")[0] for seg in path.split("/")[1:]))
 
     compared, differ = 0, []
     for phase in SOLVE_PHASES:
@@ -2998,7 +3421,8 @@ def main() -> int:
     print(f"[1 device] {smi.splitlines()[0]} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}", flush=True)
 
-    # 2. build
+    # 2. build (phase 34's user libraries build beside it)
+    user_builds = start_user_builds()
     path, seconds, log = _build.build()
     _build.load()
     ptxas = ptxas_table(log)
@@ -3009,6 +3433,12 @@ def main() -> int:
           f"{path.name}; {len(ptxas)} "
           f"kernels, registers {min(regs, default=0)}-{max(regs, default=0)}, "
           f"spill bytes {spills}", flush=True)
+    if "--user-dynamics" in sys.argv[1:]:
+        ud = record["user_dynamics"] = user_dynamics(dev, user_builds, record)
+        print_user_dynamics(ud, 0.0)
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_user.json").write_text(json.dumps(record, indent=1))
+        return 0
 
     cfg = KGMTConfig()
     system = KinematicBicycle(agent_length=cfg.agent_length)
@@ -3499,6 +3929,11 @@ def main() -> int:
           f"{one['arena']:.2f} s, stream "
           f"{one['stream']:.2f} s ({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # 34. user dynamics
+    t0 = time.perf_counter()
+    ud = record["user_dynamics"] = user_dynamics(dev, user_builds, record)
+    print_user_dynamics(ud, time.perf_counter() - t0)
+
     if "--profile" in sys.argv[1:]:
         out_dir.mkdir(exist_ok=True)
         record["profile_tree_auto"] = profile_solve(cfg, dev, out_dir)
@@ -3558,12 +3993,20 @@ def main() -> int:
         return max(v["max_abs_err"] for k, v in cal["checks"].items()
                    if k.startswith(prefixes) and "max_abs_err" in v)
 
+    def user(wrapper: str) -> dict:
+        """[34]'s main-path launches of ``wrapper`` on user structs, and the
+        instantiations that ran (name/footprint/fast: launches)."""
+        return {"user_launches": ud["main_launches"].get(wrapper, 0),
+                "user_systems": {k.split("/", 1)[1]: v for k, v in ud["user_systems"].items()
+                                 if k.split("/", 1)[0] == wrapper}}
+
     kernels = [
         {"name": "rollout_kernel", "route": "cuda",
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/ops/rollout_pallas.py:432",
          "systems": list(SYSTEMS),
-         "launches": sum(b1_splits.values()), "splits": dict(b1_splits),
+         "launches": sum(b1_splits.values()) + user("rollout_cuda")["user_launches"],
+         "splits": dict(b1_splits), **user("rollout_cuda"),
          "max_abs_err": max(b1["max_abs_err"], inst_err),
          "ms": main["b1_ms"], "plain_ms": main["plain_ms"],
          "launch_ms": main["b1_launch_ms"], "plain_launch_ms": main["plain_launch_ms"],
@@ -3574,7 +4017,9 @@ def main() -> int:
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/ops/rollout_pallas.py:593",
          "systems": list(SYSTEMS),
-         "launches": sum(b2_splits.values()), "splits": dict(b2_splits),
+         "launches": sum(b2_splits.values())
+         + user("sample_and_rollout_cuda")["user_launches"],
+         "splits": dict(b2_splits), **user("sample_and_rollout_cuda"),
          "launches_two_ranks": sum(tr[f"rank{r}"]["arena"]["launches"][
              "sample_and_rollout_cuda"] for r in range(TWO_RANKS)),
          "max_abs_err": max(b2["max_abs_err"], inst_err),
@@ -3610,7 +4055,8 @@ def main() -> int:
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/parallel/batch_kgmt.py:227",
          "systems": list(SYSTEMS),
-         "launches": sum(b6_splits.values()),
+         "launches": sum(b6_splits.values()) + user("rollout_batched_cuda")["user_launches"],
+         **user("rollout_batched_cuda"),
          "launches_sharded": sharded_launches["rollout_batched_cuda"],
          "launches_sharded_multi_query": smq_launches["rollout_batched_cuda"],
          "launches_two_ranks": sum(
@@ -3631,7 +4077,9 @@ def main() -> int:
          "source": "cudasbmp_torch/csrc/rollout.cu",
          "replaces": "cudasbmp_tpu/parallel/batch_kgmt.py:208",
          "systems": list(SYSTEMS),
-         "launches": sum(rng_splits.values()), "splits": dict(rng_splits),
+         "launches": sum(rng_splits.values())
+         + user("sample_and_rollout_batched_cuda")["user_launches"],
+         "splits": dict(rng_splits), **user("sample_and_rollout_batched_cuda"),
          "launches_sharded": sharded_launches["sample_and_rollout_batched_cuda"],
          "launches_sharded_multi_query": smq_launches["sample_and_rollout_batched_cuda"],
          "launches_two_ranks": sum(tr[f"rank{r}"]["sharded"]["cuda_rng"]["launches"]

@@ -28,6 +28,7 @@ import numpy as np
 
 SAMPLE_DIM = 7  # x, y, theta, v, accel, steering, duration
 STATE_DIM = 4  # x, y, theta, v
+WORKSPACE_DIM = 2  # planar workspace
 
 ROLLOUT_BACKENDS = ("auto", "torch", "cuda", "cuda_rng")
 

@@ -1,5 +1,7 @@
 // Value and gradient of trajectory refinement's penalty for Hopper (sm_90a),
-// kernel R1, generic over the package's five dynamical systems.
+// kernel R1, generic over the package's five dynamical systems and, in a
+// library of its own (CUDASBMP_USER_SYSTEM), over a user's system's device
+// struct that has the adjoint hook back().
 //
 // R1 replaces no TPU kernel: it computes what jitted XLA computes in
 // jax.value_and_grad of cudasbmp_tpu/refine.py::_loss (refine.py:77-107,
@@ -46,6 +48,9 @@
 
 #include <climits>
 #include <cuda_runtime.h>
+#ifdef CUDASBMP_USER_SYSTEM
+#include <type_traits>
+#endif
 
 namespace {
 
@@ -168,9 +173,33 @@ struct ConstantTurn {  // (x, y, theta, 0); controls (v, omega | kappa)
 using Unicycle = ConstantTurn<false>;
 using Dubins = ConstantTurn<true>;
 
-// System ids of the C entry point (ops/rollout_cuda.py::SYSTEM_IDS)
+#ifdef CUDASBMP_USER_SYSTEM
+// A user's system, as in rollout.cu (which has the struct's other helpers,
+// repeated here): R1 instantiates for UserSystem alone, where it has back().
+__device__ __forceinline__ float advance(float x, float v, float c, float dt) {
+  return add(x, mul(mul(v, c), dt));
+}
+__device__ __forceinline__ void rotate(float& c, float& s, float dc, float ds) {
+  const float nc = sub(mul(c, dc), mul(s, ds));
+  const float ns = add(mul(s, dc), mul(c, ds));
+  c = nc;
+  s = ns;
+}
+#include <cudasbmp_user_system.cuh>
+template <class S>
+auto make_user(float param, int) -> decltype(S{param}) { return S{param}; }
+template <class S>
+S make_user(float, long) { return S{}; }
+template <class S, class = void>
+struct HasBack : std::false_type {};
+template <class S>
+struct HasBack<S, std::void_t<decltype(&S::back)>> : std::true_type {};
+#endif
+
+// System ids of the C entry point (ops/rollout_cuda.py::SYSTEM_IDS; kUser,
+// USER_SYSTEM_ID, in a user library only)
 enum SystemId { kBicycle = 0, kPoint2D = 1, kDoubleIntegrator = 2,
-                kUnicycle = 3, kDubins = 4 };
+                kUnicycle = 3, kDubins = 4, kUser = 5 };
 
 struct Params {
   const float* x0;         // [B, 4]
@@ -304,6 +333,18 @@ int launch(const Sys& sys, const Params& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+#ifdef CUDASBMP_USER_SYSTEM
+// R1 for a user struct where it has back(), else cudaErrorNotSupported (a
+// template, so the kernel is instantiated only for a struct with the hook)
+template <class S>
+int launch_user(float param, const Params& p, int B, cudaStream_t stream) {
+  if constexpr (HasBack<S>::value)
+    return launch(make_user<S>(param, 0), p, B, stream);
+  else
+    return static_cast<int>(cudaErrorNotSupported);
+}
+#endif
+
 }  // namespace
 
 // Plain C entry point for ctypes. Device pointers of contiguous tensors:
@@ -311,7 +352,8 @@ int launch(const Sys& sys, const Params& p, int B, cudaStream_t stream) {
 // [B, L], goal f32 [B, 2], obstacles f32 [K, 4] (per_problem 0) or
 // [B, K, 4] (per_problem 1); scratch states f32 [B, L*num_disc + 1, 4] and
 // gpos f32 [B, L*num_disc, 2]; outputs loss f32 [B] and grad f32 [B, L, 3].
-// `system` is a SystemId, `param` the bicycle's wheelbase. Launches one
+// `system` is a SystemId (kUser, and only it, in a user library), `param`
+// the bicycle's wheelbase or a user struct's float. Launches one
 // block a problem on `stream` without synchronising and returns 0 or a
 // cudaError_t.
 extern "C" int cudasbmp_refine(int device, int system, float param,
@@ -337,6 +379,10 @@ extern "C" int cudasbmp_refine(int device, int system, float param,
                  static_cast<float4*>(states), static_cast<float2*>(gpos),
                  static_cast<float*>(loss), static_cast<float*>(grad)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifdef CUDASBMP_USER_SYSTEM
+  if (system != kUser) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_user<UserSystem>(param, p, B, s);
+#else
   switch (system) {
     case kBicycle: return launch(Bicycle{param}, p, B, s);
     case kPoint2D: return launch(Point2D{}, p, B, s);
@@ -345,4 +391,11 @@ extern "C" int cudasbmp_refine(int device, int system, float param,
     case kDubins: return launch(Dubins{}, p, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
 }
+
+#ifdef CUDASBMP_USER_SYSTEM
+// 1 where the user library's struct has R1's adjoint hook back(), else 0
+// (cudasbmp_refine then refuses it with cudaErrorNotSupported).
+extern "C" int cudasbmp_user_has_back() { return HasBack<UserSystem>::value; }
+#endif

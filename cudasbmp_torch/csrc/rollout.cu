@@ -1,5 +1,6 @@
 // Fused propagate-and-check rollout kernels for Hopper (sm_90a), generic
-// over the package's five dynamical systems.
+// over the package's five dynamical systems and, in a library of its own
+// (CUDASBMP_USER_SYSTEM), over a user's system's device struct.
 //
 // Replaces cudasbmp_tpu/ops/rollout_pallas.py::rollout_pallas (kernel B1,
 // rollout_kernel) and ::sample_and_rollout_pallas (kernel B2,
@@ -242,9 +243,27 @@ struct ConstantTurn {  // (x, y, theta, 0); controls (v, omega | kappa)
 using Unicycle = ConstantTurn<false>;
 using Dubins = ConstantTurn<true>;
 
-// System ids of the C entry points (ops/rollout_cuda.py::SYSTEM_IDS).
+#ifdef CUDASBMP_USER_SYSTEM
+// A user's system (cudasbmp_torch/systems/base.py::DeviceStructMixin):
+// struct UserSystem, with the interface of the structs above, written into
+// this header by ops/_build.py. A library built with the macro instantiates
+// the kernels for UserSystem alone (kUser below), none of the five above;
+// the package's own library is built without it. R1's adjoint sums and
+// dvd are here so that one struct, back() and all, compiles in both files.
+struct Grad { float c0, c1, dt; };
+__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
+#include <cudasbmp_user_system.cuh>
+// UserSystem{param} where the struct holds one float, else UserSystem{}
+template <class S>
+auto make_user(float param, int) -> decltype(S{param}) { return S{param}; }
+template <class S>
+S make_user(float, long) { return S{}; }
+#endif
+
+// System ids of the C entry points (ops/rollout_cuda.py::SYSTEM_IDS; kUser,
+// USER_SYSTEM_ID, in a user library only).
 enum SystemId { kBicycle = 0, kPoint2D = 1, kDoubleIntegrator = 2,
-                kUnicycle = 3, kDubins = 4 };
+                kUnicycle = 3, kDubins = 4, kUser = 5 };
 enum Flags { kFlagFootprint = 1, kFlagFast = 2 };
 
 struct Params {
@@ -939,6 +958,10 @@ int launch_flags(const Sys& sys, int flags, const Params& p,
 template <int kForm>
 int launch_system(int system, float param, int flags, const Params& p,
                   const Buffers& b) {
+#ifdef CUDASBMP_USER_SYSTEM
+  if (system != kUser) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_flags<kForm>(make_user<UserSystem>(param, 0), flags, p, b);
+#else
   switch (system) {
     case kBicycle: return launch_flags<kForm>(Bicycle{param}, flags, p, b);
     case kPoint2D: return launch_flags<kForm>(Point2D{}, flags, p, b);
@@ -948,6 +971,7 @@ int launch_system(int system, float param, int flags, const Params& p,
     case kDubins: return launch_flags<kForm>(Dubins{}, flags, p, b);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#endif
 }
 
 // The shared memory a block may opt in to, in bytes, or -cudaError_t.
@@ -1018,8 +1042,9 @@ int prepare(int device, int flags, const void* obstacles, int K,
 // controls f32 [P, R, 3], valid bool [P, R]; obstacles f32 [K, 4] and key
 // int64 [2] shared by every problem (per_problem 0: B1, B2 with P = 1), or
 // obstacles f32 [P, K, 4] and keys int64 [P, 2] (per_problem 1: B6).
-// `system` is a SystemId, `param` the bicycle's wheelbase L (unused by the
-// other systems), `flags` ORs 1 = footprint (half extents hl, hw) and 2 =
+// `system` is a SystemId (kUser, and only it, in a user library), `param`
+// the bicycle's wheelbase L or a user struct's float (unused by the other
+// systems), `flags` ORs 1 = footprint (half extents hl, hw) and 2 =
 // fast math; `windows` > 0 runs the culled broad phase B5 on the plan of
 // that many windows (at most kMaxPlan) at `plan`, host memory, one byte a
 // window: its steps (1 to kCullSteps, summing to num_disc), with the union

@@ -12,6 +12,10 @@ Float-to-int casts truncate toward zero (``.to(torch.int32)``, like C's
 floor ``//`` and ``%`` of r1 even at r1 = -1 (torch's integer ``//`` and ``%``
 floor, as jnp's do); that lane is masked to -1 afterwards. Both axes use the
 width-derived cell size. Divisions are IEEE on every device (_math.div).
+
+``OccupancyGrid`` counts points a R1 cell (the reference's unused
+OccupancyGrid class, include/occupancyMaps/OccupancyGrid.cuh:7-25), with an
+integer ``index_add_``: exact, whatever the order, no float atomics.
 """
 
 from __future__ import annotations
@@ -69,3 +73,36 @@ class RegionGrid:
         x, y = xy[..., 0], xy[..., 1]
         r1 = self.r1_index(x, y)
         return r1, self.r2_index(x, y, r1)
+
+
+@dataclasses.dataclass
+class OccupancyGrid:
+    """How many points landed in each R1 cell, and the count at a point
+    (counterpart of cudasbmp_tpu/geometry/grid.py::OccupancyGrid; as there,
+    ``add_points`` returns a new grid)."""
+
+    grid: RegionGrid
+    counts: torch.Tensor  # int32 [num_r1]
+
+    @classmethod
+    def create(cls, grid: RegionGrid, device: torch.device | str = "cuda"
+               ) -> "OccupancyGrid":
+        """An empty grid on ``device`` (the card unless the caller asks for
+        the CPU)."""
+        return cls(grid=grid, counts=torch.zeros(grid.num_r1, dtype=torch.int32,
+                                                 device=device))
+
+    def add_points(self, xy: torch.Tensor) -> "OccupancyGrid":
+        """Count points xy [..., 2] into their cells; points outside the
+        grid are dropped."""
+        xy = xy.reshape(-1, 2)
+        r1 = self.grid.r1_index(xy[:, 0], xy[:, 1])
+        inside = r1 >= 0
+        counts = self.counts.clone().index_add_(
+            0, torch.where(inside, r1, 0).long(), inside.to(torch.int32))
+        return OccupancyGrid(grid=self.grid, counts=counts)
+
+    def occupancy(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """The count of the cell holding (x, y); 0 outside the grid."""
+        r1 = self.grid.r1_index(x, y)
+        return torch.where(r1 >= 0, self.counts[r1.clamp(min=0).long()], 0)

@@ -8,6 +8,18 @@ together, and one more links the objects. The library's file name
 carries a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded as it is.
 
+A user's system with its own device struct (systems/base.py::
+DeviceStructMixin) gets a library of its own, built at its first launch:
+``rollout.cu`` and ``refine.cu`` compiled with ``-DCUDASBMP_USER_SYSTEM``
+and the struct written into the header they then include
+(``cudasbmp_user_system.cuh``, in the build's temporary directory), which
+instantiates the kernels for that struct alone (``user_header``;
+``library_path(struct)`` hashes the header's text too). A struct that does
+not compile raises with nvcc's output; nothing falls back. Each build runs
+in a temporary directory of its own and moves the log, then the library,
+into place with ``os.replace``, so processes that build the same library
+at once (torchrun's ranks) each find a whole one.
+
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper) and no
 ``--use_fast_math`` (IEEE division, accurate cosf/sinf/tanf). FMA
 contraction stays at nvcc's default: the kernels write each rounding step
@@ -29,10 +41,15 @@ import tempfile
 import time
 from pathlib import Path
 
+from cudasbmp_torch.systems.base import struct_flags
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("rollout.cu", "chains.cu", "refine.cu")
+USER_SOURCES = ("rollout.cu", "refine.cu")  # a user struct's library
+USER_MACRO = "CUDASBMP_USER_SYSTEM"
+USER_HEADER = "cudasbmp_user_system.cuh"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -69,7 +86,14 @@ SIGNATURES = {
     # yhi, goal_radius, collision_weight, goal_weight, stream
     "cudasbmp_refine": (_I, _I, _F, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                         _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
+    # (none): 1 where a user library's struct has R1's back(), else 0
+    "cudasbmp_user_has_back": (),
 }
+# the entry points of a user struct's library; the package's has the others
+USER_ENTRY_POINTS = ("cudasbmp_smem_optin", "cudasbmp_rollout",
+                     "cudasbmp_sample_and_rollout", "cudasbmp_refine",
+                     "cudasbmp_user_has_back")
+ENTRY_POINTS = tuple(n for n in SIGNATURES if n != "cudasbmp_user_has_back")
 
 
 def find_nvcc() -> str:
@@ -82,11 +106,39 @@ def find_nvcc() -> str:
                        "kernels of cudasbmp_torch need the CUDA toolkit")
 
 
-def library_path() -> Path:
+def user_header(struct: str) -> str:
+    """The header a user library's sources include: the struct's text, and
+    a static_assert of each flag ``struct_flags`` read from it, so the
+    compiler holds the text to what the wrappers were told."""
+    checks = "".join(f'static_assert(UserSystem::{k} == {str(v).lower()}, '
+                     f'"UserSystem::{k}");\n' for k, v in struct_flags(struct).items())
+    return (f"// {USER_HEADER}: a system's cuda_struct, written by "
+            f"cudasbmp_torch/ops/_build.py\n{struct}\n{checks}")
+
+
+def library_path(struct: str | None = None) -> Path:
+    """The package's library, or with ``struct`` that user struct's."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (SOURCES if struct is None else USER_SOURCES):
         h.update((CSRC_DIR / name).read_bytes())
-    return BUILD_DIR / f"libcudasbmp_kernels_{h.hexdigest()[:16]}.so"
+    if struct is None:
+        return BUILD_DIR / f"libcudasbmp_kernels_{h.hexdigest()[:16]}.so"
+    h.update(USER_MACRO.encode())
+    h.update(user_header(struct).encode())
+    return BUILD_DIR / f"libcudasbmp_user_{h.hexdigest()[:16]}.so"
+
+
+def compile_commands(nvcc: str, tmp: str, struct: str | None = None
+                     ) -> list[list[str]]:
+    """One nvcc a source, objects into ``tmp``: the package's three, or a
+    user struct's two with the macro and ``tmp`` (where its header is) on
+    the include path."""
+    if struct is None:
+        sources, extra = SOURCES, ()
+    else:
+        sources, extra = USER_SOURCES, (f"-D{USER_MACRO}", "-I", tmp)
+    return [[nvcc, *NVCC_FLAGS, *extra, "-c", str(CSRC_DIR / s),
+             "-o", os.path.join(tmp, f"{Path(s).stem}.o")] for s in sources]
 
 
 def _run(cmds: list[list[str]]) -> str:
@@ -101,11 +153,12 @@ def _run(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the sources unless this exact build exists. Returns (library
-    path, build seconds (0.0 when cached), compiler output, which is kept
-    beside the library and read back when cached)."""
-    target = library_path()
+def build(struct: str | None = None) -> tuple[Path, float, str]:
+    """Compile the package's sources, or a user ``struct``'s library,
+    unless this exact build exists. Returns (library path, build seconds
+    (0.0 when cached), compiler output, which is kept beside the library
+    and read back when cached)."""
+    target = library_path(struct)
     log = target.with_suffix(".log")
     if target.exists():
         return target, 0.0, log.read_text() if log.exists() else ""
@@ -113,24 +166,31 @@ def build() -> tuple[Path, float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, f"{Path(s).stem}.o") for s in SOURCES]
-        out = _run([[nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / s), "-o", o]
-                    for s, o in zip(SOURCES, objs)])
+        if struct is not None:
+            Path(tmp, USER_HEADER).write_text(user_header(struct))
+        cmds = compile_commands(nvcc, tmp, struct)
+        out = _run(cmds)
         lib = os.path.join(tmp, "lib.so")
-        out += _run([[nvcc, *ARCH, "-shared", "-o", lib, *objs]])
+        out += _run([[nvcc, *ARCH, "-shared", "-o", lib, *(c[-1] for c in cmds)]])
+        Path(tmp, "lib.log").write_text(out)
+        os.replace(os.path.join(tmp, "lib.log"), log)
         os.replace(lib, target)
-    seconds = time.perf_counter() - t0
-    log.write_text(out)
-    return target, seconds, out
+    return target, time.perf_counter() - t0, out
+
+
+def load(struct: str | None = None) -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry point's signature:
+    the package's library, or with ``struct`` that user struct's (one
+    handle each, kept)."""
+    return _load(struct)
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry point's signature."""
-    path, _, _ = build()
+def _load(struct: str | None) -> ctypes.CDLL:
+    path, _, _ = build(struct)
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
+    for name in (ENTRY_POINTS if struct is None else USER_ENTRY_POINTS):
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
     return lib

@@ -32,18 +32,25 @@ edges after its path.
 
 One rule, as for every wrapper of the package: tensors on the CPU go
 through the plain twin; CUDA tensors launch the kernel or raise. R1 counts
-its launches in ``refine_penalty_cuda.launches``.
+its launches in ``refine_penalty_cuda.launches`` and a user struct's also
+in ``refine_penalty_cuda.user_systems[name]``. A user's system runs R1
+through its device struct's library (ops/rollout_cuda.py::kernel_system)
+where the struct has the adjoint hook ``back``; on the card one without it
+raises, naming the hook, where the JAX package differentiates any
+system's ``step`` (the one place where the port asks more of a user
+system). On the CPU the twin differentiates ``step`` for any system.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
 from cudasbmp_torch._math import div, row_sum
 from cudasbmp_torch.ops import _build
-from cudasbmp_torch.ops.rollout_cuda import (SYSTEM_IDS, _check, _device_of, _index,
-                                             _raise_on)
-from cudasbmp_torch.systems.bicycle import KinematicBicycle
+from cudasbmp_torch.ops.rollout_cuda import (USER_SYSTEM_ID, _check, _device_of,
+                                             _index, _raise_on, kernel_system)
 
 Tensor = torch.Tensor
 MAX_POINTS = 2 ** 31 - 1  # the kernel's point index is an int
@@ -110,9 +117,12 @@ def _launch(system, x0: Tensor, controls: Tensor, wts: Tensor, goal_xy: Tensor,
             goal_weight: float) -> tuple[Tensor, Tensor, Tensor]:
     """One launch of R1: (penalty [B], d penalty / d controls [B, L, C+1],
     the forward chain's states [B, L * num_disc + 1, 4], x0 first)."""
-    sid = SYSTEM_IDS.get(type(system))
-    if sid is None:
-        raise NotImplementedError(f"no CUDA refine kernel for system {system.name!r}")
+    sid, param, struct = kernel_system(system, "refinement (R1)")
+    lib = _build.load(struct)
+    if struct is not None and not lib.cudasbmp_user_has_back():
+        raise NotImplementedError(
+            f"system {system.name!r}: its device struct has no back(s, q, dt, lam, g), "
+            "the adjoint hook R1 needs on the card (systems/base.py::DeviceStructMixin)")
     B, L = controls.shape[:2]
     per_problem = obstacles.dim() == 3
     K = obstacles.shape[-2]
@@ -133,8 +143,7 @@ def _launch(system, x0: Tensor, controls: Tensor, wts: Tensor, goal_xy: Tensor,
     if B == 0:
         return loss, grad, states
     gpos = torch.empty((B, T, 2), dtype=torch.float32, device=dev)
-    param = system.agent_length if isinstance(system, KinematicBicycle) else 0.0
-    rc = _build.load().cudasbmp_refine(
+    rc = lib.cudasbmp_refine(
         _index(dev), sid, param, x0.data_ptr(), controls.data_ptr(), wts.data_ptr(),
         goal_xy.data_ptr(), obstacles.data_ptr(), K, int(per_problem),
         states.data_ptr(), gpos.data_ptr(), loss.data_ptr(), grad.data_ptr(), B, L,
@@ -142,6 +151,8 @@ def _launch(system, x0: Tensor, controls: Tensor, wts: Tensor, goal_xy: Tensor,
         collision_weight, goal_weight, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "refine_kernel")
     refine_penalty_cuda.launches += 1
+    if sid == USER_SYSTEM_ID:
+        refine_penalty_cuda.user_systems[system.name] += 1
     return loss, grad, states
 
 
@@ -179,3 +190,4 @@ def refine_penalty_cuda(system, x0: Tensor, controls: Tensor, wts: Tensor,
 
 
 refine_penalty_cuda.launches = 0
+refine_penalty_cuda.user_systems = collections.Counter()

@@ -2,7 +2,9 @@
 rollout kernel's exact path (counterpart of
 cudasbmp_tpu/ops/rollout.py::rollout_batch), and the unchecked propagation
 of the probe planners (``rollout_unchecked``) and its every-state form
-(``rollout_states``, the edge replay of viz.py).
+(``rollout_states``, the edge replay of viz.py); and
+``propagate_and_check``, the reference's propagateAndCheck with its control
+draw, over a batch.
 
 B rollouts advance in lockstep for ``num_disc`` Euler steps with an
 ``alive`` mask in place of the reference's ``break``: a rollout freezes at
@@ -20,6 +22,7 @@ import torch
 from cudasbmp_torch._math import div
 from cudasbmp_torch.geometry.aabb import segment_aabb, segment_clear
 from cudasbmp_torch.geometry.footprint import footprint_clear
+from cudasbmp_torch.ops.rollout_cuda import rollout_cuda, rollout_route
 
 
 def rollout_batch(system, x0: torch.Tensor, controls: torch.Tensor,
@@ -80,3 +83,28 @@ def rollout_states(system, x0: torch.Tensor, controls: torch.Tensor,
     for _ in range(num_disc):
         states.append(system.step(states[-1], ctrl, dt))
     return torch.stack(states, dim=-2)
+
+
+def propagate_and_check(system, key: torch.Tensor, x0: torch.Tensor,
+                        obstacles: torch.Tensor, *, num_disc: int, width: float,
+                        height: float, batch: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Draw random controls and roll them out, the reference's
+    propagateAndCheck with its curand draw (statePropagator.cu:17-19) over
+    a batch, from the threefry stream of ``key`` (bitwise the JAX draw;
+    counterpart of cudasbmp_tpu/ops/rollout.py::propagate_and_check).
+    x0 [B, state_dim] (``batch`` overrides B) -> (samples [B, state_dim +
+    control_dim], final state and the control that made it, the layout of
+    the tree's samples; controls; valid bool [B]). On a CUDA tensor a
+    system with a device struct rolls out through kernel B1
+    (``ops/rollout_cuda.py::rollout_route``), else, and on the CPU, through
+    ``rollout_batch``, as the JAX function does."""
+    B = x0.shape[0] if batch is None else batch
+    controls = system.control_spec.sample(key, (B,))
+    if x0.device.type == "cuda" and rollout_route(system) == "kernel":
+        x1, valid = rollout_cuda(system, x0.contiguous(), controls, obstacles,
+                                 num_disc=num_disc, width=width, height=height)
+    else:
+        x1, valid = rollout_batch(system, x0, controls, num_disc, obstacles,
+                                  width, height)
+    return torch.cat([x1, controls], -1), controls, valid

@@ -24,6 +24,14 @@ TPU kernels of cudasbmp_tpu/ops/rollout_pallas.py, and their plain twins:
 - ``rollout_bicycle_cuda`` and ``sample_and_rollout_bicycle_cuda`` are the
   bicycle entry points of the JAX module (rollout_pallas.py:445-458,
   608-632);
+- a user's system runs on the same kernels through its own device struct
+  (``cuda_struct``, systems/base.py::DeviceStructMixin), compiled into a
+  library of its own at its first launch (ops/_build.py), under the
+  system id ``USER_SYSTEM_ID``; ``rollout_route`` is the one rule every
+  caller asks: a system takes the kernels exactly when it has a device
+  struct, one of the five built-in or its own, and otherwise runs the
+  generic ``step`` (``ops/rollout.py::rollout_batch``), as the JAX
+  planner runs a system its Pallas kernel cannot take;
 - ``rollout_soa`` is their plain PyTorch twin: the JAX kernel body
   ``_integrate`` (rollout_pallas.py:66-140) on per-component tensors,
   through the systems' SoA hooks, over lanes [B] or [B, R] (with obstacles
@@ -34,7 +42,8 @@ TPU kernels of cudasbmp_tpu/ops/rollout_pallas.py, and their plain twins:
 
 One rule for every wrapper: tensors on the CPU go through the plain twin;
 CUDA tensors launch the kernel or raise. Nothing falls back from the card
-to the CPU or from the kernel to the plain version.
+to the CPU or from the kernel to the plain version. A system without a
+device struct has no kernel, so every wrapper refuses it on either device.
 
 On the card each rollout runs on a group of G threads (``split``, 1, 2, 4
 or 8): every sub-lane integrates the same chain and tests every G-th box,
@@ -48,7 +57,10 @@ Each wrapper counts its launches in ``<wrapper>.launches``, per
 instantiation in ``<wrapper>.instantiations[(system name, footprint,
 fast)]`` (fast: the fast-math body ran, i.e. fast math on a system with the
 hooks), per G in ``<wrapper>.splits[G]``, and the culled ones (B5) also in
-``<wrapper>.culled``, all incremented only where the kernel is launched.
+``<wrapper>.culled``, all incremented only where the kernel is launched. A
+user struct's launches count in ``launches``, ``splits`` and ``culled`` and,
+in the place of ``instantiations`` (the package's own library), in
+``<wrapper>.user_systems[(system name, footprint, fast)]``.
 """
 
 from __future__ import annotations
@@ -64,7 +76,7 @@ from cudasbmp_torch._math import div
 from cudasbmp_torch.geometry.aabb import segment_aabb, segment_clear
 from cudasbmp_torch.geometry.footprint import footprint_clear_cs
 from cudasbmp_torch.ops import _build
-from cudasbmp_torch.systems.base import ControlSpec
+from cudasbmp_torch.systems.base import ControlSpec, device_struct
 from cudasbmp_torch.systems.bicycle import KinematicBicycle
 from cudasbmp_torch.systems.double_integrator import DoubleIntegrator2D
 from cudasbmp_torch.systems.dubins import DubinsCar
@@ -74,6 +86,7 @@ from cudasbmp_torch.systems.unicycle import Unicycle
 # the kernel's SystemId of each system class (csrc/rollout.cu)
 SYSTEM_IDS = {KinematicBicycle: 0, Point2D: 1, DoubleIntegrator2D: 2,
               Unicycle: 3, DubinsCar: 4}
+USER_SYSTEM_ID = 5  # kUser: a user library's one system
 FLAG_FOOTPRINT, FLAG_FAST = 1, 2
 WARP = 32  # the lanes B5 culls for together
 THREADS = 128  # a block's threads (kThreads)
@@ -147,6 +160,38 @@ def footprint_pad(footprint: tuple[float, float] | None) -> float:
 def supports_system(system) -> bool:
     """A system joins the fused path by providing the SoA step hooks."""
     return hasattr(system, "soa_prepare") and hasattr(system, "soa_step")
+
+
+def has_kernel(system) -> bool:
+    """Whether ``system`` runs on the hand-written kernels: it has a device
+    struct, its own (``cuda_struct``, checked by ``device_struct``; it wins
+    over a built-in class or name) or a built-in one (SYSTEM_IDS, by exact
+    class)."""
+    return device_struct(system) is not None or type(system) in SYSTEM_IDS
+
+
+def rollout_route(system, backend: str = "auto") -> str:
+    """Which rollout a wave of ``system`` takes: ``"kernel"`` (the kernel
+    wrappers: B1/B2/B6 on the card, their twins on the CPU) where the
+    system has a device struct (``has_kernel``), else ``"generic"``, the
+    system's own ``step`` through ``ops/rollout.py::rollout_batch``, as the
+    JAX planner sends a system its kernel cannot take to ``rollout_batch``
+    (cudasbmp_tpu/planners/kgmt.py:186-212). Under ``cuda`` or ``cuda_rng``,
+    which ask for the kernel, a system without a struct raises, where JAX's
+    ``pallas_rng`` would take the generic path silently. The planners run
+    every system through ``rollout_batch`` under ``torch`` themselves."""
+    if has_kernel(system):
+        return "kernel"
+    if backend in ("cuda", "cuda_rng"):
+        raise NotImplementedError(_no_kernel(system, f"rollout_backend {backend!r}"))
+    return "generic"
+
+
+def _no_kernel(system, what: str, hint: bool = True) -> str:
+    return (f"system {system.name!r} has no device struct (cuda_struct), so no "
+            f"CUDA kernel for {what}" + (": rollout_backend 'auto' runs its "
+                                          "generic step, 'torch' the plain rollout"
+                                          if hint else ""))
 
 
 def rollout_soa(system, x0: torch.Tensor, controls: torch.Tensor,
@@ -383,22 +428,26 @@ def cull_state_bytes(footprint: bool) -> int:
 
 
 @functools.cache
-def smem_optin(device_index: int) -> int:
+def smem_optin(device_index: int, struct: str | None = None) -> int:
     """The shared memory one block may opt in to on this card, in bytes
-    (232,448 on an H100)."""
-    n = _build.load().cudasbmp_smem_optin(device_index)
+    (232,448 on an H100), read through the package's library or, with
+    ``struct``, that user struct's (a user system's launch needs no build
+    of the package's library)."""
+    n = _build.load(struct).cudasbmp_smem_optin(device_index)
     if n < 0:
         raise RuntimeError(f"cudaDeviceGetAttribute failed: cudaError {-n}")
     return n
 
 
 def max_kernel_obstacles(device_index: int, culled: bool = False,
-                         footprint: bool = False) -> int:
+                         footprint: bool = False, struct: str | None = None) -> int:
     """The most boxes (16 B each, the set padded to a multiple of WALK) one
     block's shared memory holds on this card: 14,528 at 227 KB on an H100;
     the culled body (B5) keeps its window store beside them,
-    ``cull_state_bytes(footprint)``, so 13,248 (12,608 with a footprint)."""
-    room = smem_optin(device_index) - (cull_state_bytes(footprint) if culled else 0)
+    ``cull_state_bytes(footprint)``, so 13,248 (12,608 with a footprint).
+    ``struct``: a user struct's launch (``smem_optin``)."""
+    optin = smem_optin(device_index) if struct is None else smem_optin(device_index, struct)
+    room = optin - (cull_state_bytes(footprint) if culled else 0)
     return max(room, 0) // 16 & ~(WALK - 1)
 
 
@@ -424,18 +473,32 @@ def _split(split: int | None, lanes: int, windows: int, dev: int) -> int:
     return split if split is not None else lanes_per_rollout(lanes, sm_count(dev))
 
 
+def kernel_system(system, what: str) -> tuple[int, float, str | None]:
+    """(system id, param, struct) of ``system``'s kernels: USER_SYSTEM_ID,
+    its ``cuda_param`` and its struct's text, whose library
+    (``_build.load(struct)``) it launches, or the class's SYSTEM_IDS entry,
+    the bicycle's wheelbase (else 0) and None, the package's library.
+    Raises for a system without a device struct."""
+    struct = device_struct(system)
+    if struct is not None:
+        return USER_SYSTEM_ID, float(getattr(system, "cuda_param", 0.0)), struct
+    sid = SYSTEM_IDS.get(type(system))
+    if sid is None:
+        raise NotImplementedError(_no_kernel(system, what, hint=what == "its rollout"))
+    param = system.agent_length if isinstance(system, KinematicBicycle) else 0.0
+    return sid, param, None
+
+
 def _kernel_args(system, x0: torch.Tensor, obstacles: torch.Tensor,
                  footprint, fast_math: bool, per_problem: bool, windows: int = 0
                  ) -> tuple:
     """Check the inputs; return (device index, system id, flags, P, R, K,
-    param, hl, hw), the arguments the C entry points share. Lanes x0 [R, S]
-    take one set of obstacles [K, 4] (P = 1); with ``per_problem`` (kernel
-    B6) lanes [P, R, S] take one set per problem, [P, K, 4]; with
+    param, hl, hw, struct), the arguments the C entry points share and the
+    user struct whose library launches (None: the package's). Lanes x0
+    [R, S] take one set of obstacles [K, 4] (P = 1); with ``per_problem``
+    (kernel B6) lanes [P, R, S] take one set per problem, [P, K, 4]; with
     ``windows`` (B5) fewer boxes fit a block."""
-    sid = SYSTEM_IDS.get(type(system))
-    if sid is None:
-        raise NotImplementedError(
-            f"no CUDA rollout kernel for system {system.name!r}")
+    sid, param, struct = kernel_system(system, "its rollout")
     if x0.dim() != 2 + per_problem:
         raise ValueError(f"x0: expected {'[B, R' if per_problem else '[B'}, "
                          f"state_dim] lanes, got {tuple(x0.shape)}")
@@ -449,7 +512,7 @@ def _kernel_args(system, x0: torch.Tensor, obstacles: torch.Tensor,
     if obstacles.data_ptr() % 16:
         raise ValueError("obstacles: rows are read as float4, need 16-byte alignment")
     dev = _index(x0.device)
-    limit = max_kernel_obstacles(dev, bool(windows), footprint is not None)
+    limit = max_kernel_obstacles(dev, bool(windows), footprint is not None, struct)
     if K > limit:
         raise ValueError(f"{K} obstacles > {limit}, the most one block's "
                          "shared memory holds on this card"
@@ -457,20 +520,19 @@ def _kernel_args(system, x0: torch.Tensor, obstacles: torch.Tensor,
     flags = (FLAG_FOOTPRINT if footprint is not None else 0) | (
         FLAG_FAST if fast_math else 0)
     hl, hw = footprint if footprint is not None else (0.0, 0.0)
-    param = system.agent_length if isinstance(system, KinematicBicycle) else 0.0
-    return dev, sid, flags, P, R, K, param, hl, hw
+    return dev, sid, flags, P, R, K, param, hl, hw, struct
 
 
-def _count(wrapper, system, flags: int, windows: int, split: int) -> None:
+def _count(wrapper, system, sid: int, flags: int, windows: int, split: int) -> None:
     """One launch of ``wrapper``'s kernel, in the instantiation
     (system name, footprint, fast) it ran, culled (B5) or not, at G =
-    ``split``."""
+    ``split``; a user struct's in ``user_systems``."""
     wrapper.launches += 1
     wrapper.culled += bool(windows)
     wrapper.splits[split] += 1
-    wrapper.instantiations[(system.name, bool(flags & FLAG_FOOTPRINT),
-                            bool(flags & FLAG_FAST)
-                            and hasattr(system, "soa_step_fast"))] += 1
+    counter = wrapper.user_systems if sid == USER_SYSTEM_ID else wrapper.instantiations
+    counter[(system.name, bool(flags & FLAG_FOOTPRINT),
+             bool(flags & FLAG_FAST) and hasattr(system, "soa_step_fast"))] += 1
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -511,6 +573,8 @@ def _rollout(wrapper, system, x0: torch.Tensor, controls: torch.Tensor,
     kw = dict(num_disc=num_disc, width=width, height=height,
               footprint=footprint, fast_math=fast_math)
     _check_split(split, cull)
+    if not has_kernel(system):
+        raise NotImplementedError(_no_kernel(system, "its rollout"))
     device = _device_of(x0, controls, obstacles)
     if device.type == "cpu":
         if obstacles.dim() != 2 + per_problem:
@@ -518,7 +582,7 @@ def _rollout(wrapper, system, x0: torch.Tensor, controls: torch.Tensor,
                              f" 4], got {tuple(obstacles.shape)}")
         return _plain_rollout(system, x0, controls, obstacles, cull=cull, **kw)
     windows, plan = _plan_arg(cull, num_disc)
-    dev, sid, flags, P, R, K, param, hl, hw = _kernel_args(
+    dev, sid, flags, P, R, K, param, hl, hw, struct = _kernel_args(
         system, x0, obstacles, footprint, fast_math, per_problem, windows)
     _check("controls", controls, (*x0.shape[:-1], system.control_spec.dim),
            torch.float32)
@@ -527,14 +591,14 @@ def _rollout(wrapper, system, x0: torch.Tensor, controls: torch.Tensor,
     if P * R == 0:
         return x1, valid
     G = _split(split, P * R, windows, dev)
-    rc = _build.load().cudasbmp_rollout(
+    rc = _build.load(struct).cudasbmp_rollout(
         dev, sid, flags, x0.data_ptr(), controls.data_ptr(),
         obstacles.data_ptr(), K, int(per_problem), x1.data_ptr(),
         valid.data_ptr(), P, R, num_disc, width, height, param, hl, hw,
         windows, plan, footprint_pad(footprint) if windows else 0.0, G,
         torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, "rollout_kernel")
-    _count(wrapper, system, flags, windows, G)
+    _count(wrapper, system, sid, flags, windows, G)
     return x1, valid
 
 
@@ -548,6 +612,8 @@ def _sample_and_rollout(wrapper, system, keys: torch.Tensor, x0: torch.Tensor,
     kw = dict(num_disc=num_disc, width=width, height=height,
               footprint=footprint, fast_math=fast_math, cull=cull)
     _check_split(split, cull)
+    if not has_kernel(system):
+        raise NotImplementedError(_no_kernel(system, "its rollout"))
     if not 0 <= lane0 <= 2**31 - 1 - x0.shape[-2]:
         raise ValueError(f"lane0 {lane0}: the lanes [lane0, lane0 + "
                          f"{x0.shape[-2]}) must lie in [0, 2^31 - 1)")
@@ -560,7 +626,7 @@ def _sample_and_rollout(wrapper, system, keys: torch.Tensor, x0: torch.Tensor,
         return sample_and_rollout_torch(system, keys, x0, obstacles, lane0=lane0,
                                         **kw)
     windows, plan = _plan_arg(cull, num_disc)
-    dev, sid, flags, P, R, K, param, hl, hw = _kernel_args(
+    dev, sid, flags, P, R, K, param, hl, hw, struct = _kernel_args(
         system, x0, obstacles, footprint, fast_math, per_problem, windows)
     _check("keys", keys, (P, 2) if per_problem else (2,), torch.int64)
     spec = system.control_spec
@@ -571,14 +637,14 @@ def _sample_and_rollout(wrapper, system, keys: torch.Tensor, x0: torch.Tensor,
     if P * R == 0:
         return x1, controls, valid
     G = _split(split, P * R, windows, dev)
-    rc = _build.load().cudasbmp_sample_and_rollout(
+    rc = _build.load(struct).cudasbmp_sample_and_rollout(
         dev, sid, flags, keys.data_ptr(), x0.data_ptr(), obstacles.data_ptr(),
         K, int(per_problem), x1.data_ptr(), controls.data_ptr(),
         valid.data_ptr(), P, R, num_disc, width, height, param, hl, hw,
         windows, plan, footprint_pad(footprint) if windows else 0.0,
         *spec.lo, *spec.hi, lane0, G, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(rc, "sample_and_rollout_kernel")
-    _count(wrapper, system, flags, windows, G)
+    _count(wrapper, system, sid, flags, windows, G)
     return x1, controls, valid
 
 
@@ -719,6 +785,7 @@ for _wrapper in WRAPPERS:
     _wrapper.launches = 0
     _wrapper.culled = 0
     _wrapper.instantiations = collections.Counter()
+    _wrapper.user_systems = collections.Counter()
     _wrapper.splits = collections.Counter()
 
 
@@ -727,4 +794,5 @@ def reset_launch_counts() -> None:
         wrapper.launches = 0
         wrapper.culled = 0
         wrapper.instantiations.clear()
+        wrapper.user_systems.clear()
         wrapper.splits.clear()

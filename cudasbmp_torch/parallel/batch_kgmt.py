@@ -63,7 +63,7 @@ from cudasbmp_torch.ops.rollout_cuda import (
 from cudasbmp_torch.parallel import collectives
 from cudasbmp_torch.parallel.mesh import PlannerMesh
 from cudasbmp_torch.parallel.multi_query import MultiQueryResult, stack_scenarios
-from cudasbmp_torch.planners.kgmt import resolve_device
+from cudasbmp_torch.planners.kgmt import resolve_device, rollout_kind
 from cudasbmp_torch.systems.registry import get_system
 
 Tensor = torch.Tensor
@@ -177,7 +177,9 @@ def _rollout_wave(cfg: KGMTConfig, system, x0: Tensor, obstacles: Tensor,
     Shared obstacles ([K, 4]) flatten the batch into one launch of B*R
     lanes: kernel B1 (``auto``/``cuda``) or B2 (``cuda_rng``). Per-problem
     obstacles ([B, K, 4]) take kernel B6, or its Philox form under
-    ``cuda_rng``; ``torch`` runs the plain exact rollout either way.
+    ``cuda_rng``; ``torch``, and ``auto`` for a system without a device
+    struct (``planners/kgmt.py::rollout_kind``), run the plain exact
+    rollout either way.
 
     ``key`` is one key [2] (the arena: one stream per wave; B6's Philox form
     then takes ``split(key, B)``) or one per slot, [B, 2] (the streaming
@@ -193,6 +195,7 @@ def _rollout_wave(cfg: KGMTConfig, system, x0: Tensor, obstacles: Tensor,
     kw = dict(num_disc=cfg.num_disc, width=cfg.width, height=cfg.height,
               footprint=cfg.footprint, fast_math=cfg.fast_math)
     spec = system.control_spec
+    kind = rollout_kind(cfg, system)
     if cfg.rollout_backend == "cuda_rng":
         if shared_obs:
             x1, controls, valid = sample_and_rollout_cuda(
@@ -204,7 +207,7 @@ def _rollout_wave(cfg: KGMTConfig, system, x0: Tensor, obstacles: Tensor,
 
     controls = (spec.sample(key, (R,)) if per_slot_keys
                 else spec.sample(key, (B, R), offset=row0 * R * spec.dim))
-    if cfg.rollout_backend == "torch":
+    if kind == "generic":
         x1, valid = rollout_batch(system, x0, controls, cfg.num_disc,
                                   obstacles if shared_obs else obstacles[:, None],
                                   cfg.width, cfg.height, footprint=cfg.footprint)

@@ -65,7 +65,7 @@ from cudasbmp_torch.ops.rollout_cuda import (
 )
 from cudasbmp_torch.parallel import collectives
 from cudasbmp_torch.parallel.mesh import PlannerMesh
-from cudasbmp_torch.planners.kgmt import _fresh_target, _num_waves
+from cudasbmp_torch.planners.kgmt import _fresh_target, _num_waves, rollout_kind
 from cudasbmp_torch.systems.registry import get_system
 from cudasbmp_torch.utils.profiling import phase_scope
 
@@ -258,14 +258,16 @@ def _rollout(cfg: KGMTConfig, system, k_ctrl: Tensor, x0: Tensor,
     -> (x1, controls, valid). ``cuda_rng``: kernel B6's Philox form under
     each problem's control key; else controls from each key's threefry
     stream (``ControlSpec.sample``), then kernel B6 (``auto``/``cuda``) or
-    the plain exact rollout (``torch``). The wrappers run their plain twins
-    on CPU tensors."""
+    the plain exact rollout (``torch``, and ``auto`` for a system without a
+    device struct: ``planners/kgmt.py::rollout_kind``). The wrappers run
+    their plain twins on CPU tensors."""
     kw = dict(num_disc=cfg.num_disc, width=cfg.width, height=cfg.height,
               footprint=cfg.footprint, fast_math=cfg.fast_math)
+    kind = rollout_kind(cfg, system)
     if cfg.rollout_backend == "cuda_rng":
         return sample_and_rollout_batched_cuda(system, k_ctrl, x0, obstacles, **kw)
     controls = system.control_spec.sample(k_ctrl, (x0.shape[1],))
-    if cfg.rollout_backend == "torch":
+    if kind == "generic":
         x1, valid = rollout_batch(system, x0, controls, cfg.num_disc,
                                   obstacles[:, None], cfg.width, cfg.height,
                                   footprint=cfg.footprint)

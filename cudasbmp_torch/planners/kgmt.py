@@ -49,7 +49,8 @@ from cudasbmp_torch._math import div, row_sum
 from cudasbmp_torch.config import SAMPLE_DIM, KGMTConfig, Scenario
 from cudasbmp_torch.geometry.grid import RegionGrid
 from cudasbmp_torch.ops.rollout import rollout_batch
-from cudasbmp_torch.ops.rollout_cuda import rollout_cuda, sample_and_rollout_cuda
+from cudasbmp_torch.ops.rollout_cuda import (rollout_cuda, rollout_route,
+                                             sample_and_rollout_cuda)
 from cudasbmp_torch.systems.registry import get_system
 from cudasbmp_torch.utils.profiling import phase_scope
 
@@ -205,13 +206,27 @@ def init_pathless_state(cfg: KGMTConfig, grid: RegionGrid, init: Tensor,
     )
 
 
+def rollout_kind(cfg: KGMTConfig, system) -> str:
+    """Which rollout a solve under ``cfg`` runs for ``system``, as its
+    result's ``metrics["rollout"]`` records: ``"kernel"``, the kernel
+    wrappers (B1/B2/B6 on the card, their plain twins on the CPU), or
+    ``"generic"``, the system's own ``step`` through ``rollout_batch``
+    (every system under ``torch``; under ``auto`` a system without a device
+    struct). Under ``cuda``/``cuda_rng`` such a system raises
+    (``ops/rollout_cuda.py::rollout_route``, the one rule)."""
+    if cfg.rollout_backend == "torch":
+        return "generic"
+    return rollout_route(system, cfg.rollout_backend)
+
+
 def _dispatch_rollout(cfg: KGMTConfig, system, x0: Tensor, controls: Tensor,
                       obstacles: Tensor) -> tuple[Tensor, Tensor]:
     """``auto``/``cuda``: the B1 wrapper (the CUDA kernel on a CUDA tensor,
     its plain twin on a CPU tensor), with the config's footprint and fast
-    math; ``torch``: the plain exact rollout on any device (fast math, as in
+    math; ``torch``, and ``auto`` for a system without a device struct: the
+    plain exact rollout of ``system.step`` on any device (fast math, as in
     the JAX package, changes only the kernel backends)."""
-    if cfg.rollout_backend == "torch":
+    if rollout_kind(cfg, system) == "generic":
         return rollout_batch(system, x0, controls, cfg.num_disc, obstacles,
                              cfg.width, cfg.height, footprint=cfg.footprint)
     return rollout_cuda(system, x0, controls, obstacles, num_disc=cfg.num_disc,
@@ -225,7 +240,7 @@ def _expand_rollout(cfg: KGMTConfig, system, key: Tensor, x0: Tensor,
     valid). ``cuda_rng`` draws the controls inside the B2 kernel (Philox
     keyed by ``key``, a stream of its own); every other backend draws them
     from the threefry stream of ``key``, as the JAX planner does."""
-    if cfg.rollout_backend == "cuda_rng":
+    if cfg.rollout_backend == "cuda_rng" and rollout_kind(cfg, system) == "kernel":
         return sample_and_rollout_cuda(system, key, x0, obstacles,
                                        num_disc=cfg.num_disc, width=cfg.width,
                                        height=cfg.height,
@@ -234,6 +249,15 @@ def _expand_rollout(cfg: KGMTConfig, system, key: Tensor, x0: Tensor,
     controls = system.control_spec.sample(key, (x0.shape[0],))
     x1, valid = _dispatch_rollout(cfg, system, x0, controls, obstacles)
     return x1, controls, valid
+
+
+def frontier_mask(state: KGMTState, max_tree_size: int) -> Tensor:
+    """The reference's boolean frontier array (d_G_) from the contiguous
+    range ``[frontier_lo, tree_size)`` the planner keeps, on the state's
+    device, for artifacts and analysis (cudasbmp_tpu/planners/kgmt.py:249;
+    io/csv.py keeps a numpy copy for its writer)."""
+    idx = torch.arange(max_tree_size, device=state.tree_parent.device)
+    return (idx >= state.frontier_lo) & (idx < state.tree_size)
 
 
 def _wave_keys(key: Tensor, itr: int, wave: int) -> tuple[Tensor, Tensor]:
@@ -868,6 +892,7 @@ class KGMT:
             "accepted": final.m_accepted[:it],
             "tree_size": final.m_tree_size[:it],
             "r1_threshold": float(final.r1_threshold),
+            "rollout": rollout_kind(self.config, self.system),
         }
         if isinstance(final, PathlessState):
             metrics["dropped"] = final.m_dropped[:it]

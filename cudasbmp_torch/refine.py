@@ -22,7 +22,10 @@ back to the host inside the Adam loop; the losses come back as one
 The revalidation replays the refined edge chain with the exact checker,
 one launch an edge: kernel B1 (``rollout_cuda``) for ``refine_path``, B6
 (``rollout_batched_cuda``, a box set per problem) for ``refine_batch``,
-with the config's footprint (B3), as the JAX ``_revalidate_jit`` passes it.
+with the config's footprint (B3), as the JAX ``_revalidate_jit`` passes it;
+a system without a device struct replays through its generic ``step``
+(``rollout_batch``, the planners' rule ``ops/rollout_cuda.py::
+rollout_route``), as JAX replays every system.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ from cudasbmp_torch._math import row_sum
 from cudasbmp_torch.config import KGMTConfig
 from cudasbmp_torch.ops.refine_cuda import (refine_penalty_cuda, soft_penetration,
                                             unroll_positions)
-from cudasbmp_torch.ops.rollout_cuda import rollout_batched_cuda, rollout_cuda
+from cudasbmp_torch.ops.rollout import rollout_batch
+from cudasbmp_torch.ops.rollout_cuda import (rollout_batched_cuda, rollout_cuda,
+                                             rollout_route)
 
 Tensor = torch.Tensor
 _soft_penetration = soft_penetration
@@ -140,11 +145,15 @@ def _revalidate(system, cfg: KGMTConfig, x0s: Tensor, goal_xys: Tensor,
     edges valid [B], end inside the goal radius [B])."""
     kw = dict(num_disc=cfg.num_disc, width=cfg.width, height=cfg.height,
               footprint=cfg.footprint)
+    generic = rollout_route(system, cfg.rollout_backend) == "generic"
     states, ok = x0s, torch.ones(x0s.shape[0], dtype=torch.bool, device=x0s.device)
     per_edge = []
     for l in range(controls.shape[1]):
         ctrl, m = controls[:, l].contiguous(), masks[:, l]
-        if obstacles.dim() == 2:
+        if generic:
+            x1, valid = rollout_batch(system, states, ctrl, cfg.num_disc, obstacles,
+                                      cfg.width, cfg.height, footprint=cfg.footprint)
+        elif obstacles.dim() == 2:
             x1, valid = rollout_cuda(system, states, ctrl, obstacles, **kw)
         else:
             x1, valid = rollout_batched_cuda(system, states[:, None], ctrl[:, None],

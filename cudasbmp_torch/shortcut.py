@@ -16,7 +16,11 @@ it). Its rollouts, the candidates and every replayed suffix step, are one
 launch each: kernel B1 (``rollout_cuda``) for one path against one box set
 ([K, 4], ``shortcut_path``), kernel B6 (``rollout_batched_cuda``) for a
 batch against one set per path ([B, K, 4], ``shortcut_batch``), with the
-config's footprint and fast math; their plain twins on the CPU. The JAX
+config's footprint and fast math; their plain twins on the CPU. A system
+without a device struct replays through its generic ``step``
+(``rollout_batch``) under the planners' rule
+(``ops/rollout_cuda.py::rollout_route``), as the JAX round does for every
+system. The JAX
 round replays all N steps, frozen past each path's suffix length m; here
 the replay stops after the batch's longest suffix (one read from the
 device a round), since the later steps change nothing.
@@ -36,7 +40,9 @@ import torch
 
 from cudasbmp_torch import rng
 from cudasbmp_torch.config import SAMPLE_DIM, KGMTConfig
-from cudasbmp_torch.ops.rollout_cuda import rollout_batched_cuda, rollout_cuda
+from cudasbmp_torch.ops.rollout import rollout_batch
+from cudasbmp_torch.ops.rollout_cuda import (rollout_batched_cuda, rollout_cuda,
+                                             rollout_route)
 
 Tensor = torch.Tensor
 
@@ -51,7 +57,12 @@ class ShortcutConfig:
 def _rollout(system, cfg: KGMTConfig, x0: Tensor, controls: Tensor,
              obstacles: Tensor) -> tuple[Tensor, Tensor]:
     """x0 [B, K, S], controls [B, K, C] -> (x1, valid): B1 on the B*K lanes
-    against obstacles [K, 4], or B6 against [B, K, 4]."""
+    against obstacles [K, 4], or B6 against [B, K, 4]; the generic rollout
+    for a system without a device struct."""
+    if rollout_route(system, cfg.rollout_backend) == "generic":
+        return rollout_batch(system, x0, controls, cfg.num_disc,
+                             obstacles if obstacles.dim() == 2 else obstacles[:, None],
+                             cfg.width, cfg.height, footprint=cfg.footprint)
     kw = dict(num_disc=cfg.num_disc, width=cfg.width, height=cfg.height,
               footprint=cfg.footprint, fast_math=cfg.fast_math)
     if obstacles.dim() == 3:

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import re
 from typing import Protocol, runtime_checkable
 
 import torch
@@ -92,3 +93,92 @@ class SoAStepMixin(Protocol):
     def soa_step(self, comps: list[torch.Tensor], aux: tuple[torch.Tensor, ...],
                  dt: torch.Tensor) -> list[torch.Tensor]:
         ...
+
+
+class DeviceStructMixin(Protocol):
+    """A system's own device struct, which admits it to the hand-written
+    kernels (csrc/rollout.cu: B1-B6; csrc/refine.cu: R1); the port's
+    counterpart of ``SoAStepMixin``, whose Python hooks the JAX package
+    traces into its Pallas kernels. A CUDA kernel cannot trace Python, so
+    the system hands in C++ source instead:
+
+    - ``cuda_struct``: the text of ``struct UserSystem``, with the built-in
+      structs' interface: ``static constexpr bool kHeading, kFast`` (z is the
+      heading the footprint test reads; the fast-math hooks exist), a type
+      ``Aux``, ``Aux prepare(float c0, float c1) const`` (once a rollout)
+      and ``float4 step(float4 s, Aux q, float dt) const`` (one Euler step
+      of the state (x, y, z, w)); with ``kFast`` also ``Carry``,
+      ``FastAux``, ``prepare_fast(s, c0, c1, dt, Carry&, FastAux&)`` and
+      ``float4 step_fast(s, Carry&, FastAux, dt)``, the carry's first two
+      fields the new pose's cos and sin; for R1 optionally ``float4
+      back(float4 s, Aux q, float dt, float4 lam, Grad& g) const``, the
+      step's adjoint: it adds the step's contributions to g = (d/dc0,
+      d/dc1, d/ddt) and returns the adjoint of s. Every function is
+      ``__device__``; the struct may hold one float, set from
+      ``cuda_param``;
+    - ``cuda_param`` (optional float): passed as the bicycle's wheelbase
+      is, ``UserSystem{cuda_param}``.
+
+    The struct rounds as its torch SoA hooks do, operator by operator, with
+    the kernels' helpers ``add``, ``sub``, ``mul``, ``dvd`` (round-to-
+    nearest, never contracted into an FMA), ``cos_sin`` (one sincosf),
+    ``advance(x, v, c, dt)`` = x + (v*c)*dt and ``rotate(c, s, dc, ds)``;
+    those hooks are its plain twin, on the CPU and in the tests, so a system
+    with a struct has them too. The layout is the JAX planner's bound on
+    every system: a float4 state (``state_dim`` 4) and two controls plus
+    the duration (``control_spec.dim`` 3). ``device_struct`` checks all of
+    this that Python can see."""
+
+    cuda_struct: str
+
+
+_FLAGS = ("kHeading", "kFast")
+_COMMENTS = re.compile(r"//[^\n]*|/\*.*?\*/", re.S)
+
+
+@functools.lru_cache(maxsize=None)
+def struct_flags(text: str) -> dict[str, bool]:
+    """``kHeading`` and ``kFast`` as ``struct UserSystem`` states them
+    (``= true`` or ``= false``, outside comments)."""
+    code = _COMMENTS.sub("", text)
+    if not re.search(r"\bstruct\s+UserSystem\b", code):
+        raise ValueError("cuda_struct: expected the text of struct UserSystem")
+    flags = {}
+    for name in _FLAGS:
+        found = re.findall(rf"\b{name}\s*=\s*(true|false)\b", code)
+        if len(found) != 1:
+            raise ValueError(f"cuda_struct: state {name} once, as 'static constexpr "
+                             f"bool {name} = true|false', found {len(found)}")
+        flags[name] = found[0] == "true"
+    return flags
+
+
+def device_struct(system) -> str | None:
+    """The C++ text of ``system``'s own device struct (``cuda_struct``,
+    ``DeviceStructMixin``), checked against its Python side; None for a
+    system without one. Raises ValueError where the two disagree."""
+    text = getattr(system, "cuda_struct", None)
+    if text is None:
+        return None
+    name = getattr(system, "name", type(system).__name__)
+    if not isinstance(text, str):
+        raise ValueError(f"system {name!r}: cuda_struct must be a str")
+    flags = struct_flags(text)
+    if not (hasattr(system, "soa_prepare") and hasattr(system, "soa_step")):
+        raise ValueError(f"system {name!r}: a device struct needs the torch SoA hooks "
+                         "(soa_prepare, soa_step), its plain twin")
+    if system.state_dim != 4 or system.control_spec.dim != 3:
+        raise ValueError(f"system {name!r}: a device struct takes a float4 state and "
+                         "two controls plus the duration; got state_dim "
+                         f"{system.state_dim}, control_spec.dim {system.control_spec.dim}")
+    heading = getattr(system, "heading_index", None)
+    if heading not in (None, 2) or flags["kHeading"] != (heading is not None):
+        raise ValueError(f"system {name!r}: kHeading = {flags['kHeading']} but "
+                         f"heading_index = {heading} (the footprint test reads z, "
+                         "index 2, as the heading)")
+    fast = hasattr(system, "soa_prepare_fast") and hasattr(system, "soa_step_fast")
+    if flags["kFast"] != fast or (fast and not flags["kHeading"]):
+        raise ValueError(f"system {name!r}: kFast = {flags['kFast']} but the fast "
+                         f"hooks are {'there' if fast else 'missing'} (fast math "
+                         "needs a heading)")
+    return text

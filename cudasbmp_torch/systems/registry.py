@@ -1,5 +1,7 @@
 """System registry: name -> constructor, so configs select dynamics by name
-(counterpart of cudasbmp_tpu/systems/registry.py)."""
+(counterpart of cudasbmp_tpu/systems/registry.py). ``register_system`` adds
+a user's system, or replaces a built-in under its name; a config's
+``system:`` then reaches it from YAML, the CLI and every planner."""
 
 from __future__ import annotations
 
@@ -12,14 +14,11 @@ from cudasbmp_torch.systems.dubins import DubinsCar
 from cudasbmp_torch.systems.point2d import Point2D
 from cudasbmp_torch.systems.unicycle import Unicycle
 
-_REGISTRY: dict[str, Callable[..., System]] = {
-    "bicycle": KinematicBicycle,
-    "car": KinematicBicycle,  # the name of systems/car.yaml
-    "point2d": Point2D,
-    "double_integrator": DoubleIntegrator2D,
-    "unicycle": Unicycle,
-    "dubins": DubinsCar,
-}
+_REGISTRY: dict[str, Callable[..., System]] = {}
+
+
+def register_system(name: str, ctor: Callable[..., System]) -> None:
+    _REGISTRY[name] = ctor
 
 
 def get_system(name: str, **kwargs) -> System:
@@ -30,3 +29,11 @@ def get_system(name: str, **kwargs) -> System:
 
 def available_systems() -> list[str]:
     return sorted(_REGISTRY)
+
+
+register_system("bicycle", KinematicBicycle)
+register_system("car", KinematicBicycle)  # the name of systems/car.yaml
+register_system("point2d", Point2D)
+register_system("double_integrator", DoubleIntegrator2D)
+register_system("unicycle", Unicycle)
+register_system("dubins", DubinsCar)

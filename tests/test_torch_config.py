@@ -112,7 +112,8 @@ def test_package_imports_and_solves_with_jax_blocked():
     (chunked, with checkpoints), the sharded multi-query planner,
     ``run_sharded`` and the distribution layer's entry point (a no-op
     without torchrun's environment), the state validator, the Agent model,
-    a profiler trace and the edge replay of the plots run."""
+    a profiler trace, the edge replay of the plots and a registered system
+    with only ``step`` (the generic rollout) run."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -194,6 +195,21 @@ def test_package_imports_and_solves_with_jax_blocked():
         "t = r.state.tree_samples[:r.tree_size].numpy()\n"
         "e = viz._integrate_edges(p.system, t[:-1], t[1:, 4:7], cfg.num_disc)\n"
         "assert e.shape == (r.tree_size - 1, cfg.num_disc + 1, 4), e.shape\n"
+        "import dataclasses\n"
+        "from cudasbmp_torch.systems import ControlSpec, register_system\n"
+        "@dataclasses.dataclass(frozen=True)\n"
+        "class Drift:\n"
+        "    name: str = 'drift'\n"
+        "    state_dim: int = 4\n"
+        "    control_spec: ControlSpec = ControlSpec((-3.0, -3.0, 0.05), (3.0, 3.0, 1.05))\n"
+        "    def step(self, s, c, dt):\n"
+        "        x, y, vx, vy = s.unbind(-1)\n"
+        "        return torch.stack([x + vx * dt, y + vy * dt, vx + (c[..., 0] - 0.3 * vx)\n"
+        "                            * dt, vy + (c[..., 1] - 0.3 * vy) * dt], -1)\n"
+        "register_system('drift', Drift)\n"
+        "r = cudasbmp_torch.KGMT(dataclasses.replace(cfg, system='drift'), device='cpu'\n"
+        "                        ).plan(sc)\n"
+        "assert r.iterations == 2 and r.metrics['rollout'] == 'generic', r\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
         "print('ok')\n"
     )

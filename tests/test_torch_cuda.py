@@ -17,6 +17,7 @@ from cudasbmp_torch.ops import rollout_cuda as rc
 from cudasbmp_torch.ops.rollout import rollout_batch
 from cudasbmp_torch.systems import get_system
 from cudasbmp_torch.systems.bicycle import KinematicBicycle
+from torch_user_systems import BicycleCopy, Drift, DriftNoBack, DriftStruct
 
 pytestmark = pytest.mark.cuda
 KW = dict(num_disc=10, width=20.0, height=20.0)
@@ -930,3 +931,167 @@ def test_sharded_trips_equal_the_twin(dev, D, backend, monkeypatch):
                                                           **KW)
             assert _bitwise(tc, controls)
         assert _bitwise(tx1, x1) and torch.equal(tvalid, valid)
+
+
+# -- user systems: a system's own device struct in a library of its own ------
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("footprint", [None, FP], ids=["broad", "footprint"])
+def test_bicycle_copy_struct_is_the_builtin_kernel(dev, footprint, fast_math, G):
+    """The built-in bicycle's struct, copied into a user library, gives the
+    built-in kernels' bits: B1 and B2 at 4,096 lanes, B6 and B6 Philox at 8
+    problems x 512 lanes, at G = 1 and 4; its launches count in
+    ``user_systems``, not ``instantiations``."""
+    system, x0, c = system_batch("bicycle", 4096, 0, dev)
+    copy, obs, key = BicycleCopy(), _obstacles(dev), rng.key(3, dev)
+    opts = dict(KW, footprint=footprint, fast_math=fast_math, split=G)
+    rc.reset_launch_counts()
+    x1, v = rc.rollout_cuda(system, x0, c, obs, **opts)
+    ux1, uv = rc.rollout_cuda(copy, x0, c, obs, **opts)
+    assert torch.equal(v, uv) and _bitwise(x1, ux1)
+    y1, c2, v2 = rc.sample_and_rollout_cuda(system, key, x0, obs, **opts)
+    uy1, uc2, uv2 = rc.sample_and_rollout_cuda(copy, key, x0, obs, **opts)
+    assert _bitwise(c2, uc2) and torch.equal(v2, uv2) and _bitwise(y1, uy1)
+    _, bx0, bc, bobs = problem_batch("bicycle", 8, 512, 8, 1, dev)
+    keys = rng.split(key, 8)
+    x1, v = rc.rollout_batched_cuda(system, bx0, bc, bobs, **opts)
+    ux1, uv = rc.rollout_batched_cuda(copy, bx0, bc, bobs, **opts)
+    assert torch.equal(v, uv) and _bitwise(x1, ux1)
+    y1, c2, v2 = rc.sample_and_rollout_batched_cuda(system, keys, bx0, bobs, **opts)
+    uy1, uc2, uv2 = rc.sample_and_rollout_batched_cuda(copy, keys, bx0, bobs, **opts)
+    assert _bitwise(c2, uc2) and torch.equal(v2, uv2) and _bitwise(y1, uy1)
+    inst = ("bicycle_copy", footprint is not None, fast_math)
+    for w in rc.WRAPPERS:
+        assert w.launches == 2 and w.user_systems == {inst: 1}, w.__name__
+        assert sum(w.instantiations.values()) == 1 and w.splits == {G: 2}
+
+
+@pytest.mark.parametrize("fast_math", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("footprint", [None, FP], ids=["broad", "footprint"])
+def test_bicycle_copy_struct_culled_is_the_builtin(dev, footprint, fast_math):
+    """B5 of the copy at W = 4 on the dense-24 field's Morton-grouped lanes
+    equals the built-in's B5, both kernels."""
+    system, x0, c = system_batch("bicycle", 4097, 50, dev)
+    x0, c = grouped(x0, c)
+    obs, key = dense_field(24, dev), rng.key(23, dev)
+    opts = dict(KW, footprint=footprint, fast_math=fast_math, cull=4)
+    x1, v = rc.rollout_cuda(system, x0, c, obs, **opts)
+    ux1, uv = rc.rollout_cuda(BicycleCopy(), x0, c, obs, **opts)
+    assert 0.05 < v.float().mean() < 0.99
+    assert torch.equal(v, uv) and _bitwise(x1, ux1)
+    y1, c2, v2 = rc.sample_and_rollout_cuda(system, key, x0, obs, **opts)
+    uy1, uc2, uv2 = rc.sample_and_rollout_cuda(BicycleCopy(), key, x0, obs, **opts)
+    assert _bitwise(c2, uc2) and torch.equal(v2, uv2) and _bitwise(y1, uy1)
+
+
+@pytest.mark.parametrize("footprint", [None, FP], ids=["broad", "footprint"])
+def test_user_dynamics_struct_matches_its_twin(dev, footprint):
+    """A struct of new dynamics (the damped double integrator) against its
+    torch hooks: B1 and B2 at every G, B6 and B6 Philox, B5 at W = 4."""
+    system = DriftStruct()
+    r = np.random.default_rng(11)
+    x0 = np.zeros((4096, 4), np.float32)
+    x0[:, :2] = r.uniform(0.5, 19.5, (4096, 2))
+    x0[:, 2:] = r.uniform(-3, 3, (4096, 2))
+    c = r.uniform(0, 1, (4096, 3)) * (6.0, 6.0, 1.0) + (-3.0, -3.0, 0.05)
+    x0, c = torch.tensor(x0, device=dev), torch.tensor(c.astype(np.float32), device=dev)
+    obs, key = _obstacles(dev), rng.key(5, dev)
+    opts = dict(KW, footprint=footprint)
+    px1, pv = rc.rollout_soa(system, x0, c, obs, **opts)
+    assert 0.05 < pv.float().mean() < 0.99
+    tx1, tc2, tv = rc.sample_and_rollout_torch(system, key, x0, obs, **opts)
+    for G in (None, *rc.SPLITS):
+        x1, v = rc.rollout_cuda(system, x0, c, obs, **opts, split=G)
+        assert torch.equal(v, pv) and _bitwise(x1, px1), G
+        y1, c2, v2 = rc.sample_and_rollout_cuda(system, key, x0, obs, **opts, split=G)
+        assert _bitwise(c2, tc2) and torch.equal(v2, tv) and _bitwise(y1, tx1), G
+    bx0, bc = x0.view(8, 512, 4), c.view(8, 512, 3)
+    bobs = problem_batch("bicycle", 8, 512, 8, 2, dev)[3]
+    keys = rng.split(key, 8)
+    px1, pv = rc.rollout_soa(system, bx0, bc, bobs, **opts)
+    x1, v = rc.rollout_batched_cuda(system, bx0, bc, bobs, **opts)
+    assert torch.equal(v, pv) and _bitwise(x1, px1)
+    tx1, tc2, tv = rc.sample_and_rollout_torch(system, keys, bx0, bobs, **opts)
+    y1, c2, v2 = rc.sample_and_rollout_batched_cuda(system, keys, bx0, bobs, **opts)
+    assert _bitwise(c2, tc2) and torch.equal(v2, tv) and _bitwise(y1, tx1)
+    x0, c = grouped(x0, c)
+    dense = dense_field(24, dev)
+    px1, pv = rc.rollout_culled_soa(system, x0, c, dense, cull=4, group=rc.WARP, **opts)
+    x1, v = rc.rollout_cuda(system, x0, c, dense, **opts, cull=4)
+    assert torch.equal(v, pv) and _bitwise(x1, px1)
+
+
+def test_user_refine_kernel_with_and_without_back(dev):
+    """R1 of the bicycle copy is the built-in R1 to the bit; of the damped
+    double integrator, its autograd twin's (states bitwise, penalty rtol
+    1e-5, gradient 1e-4 of its norm); a struct without back() raises,
+    naming the hook."""
+    from cudasbmp_torch.ops import refine_cuda as rf
+
+    system, (x0, c, w, goal, obs) = refine_inputs("bicycle", 8, 6, 10, 4, dev, True, False)
+    want = rf._launch(system, x0, c, w, goal, obs, **REFINE_KW)
+    rf.refine_penalty_cuda.user_systems.clear()
+    got = rf._launch(BicycleCopy(), x0, c, w, goal, obs, **REFINE_KW)
+    assert all(_bitwise(a, b) for a, b in zip(want, got))
+    assert rf.refine_penalty_cuda.user_systems == {"bicycle_copy": 1}
+    _, (x0, c, w, goal, obs) = refine_inputs("double_integrator", 8, 6, 10, 5, dev, True,
+                                             True)
+    drift = DriftStruct()
+    loss, grad, states = rf._launch(drift, x0, c, w, goal, obs, **REFINE_KW)
+    pts = rf.unroll_positions(drift, x0, c, 10)
+    assert _bitwise(states[:, 1:, :2].contiguous(), pts.contiguous())
+    cr = c.clone().requires_grad_()
+    twin = rf.refine_penalty_torch(drift, x0, cr, w, goal, obs, **REFINE_KW)
+    (tgrad,) = torch.autograd.grad(twin.sum(), cr)
+    torch.testing.assert_close(loss, twin.detach(), rtol=1e-5, atol=1e-6)
+    err = (grad - tgrad).flatten(1).norm(dim=1)
+    assert bool((err <= 1e-4 * tgrad.flatten(1).norm(dim=1) + 1e-6).all()), err
+    with pytest.raises(NotImplementedError, match="back"):
+        rf.refine_penalty_cuda(DriftNoBack(), x0, c, w, goal, obs, **REFINE_KW)
+    with pytest.raises(NotImplementedError, match="no device struct"):
+        rf.refine_penalty_cuda(Drift(), x0, c, w, goal, obs, **REFINE_KW)
+
+
+def test_a_broken_struct_raises_with_nvccs_text(dev):
+    """No fallback: a struct that does not compile raises at its first
+    launch with the compiler's output, and leaves no library."""
+    from cudasbmp_torch.ops import _build
+
+    class Broken(DriftStruct):
+        cuda_struct = DriftStruct.cuda_struct.replace("return make_float4", "retrun make_float4", 1)
+
+    x0, c = demo_batch(64, 0, dev)
+    with pytest.raises(RuntimeError, match="(?s)nvcc failed.*retrun"):
+        rc.rollout_cuda(Broken(), x0, c, _obstacles(dev), **KW)
+    assert not _build.library_path(Broken.cuda_struct).exists()
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda_rng"])
+def test_user_struct_solves_equal_the_builtin(dev, backend):
+    """The demo solve with the bicycle copy equals the built-in's field for
+    field, every wave a user-struct launch."""
+    cfg = ctt.KGMTConfig(rollout_backend=backend)
+    want = ctt.KGMT(cfg, device="cuda").plan(Scenario.demo(), seed=0)
+    rc.reset_launch_counts()
+    got = ctt.KGMT(cfg, system=BicycleCopy(), device="cuda").plan(Scenario.demo(), seed=0)
+    assert (got.solved, got.iterations, got.tree_size, got.cost) == (
+        want.solved, want.iterations, want.tree_size, want.cost)
+    assert got.path.tobytes() == want.path.tobytes()
+    wrapper = rc.sample_and_rollout_cuda if backend == "cuda_rng" else rc.rollout_cuda
+    assert wrapper.launches > 0 and sum(wrapper.user_systems.values()) == wrapper.launches
+    assert not wrapper.instantiations and got.metrics["rollout"] == "kernel"
+
+
+def test_generic_route_on_the_card(dev):
+    """A system without a struct solves under ``auto`` through its step and
+    launches no kernel; ``cuda`` refuses it."""
+    cfg = ctt.KGMTConfig()
+    rc.reset_launch_counts()
+    r = ctt.KGMT(cfg, system=Drift(), device="cuda").plan(Scenario.demo(), seed=0)
+    assert r.metrics["rollout"] == "generic" and r.iterations > 0
+    assert all(w.launches == 0 for w in rc.WRAPPERS)
+    with pytest.raises(NotImplementedError, match="'auto'"):
+        ctt.KGMT(cfg.replace(rollout_backend="cuda"), system=Drift(),
+                 device="cuda").plan(Scenario.demo())
+
