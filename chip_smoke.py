@@ -134,15 +134,27 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     states bitwise, penalty within R1_RTOL, gradient within R1_GRAD_RTOL of
     its norm; device ms of R1 at both shapes and of the twin at the demo
     path's, R1 on one path of the pipeline (its serial chain), and the
+    bounds; then refine_adam_kernel, R1 redesigned to run the whole
+    refinement in one launch, each problem trimmed to its own path: at
+    RefineConfig() bitwise the step path (refine.py::_refine_core with R1,
+    401 R1 launches, counted) in losses and refined controls on the CLI
+    demo path and on the pipeline (cut to its longest real path as
+    refine_batch runs it, and padded to its full width), within
+    ADAM_TWIN_TOL of its twin at ADAM_TWIN_STEPS steps; its device ms a
+    refinement and an Adam step at both shapes, padded, on the pipeline's
+    longest path alone and either side of the switch to global scratch
+    (the least L whose working set passes a block's shared memory), at
+    ADAM_ROW_STEPS steps beside its twin's, the step path's wall, and the
     bounds;
 28. refinement: the CLI's demo --refine (KGMTConfig(), RefineConfig()) as a
-    subprocess; refine_path on the CLI demo's path (401 R1 launches, B1 an
-    edge) and refine_batch at RefineConfig() on [25]'s 128 shortened
-    pipeline paths (401 R1 launches, B6 an edge): improved count, cost
-    quantiles before and after, wall; every kept path replays valid and
-    ends in its goal; the wall and device ms and the kernel launches of an
-    Adam step with R1 and with its twin, at both shapes (the twin's
-    launches at the demo path's only);
+    subprocess; refine_path on the CLI demo's path (one launch of the whole
+    refinement, B1 an edge) and refine_batch at RefineConfig() on [25]'s
+    128 shortened pipeline paths (one launch, B6 an edge of the longest
+    real path): improved count, cost quantiles before and after, wall;
+    every kept path replays valid and ends in its goal; the wall and device
+    ms and the kernel launches of the step path's Adam step with R1 and
+    with its twin, at both shapes (the twin's launches at the demo path's
+    only);
 29. the recorded solve of the demo (KGMT.plan_recorded, a checkpoint every
     5 iterations), a checkpoint round trip on the card, a resume from
     checkpoint_5 equal to plan() to the bit, and the CLI's record as a
@@ -181,11 +193,13 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     the name bicycle_copy is bitwise the built-in kernels: B1 and B2 at the
     demo's 4,096 lanes, exact, with the footprint (B3) and with fast math
     (B4); B6 and B6 Philox at 64 x 4,096; B5 at W = 4 on the cull table's
-    2^17 Morton-grouped starts on dense-24; R1 on the CLI demo path; its
+    2^17 Morton-grouped starts on dense-24; R1 and refine_path (the whole
+    refinement in its library) on the CLI demo path; its
     demo solves at seeds 0-3 under 'auto' and 'cuda_rng' equal [5]'s and
     [6]'s field for field, seed 0's path to the bit; (b) new dynamics, the
     damped double integrator ``drift`` with its struct and torch hooks: B1,
-    B2, B6 and B6 Philox bitwise its twin; KGMTConfig(system="drift") on
+    B2, B6 and B6 Philox bitwise its twin (its struct has no back(): its
+    refine_path raises, naming the hook); KGMTConfig(system="drift") on
     the demo, seeds 0-3, both backends, every path replayed with error 0;
     MultiQueryPlanner on the CLI multi default's 64 pairs; (c) the same
     dynamics without a struct: under 'auto' the generic rollout (metrics
@@ -277,6 +291,10 @@ MULTI_SHAPES = ((MULTI_B, 4096), (BENCH_VMAP_B, 2048), (QUALITY_B, SHORTCUT_CAND
 # another order than autograd)
 R1_SHAPES = ((1, 1), (1, 10), (6, 10), (151, 10))
 R1_RTOL, R1_GRAD_RTOL = 1e-5, 1e-4
+# the whole refinement against its twin: tests/test_torch_refine.py's
+# tolerances (controls rtol and atol, the first two losses rtol) at 3 steps
+ADAM_TWIN_TOL, ADAM_TWIN_STEPS = 1e-5, 3
+ADAM_ROW_STEPS = 10  # the kernels line's ms, plain_ms and bound_ms: Adam steps
 
 
 def fail(msg: str) -> None:
@@ -2060,6 +2078,152 @@ def check_r1(dev, quality: dict) -> dict:
             "pipeline_bound_ms": pipe_bound[0], "pipeline_bound_by": pipe_bound[1], **t}
 
 
+def whole_refinement(dev, quality: dict) -> dict:
+    """Phase 27, continued: refine_adam_kernel (the whole refinement in one
+    launch) against the step path (R1 and torch's Adam ops, 401 R1
+    launches) to the bit at RefineConfig() on the CLI demo path and on
+    [25]'s pipeline, cut to its longest real path as refine_batch runs it
+    and padded to its full width (against the padded step path both), and
+    against its plain twin at ADAM_TWIN_STEPS steps. Device ms a refinement
+    at both shapes, at ADAM_ROW_STEPS steps beside the twin's, on the
+    pipeline's longest path alone (its serial chains), and either side of
+    the switch to global scratch (at the least L whose working set passes
+    the shared memory a block may take); the step path's wall a
+    refinement; the bounds."""
+    from cudasbmp_torch import KGMT, KGMTConfig, Scenario
+    from cudasbmp_torch import refine as tr
+    from cudasbmp_torch.ops import refine_cuda as rf
+    from cudasbmp_torch.probes import roofline as rfl
+    from cudasbmp_torch.probes import timing
+
+    cfg, rcfg = KGMTConfig(), tr.RefineConfig()
+    qcfg = quality["cfg"]
+    planner = KGMT(cfg, device=dev)
+    demo = Scenario.demo()
+    path = planner.plan(demo).path  # the CLI's demo: KGMTConfig().seed
+    system = planner.system
+
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a), device=dev)
+
+    L = len(path) - 1
+    one = [t(path[None, 0, :4]), t(demo.goal[None, :2]), t(demo.obstacles),
+           t(path[None, 1:, 4:]), torch.ones((1, L), dtype=torch.bool, device=dev)]
+    paths, lengths = quality["paths"], quality["path_lengths"]
+    Lmax = paths.shape[1]
+    n = min(max(int(lengths.max()) - 1, 1), Lmax - 1)  # refine_batch's cut
+    padded = [t(paths[:, 0, :4]), t(quality["goals"][:, :2]), t(quality["obstacles"]),
+              t(paths[:, 1:, 4:]), t(np.arange(Lmax - 1)[None] < (lengths[:, None] - 1))]
+    pipe = padded[:3] + [x[:, :n].contiguous() for x in padded[3:]]
+    longest = int(np.argmax(lengths))
+    chain = [x[longest:longest + 1].contiguous() for x in pipe[:2]] + [pipe[2]] + [
+        x[longest:longest + 1].contiguous() for x in pipe[3:]]
+
+    def adam(c, inputs, rc=rcfg):
+        x0, goal, obs, c0, mask = inputs
+        return tr._refine_core(system, c, rc, x0, goal, obs, c0, mask)
+
+    def step_path(c, inputs, rc=rcfg, penalty=rf.refine_penalty_cuda):
+        x0, goal, obs, c0, mask = inputs
+        return tr._refine_core(system, c, rc, x0, goal, obs, c0, mask, penalty)
+
+    out: dict = {"demo_edges": L, "pipeline_problems": len(lengths),
+                 "pipeline_edges": int(n), "pipeline_padded_edges": int(Lmax - 1)}
+    walls, r1_launches = {}, {}
+    for tag, c, inputs in (("demo", cfg, one), ("pipeline_padded", qcfg, padded)):
+        step_path(c, inputs, tr.RefineConfig(iterations=2))  # warm-up
+        torch.cuda.synchronize()
+        rf.refine_penalty_cuda.launches = 0
+        t0 = time.perf_counter()
+        want = step_path(c, inputs)
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        r1_launches[tag] = rf.refine_penalty_cuda.launches
+        check(r1_launches[tag] == rcfg.iterations + 1,
+              f"the step path {tag}: {r1_launches[tag]} R1 launches")
+        shapes = [(tag, inputs)] + ([("pipeline", pipe)] if tag == "pipeline_padded" else [])
+        for name, x in shapes:
+            launches = rf.refine_adam_cuda.launches
+            got = adam(c, x)
+            check(rf.refine_adam_cuda.launches == launches + 1,
+                  f"refine_adam_kernel {name}: {rf.refine_adam_cuda.launches - launches} launches")
+            w = x[3].shape[1]
+            check(bitwise(got[1], want[1]) and bitwise(got[0], want[0][:, :w].contiguous())
+                  and bitwise(want[0][:, w:].contiguous(), inputs[3][:, w:].contiguous()),
+                  f"refine_adam_kernel {name}: not the step path's bits")
+    twin_err = 0.0
+    few = tr.RefineConfig(iterations=ADAM_TWIN_STEPS)
+    for tag, c, inputs in (("demo", cfg, one), ("pipeline", qcfg, pipe)):
+        got = adam(c, inputs, few)
+        want = step_path(c, inputs, few, rf.refine_penalty_torch)
+        err = (got[0] - want[0]).abs()
+        check(bool((err <= ADAM_TWIN_TOL + ADAM_TWIN_TOL * want[0].abs()).all()),
+              f"refine_adam_kernel {tag}: controls {float(err.max())} from the twin's")
+        lerr = (got[1][:2] - want[1][:2]).abs()
+        check(bool((lerr <= ADAM_TWIN_TOL * want[1][:2].abs()).all()),
+              f"refine_adam_kernel {tag}: losses {lerr.tolist()} from the twin's")
+        twin_err = max(twin_err, float(err.max()))
+    out["twin_max_abs_err"] = twin_err
+    out["step_path_wall_s"], out["step_path_r1_launches"] = walls, r1_launches
+    # the switch to global scratch: the least L (num_disc 10) past the limit
+    nd = qcfg.num_disc
+    limit = rf.adam_workspace(system, 1, nd, dev)[1]
+    lo, hi = 1, 2
+    while rf.adam_workspace(system, hi, nd, dev)[0] <= limit:
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if rf.adam_workspace(system, mid, nd, dev)[0] <= limit else (lo, mid)
+    out["switch"] = {"edges": hi, "points": hi * nd, "shared_limit_bytes": limit,
+                     "bytes_at_switch": rf.adam_workspace(system, hi, nd, dev)[0],
+                     "bytes_below": rf.adam_workspace(system, lo, nd, dev)[0]}
+    below = refine_inputs("bicycle", 1, lo, nd, 27, dev, False, False)[1]
+    past = refine_inputs("bicycle", 1, hi, nd, 27, dev, False, False)[1]
+    below = [below[0], below[3], below[4], below[1],
+             torch.ones((1, lo), dtype=torch.bool, device=dev)]
+    past = [past[0], past[3], past[4], past[1], torch.ones((1, hi), dtype=torch.bool,
+                                                            device=dev)]
+    rf.refine_adam_cuda.workspaces.clear()
+    adam(qcfg, below)
+    adam(qcfg, past)
+    check(rf.refine_adam_cuda.workspaces == {"shared": 1, "global": 1},
+          f"refine_adam_kernel at the switch: {dict(rf.refine_adam_cuda.workspaces)}")
+    row = tr.RefineConfig(iterations=ADAM_ROW_STEPS)
+    tm: dict = {}
+    timed(tm, "demo", lambda: adam(cfg, one), 3)
+    timed(tm, "demo_row", lambda: adam(cfg, one, row), 3)
+    d = timing.device_ms(lambda: step_path(cfg, one, row, rf.refine_penalty_torch), 1,
+                         tries=3, windows=1)
+    tm["demo_row_plain_launch_ms"] = timing.time_ms(
+        lambda: step_path(cfg, one, row, rf.refine_penalty_torch), 1)
+    tm["demo_row_plain_ms"] = d.ms if d.regular else tm["demo_row_plain_launch_ms"]
+    tm["demo_row_plain_regular"] = d.regular
+    timed(tm, "pipeline", lambda: adam(qcfg, pipe), 3)
+    timed(tm, "pipeline_padded", lambda: adam(qcfg, padded), 3)
+    timed(tm, "chain", lambda: adam(qcfg, chain), 3)
+    timed(tm, "switch_below", lambda: adam(qcfg, below), 1)
+    timed(tm, "switch_past", lambda: adam(qcfg, past), 1)
+    out.update(tm)
+    for k in ("demo", "pipeline", "pipeline_padded", "chain", "switch_below", "switch_past"):
+        out[f"{k}_step_ms"] = out[f"{k}_ms"] / rcfg.iterations
+    margin = rcfg.margin
+
+    def bound(x, c, steps):
+        x0, goal, obs, c0, mask = x
+        cm = c0 * torch.cat([torch.ones_like(c0[..., :2]), mask[..., None].float()], -1)
+        real = int(mask.sum())
+        return rfl.refine_adam_bound_ms(
+            "bicycle", x0.shape[0], c0.shape[0] * c0.shape[1], real, real * c.num_disc,
+            obs.shape[-2], inside_pairs(system, x0, cm, obs, margin, c.num_disc) * (steps + 1),
+            steps, obs.dim() == 3)
+
+    for k, c, x, steps in (("demo", cfg, one, rcfg.iterations),
+                           ("demo_row", cfg, one, ADAM_ROW_STEPS),
+                           ("pipeline", qcfg, pipe, rcfg.iterations)):
+        out[f"{k}_bound_ms"], out[f"{k}_bound_by"] = bound(x, c, steps)
+    return out
+
+
 def adam_steps(system, cfg, rcfg, inputs, penalty, count: bool = True) -> dict:
     """An Adam step of refine.py::_refine_core with ``penalty`` (R1's
     wrapper or its twin) on ``inputs`` (x0, controls, mask, goals, boxes):
@@ -2095,12 +2259,13 @@ def adam_steps(system, cfg, rcfg, inputs, penalty, count: bool = True) -> dict:
 
 def refinement(dev, quality: dict) -> tuple[dict, dict]:
     """Phase 28: the CLI's demo --refine as a subprocess; refine_path on
-    the CLI demo's path (R1, then B1) and refine_batch at RefineConfig()
-    on phase 25's quality-pipeline output (R1, then B6), with the launch
-    counts set to 0 just before and read just after; every kept path
-    replays valid and ends in its goal. Then the walls of Adam steps with
-    R1 and with its twin, at 2 steps. Returns the record and the main
-    path's launch counts."""
+    the CLI demo's path (one launch of the whole refinement, then B1 an
+    edge) and refine_batch at RefineConfig() on phase 25's quality-pipeline
+    output (one launch, then B6 an edge of its longest real path), with the
+    launch counts set to 0 just before and read just after; every kept path
+    replays valid and ends in its goal. Then the walls of the step path's
+    Adam steps with R1 and with its twin, at 2 steps. Returns the record
+    and the main path's launch counts."""
     from cudasbmp_torch import KGMT, KGMTConfig, Scenario
     from cudasbmp_torch import refine as tr
     from cudasbmp_torch.ops import refine_cuda as rf
@@ -2127,23 +2292,25 @@ def refinement(dev, quality: dict) -> tuple[dict, dict]:
     tr.refine_batch(system, qcfg, quality["paths"], lengths, quality["goals"],
                     quality["obstacles"], tr.RefineConfig(iterations=2), device=dev)  # warm-up
     rc.reset_launch_counts()
-    rf.refine_penalty_cuda.launches = 0
+    rf.refine_penalty_cuda.launches = rf.refine_adam_cuda.launches = 0
     t0 = time.perf_counter()
     one = tr.refine_path(system, cfg, path, demo.goal, demo.obstacles, device=dev)
     path_wall = time.perf_counter() - t0
-    path_counts = (rf.refine_penalty_cuda.launches, rc.rollout_cuda.launches,
-                   rc.rollout_batched_cuda.launches)
+    path_counts = (rf.refine_adam_cuda.launches, rf.refine_penalty_cuda.launches,
+                   rc.rollout_cuda.launches, rc.rollout_batched_cuda.launches)
     t0 = time.perf_counter()
     ref = tr.refine_batch(system, qcfg, quality["paths"], lengths, quality["goals"],
                           quality["obstacles"], device=dev)
     batch_wall = time.perf_counter() - t0
-    r1 = rf.refine_penalty_cuda.launches
+    adam, r1 = rf.refine_adam_cuda.launches, rf.refine_penalty_cuda.launches
     b1, b6 = rc.rollout_cuda.launches, rc.rollout_batched_cuda.launches
     Lmax = quality["paths"].shape[1]
-    check(path_counts == (rcfg.iterations + 1, len(path) - 1, 0),
-          f"refine_path: R1, B1, B6 launches {path_counts}")
-    check(r1 == 2 * (rcfg.iterations + 1) and b1 == len(path) - 1 and b6 == Lmax - 1,
-          f"refine_batch: R1 {r1 - path_counts[0]}, B6 {b6} launches for {Lmax - 1} edges")
+    longest = int(lengths.max()) - 1  # refine_batch replays up to it
+    check(path_counts == (1, 0, len(path) - 1, 0),
+          f"refine_path: whole refinement, R1, B1, B6 launches {path_counts}")
+    check(adam == 2 and r1 == 0 and b1 == len(path) - 1 and b6 == longest,
+          f"refine_batch: whole refinement {adam - 1}, R1 {r1}, B6 {b6} launches for "
+          f"{longest} edges")
     check(bool(np.isfinite(ref["losses"]).all()) and np.isfinite(one["losses"]).all(),
           "refinement: non-finite losses")
     imp = ref["improved"]
@@ -2170,14 +2337,15 @@ def refinement(dev, quality: dict) -> tuple[dict, dict]:
     final = np.where(imp, ref["cost_after"], ref["cost_before"])
     out["path"] = {"edges": len(path) - 1, "cost_before": one["cost_before"],
                    "cost_after": one["cost_after"], "valid": one["valid"],
-                   "r1_launches": path_counts[0], "b1_launches": path_counts[1],
-                   "wall_time_s": path_wall}
+                   "adam_launches": path_counts[0], "r1_launches": path_counts[1],
+                   "b1_launches": path_counts[2], "wall_time_s": path_wall}
     out["batch"] = {"paths": int(solved.sum()), "edges_max": int(Lmax - 1),
+                    "edges_longest": longest,
                     "improved": int(imp.sum()), "valid": int(ref["valid"].sum()),
                     "cost_before_p10_p50_p90": quantiles(ref["cost_before"][solved]),
                     "cost_after_p10_p50_p90": quantiles(final[solved]),
-                    "r1_launches": r1 - path_counts[0], "b6_launches": b6,
-                    "wall_time_s": batch_wall, "replay_max_err": worst}
+                    "adam_launches": adam - path_counts[0], "r1_launches": r1,
+                    "b6_launches": b6, "wall_time_s": batch_wall, "replay_max_err": worst}
     inputs = refine_batch_inputs(system, quality, dev)
     shapes = {
         "demo": [torch.tensor(path[None, 0, :4], device=dev),
@@ -2195,7 +2363,7 @@ def refinement(dev, quality: dict) -> tuple[dict, dict]:
               "twin": adam_steps(system, cfg if tag == "demo" else qcfg, rcfg, x,
                                  rf.refine_penalty_torch, count=tag == "demo")}
         for tag, x in shapes.items()}
-    return out, {"r1": r1, "b1": b1, "b6": b6}
+    return out, {"adam": adam, "r1": r1, "b1": b1, "b6": b6}
 
 
 def checkpoint_record(dev, out_dir: pathlib.Path) -> dict:
@@ -3095,7 +3263,7 @@ def user_dynamics(dev, builds: dict, record: dict) -> dict:
     from cudasbmp_torch.ops.rollout import rollout_batch
     from cudasbmp_torch.parallel import MultiQueryPlanner
     from cudasbmp_torch.probes import throughput as tp
-    from cudasbmp_torch.refine import RefineConfig
+    from cudasbmp_torch.refine import RefineConfig, refine_path
     from cudasbmp_torch.systems import get_system, register_system
     from cudasbmp_torch.systems.bicycle import KinematicBicycle
 
@@ -3192,6 +3360,30 @@ def user_dynamics(dev, builds: dict, record: dict) -> dict:
         path[None, 0, :4], path[None, 1:, 4:], np.ones((1, L), np.float32),
         demo.goal[None, :2], demo.obstacles)]
     same(rf._launch(bike, *one, **rkw), rf._launch(copy, *one, **rkw), "bicycle_copy R1")
+    # the whole refinement: refine_path of the copy (its library's
+    # refine_adam_kernel) is the built-in's, field for field; drift's struct
+    # has no back(), so its refinement raises, naming the hook
+    want = refine_path(bike, cfg, path, demo.goal, demo.obstacles, rcfg, device=dev)
+    rf.refine_adam_cuda.user_systems.clear()
+    got = refine_path(copy, cfg, path, demo.goal, demo.obstacles, rcfg, device=dev)
+    user_launches = rf.refine_adam_cuda.user_systems["bicycle_copy"]
+    check(rf.refine_adam_cuda.user_systems == {"bicycle_copy": 1},
+          f"[34] bicycle_copy refine_path: {dict(rf.refine_adam_cuda.user_systems)}")
+    check(all(np.array_equal(got[k], want[k]) for k in ("controls", "states", "losses"))
+          and (got["valid"], got["cost_after"]) == (want["valid"], want["cost_after"]),
+          "[34] bicycle_copy refine_path: differs from the built-in's")
+    checks += 1
+    try:
+        refine_path(drift, cfg, path, demo.goal, demo.obstacles, RefineConfig(iterations=2),
+                    device=dev)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    check(refused is not None and "back(" in refused,
+          f"[34] drift refine_path: not refused by name ({refused!r})")
+    out["refine"] = {"bicycle_copy": {"cost_before": got["cost_before"],
+                                      "cost_after": got["cost_after"], "valid": got["valid"]},
+                     "user_launches": user_launches, "drift_refused": refused}
     torch.cuda.synchronize()
     out["checks"] = checks
 
@@ -3819,7 +4011,8 @@ def main() -> int:
                     f"{v['summary']['solves_per_sec']:.2f}") + f" ({v['seconds']:.1f} s)"
         for k, v in vcli.items()) + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    # 27. R1 against its twin; its times
+    # 27. R1 against its twin; its times; the whole refinement against R1's
+    # step path and its twin; its times
     t0 = time.perf_counter()
     r1 = record["r1"] = check_r1(dev, quality)
     print(f"[27 R1] {r1['cases']} cases (5 systems, (edges, steps) in {r1['shapes']}, "
@@ -3834,8 +4027,27 @@ def main() -> int:
           f"({r1['pipeline_launch_ms']:.4f}) bound {r1['pipeline_bound_ms']:.3g}; "
           f"one path of {r1['chain_edges']} edges (the serial chain) {r1['chain_ms']:.4f} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    wr = record["refine_adam"] = whole_refinement(dev, quality)
+    sw = wr["switch"]
+    print(f"[27 whole refinement] refine_adam_kernel bitwise the step path (R1 "
+          f"{wr['step_path_r1_launches']} launches) at RefineConfig() on the demo path "
+          f"(1 x {wr['demo_edges']} edges) and the pipeline ({wr['pipeline_problems']} x "
+          f"{wr['pipeline_edges']} edges, and padded to {wr['pipeline_padded_edges']}); "
+          f"twin at {ADAM_TWIN_STEPS} steps: controls max abs err {wr['twin_max_abs_err']:.3g} "
+          f"| device ms a refinement (an Adam step): demo {wr['demo_ms']:.3f} "
+          f"({wr['demo_step_ms']:.5f}), pipeline {wr['pipeline_ms']:.3f} "
+          f"({wr['pipeline_step_ms']:.5f}), padded {wr['pipeline_padded_ms']:.3f} "
+          f"({wr['pipeline_padded_step_ms']:.5f}), one path of {wr['pipeline_edges']} edges "
+          f"{wr['chain_ms']:.3f} ({wr['chain_step_ms']:.5f}); step path wall s "
+          f"{wr['step_path_wall_s']} | {ADAM_ROW_STEPS} steps on the demo path "
+          f"{wr['demo_row_ms']:.4f}, twin {wr['demo_row_plain_ms']:.1f} | global scratch "
+          f"from {sw['edges']} edges ({sw['points']} points, {sw['bytes_at_switch']} B > "
+          f"{sw['shared_limit_bytes']} B): {sw['edges'] - 1} edges shared "
+          f"{wr['switch_below_ms']:.2f}, {sw['edges']} global {wr['switch_past_ms']:.2f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    # 28. refinement: demo --refine, refine_path and refine_batch through R1
+    # 28. refinement: demo --refine, refine_path and refine_batch, a launch each
     t0 = time.perf_counter()
     refine, refine_counts = refinement(dev, quality)
     record["refine"] = refine
@@ -3843,14 +4055,17 @@ def main() -> int:
     print(f"[28 refine] cli: {refine['cli']['line']} ({refine['cli']['wall_s']:.1f} s) | "
           f"refine_path: {refine['path']['edges']} edges, cost "
           f"{refine['path']['cost_before']:.3f} -> {refine['path']['cost_after']:.3f} valid "
-          f"{refine['path']['valid']} in {refine['path']['wall_time_s']:.2f} s, R1 "
-          f"{refine['path']['r1_launches']} B1 {refine['path']['b1_launches']} | "
+          f"{refine['path']['valid']} in {refine['path']['wall_time_s']:.3f} s, whole "
+          f"refinement {refine['path']['adam_launches']} R1 {refine['path']['r1_launches']} "
+          f"B1 {refine['path']['b1_launches']} | "
           f"refine_batch on [25]'s {rb['paths']} paths: improved {rb['improved']} valid "
           f"{rb['valid']}, cost p10/p50/p90 "
           f"{'/'.join(f'{q:.3f}' for q in rb['cost_before_p10_p50_p90'])} -> "
           f"{'/'.join(f'{q:.3f}' for q in rb['cost_after_p10_p50_p90'])} in "
-          f"{rb['wall_time_s']:.2f} s, R1 {rb['r1_launches']} B6 {rb['b6_launches']} | "
-          f"an Adam step, wall ms (device ms, launches): " + "; ".join(
+          f"{rb['wall_time_s']:.3f} s, whole refinement {rb['adam_launches']} R1 "
+          f"{rb['r1_launches']} B6 {rb['b6_launches']} ({rb['edges_longest']} edges of "
+          f"{rb['edges_max']}) | the step path's Adam step, wall ms (device ms, "
+          f"launches): " + "; ".join(
               f"{tag} R1 {v['r1']['step_wall_ms']:.3f} "
               f"({v['r1']['step_device_ms']}, {v['r1']['step_launches']}) twin "
               f"{v['twin']['step_wall_ms']:.1f} ({v['twin']['step_device_ms']}, "
@@ -4136,8 +4351,14 @@ def main() -> int:
          "source": "cudasbmp_torch/csrc/refine.cu",
          "replaces": "no TPU kernel (XLA's jitted value_and_grad, "
                      "cudasbmp_tpu/refine.py:122)",
-         "systems": list(SYSTEMS), "launches": refine_counts["r1"],
-         "launches_per_refinement": refine["path"]["r1_launches"],
+         "systems": list(SYSTEMS),
+         "main_path": None,
+         "role": "the step path's penalty, refine.py::_refine_core(penalty="
+                 "refine_penalty_cuda): the reference refine_adam_kernel is held against "
+                 "in [27]; no user path launches it",
+         "launches": refine_counts["r1"],
+         "step_path_launches": sum(wr["step_path_r1_launches"].values()),
+         "step_path_launches_per_refinement": wr["step_path_r1_launches"]["demo"],
          "max_abs_err": r1["max_abs_err"], "grad_rel_err": r1["grad_rel_err"],
          "timed": f"the CLI demo's path, 1 x {r1['demo_edges']} edges",
          "ms": r1["demo_ms"], "plain_ms": r1["demo_plain_ms"],
@@ -4148,9 +4369,36 @@ def main() -> int:
          "ms_pipeline": r1["pipeline_ms"], "bound_ms_pipeline": r1["pipeline_bound_ms"],
          "chain_ms": r1["chain_ms"], "chain_edges": r1["chain_edges"],
          "adam_step": steps},
+        {"name": "refine_adam_kernel (R1 redesigned: the whole refinement)",
+         "route": "cuda", "source": "cudasbmp_torch/csrc/refine.cu",
+         "replaces": "no TPU kernel (XLA's jitted lax.scan of Adam steps, "
+                     "cudasbmp_tpu/refine.py:111-170)",
+         "systems": list(SYSTEMS), "launches": refine_counts["adam"],
+         "user_launches": ud["refine"]["user_launches"],
+         "launches_per_refinement": refine["path"]["adam_launches"],
+         "max_abs_err": wr["twin_max_abs_err"], "step_path_bitwise": True,
+         "timed": f"the CLI demo's path, 1 x {wr['demo_edges']} edges, "
+                  f"{ADAM_ROW_STEPS} Adam steps",
+         "ms": wr["demo_row_ms"], "plain_ms": wr["demo_row_plain_ms"],
+         "launch_ms": wr["demo_row_launch_ms"],
+         "plain_launch_ms": wr["demo_row_plain_launch_ms"],
+         **regular(wr["demo_row_regular"], wr["demo_row_plain_regular"]),
+         "bound_ms": wr["demo_row_bound_ms"], "bound_by": wr["demo_row_bound_by"],
+         "library_ms": None,
+         "ms_refinement": wr["demo_ms"], "ms_step": wr["demo_step_ms"],
+         "bound_ms_refinement": wr["demo_bound_ms"],
+         "ms_pipeline": wr["pipeline_ms"], "ms_step_pipeline": wr["pipeline_step_ms"],
+         "bound_ms_pipeline": wr["pipeline_bound_ms"],
+         "ms_pipeline_padded": wr["pipeline_padded_ms"], "chain_ms": wr["chain_ms"],
+         "switch": wr["switch"], "ms_switch_below": wr["switch_below_ms"],
+         "ms_switch_past": wr["switch_past_ms"]},
     ]
     for k in kernels:
-        check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
+        # a row with main_path None is a reference kernel no user path runs:
+        # its main-path count is read all the same, and its own run is checked
+        check(k["launches"] > 0 or ("main_path" in k and k["main_path"] is None
+                                    and k["step_path_launches"] > 0),
+              f"{k['name']}: no launch on its main path")
         check(k["ms"] is not None and (k["regular_windows"] > 0),
               f"{k['name']}: no device time")
         # a rollout row at or above the launch and one rollout's chain

@@ -56,6 +56,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 SIGNATURES = {
     # device
     "cudasbmp_smem_optin": (_I,),
@@ -86,12 +87,23 @@ SIGNATURES = {
     # yhi, goal_radius, collision_weight, goal_weight, stream
     "cudasbmp_refine": (_I, _I, _F, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                         _I, _I, _I, _F, _F, _F, _F, _F, _F, _P),
+    # device, system, L, num_disc, &bytes a problem (int64), &shared limit
+    "cudasbmp_refine_adam_workspace": (_I, _I, _I, _I, _P, _P),
+    # device, system, param, x0, raw0, controls0, mask, goal, obstacles, K,
+    # per_problem, bias1, bias2, lo0, lo1, lo2, hi0, hi1, hi2, scratch,
+    # workspace, shared, losses, refined, B, L, num_disc, iterations, margin,
+    # xhi, yhi, goal_radius, collision_weight, goal_weight, time_weight,
+    # learning_rate, clip_norm, stream
+    "cudasbmp_refine_adam": (_I, _I, _F, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                             _F, _F, _F, _F, _F, _F, _P, _LL, _I, _P, _P, _I, _I,
+                             _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
     # (none): 1 where a user library's struct has R1's back(), else 0
     "cudasbmp_user_has_back": (),
 }
 # the entry points of a user struct's library; the package's has the others
 USER_ENTRY_POINTS = ("cudasbmp_smem_optin", "cudasbmp_rollout",
                      "cudasbmp_sample_and_rollout", "cudasbmp_refine",
+                     "cudasbmp_refine_adam_workspace", "cudasbmp_refine_adam",
                      "cudasbmp_user_has_back")
 ENTRY_POINTS = tuple(n for n in SIGNATURES if n != "cudasbmp_user_has_back")
 

@@ -141,6 +141,40 @@ def refine_bound_ms(system: str, problems: int, edges: int, points: int, boxes: 
                  refine_ops(system, problems, edges, points, boxes, inside))
 
 
+# the whole refinement's operations an entry (3 an edge) an Adam step: the
+# sigmoid box (an exp counted as one, 4 more), its backward through the box
+# and the sigmoid (5), the square for the norm (1), the clip and Adam (11);
+# and 4 adds an edge for the pairwise trees of the time term and the norm
+ADAM_ENTRY_OPS = 22
+
+
+def refine_adam_ops(system: str, problems: int, edges: int, points: int, boxes: int,
+                    inside: int, iterations: int) -> int:
+    """f32 operations of one whole refinement (refine_adam_kernel) over
+    ``problems`` problems whose own paths hold ``edges`` edges and
+    ``points`` Euler steps in all: ``iterations`` of R1's work with its
+    sweep and one more without it (the final loss), ``inside`` (point,
+    box) pairs each pass, and ADAM_ENTRY_OPS an entry and 4 an edge a step."""
+    back = REFINE_STEP_OPS[system][1]
+    one = refine_ops(system, problems, edges, points, boxes, inside)
+    return ((iterations + 1) * one - points * back
+            + iterations * edges * (3 * ADAM_ENTRY_OPS + 4))
+
+
+def refine_adam_bound_ms(system: str, problems: int, padded_edges: int, edges: int,
+                         points: int, boxes: int, inside: int, iterations: int,
+                         per_problem_boxes: bool) -> tuple[float, str]:
+    """``bound`` of one whole refinement (``refine_adam_ops``' arguments):
+    per problem a float4 start, the goal and its losses (24 + 4 iterations
+    B), per padded edge the controls and their inverse sigmoid in, the
+    mask, and the refined controls out (37 B), the two bias tables (8 B a
+    step), 16 B a box, once for a shared set."""
+    sets = problems if per_problem_boxes else 1
+    return bound((24 + 4 * iterations) * problems + 37 * padded_edges + 8 * iterations
+                 + 16 * boxes * sets,
+                 refine_adam_ops(system, problems, edges, points, boxes, inside, iterations))
+
+
 def chain_bounds(elems: int, rows: int | None = None) -> dict:
     """``bound`` of each calibration chain over ``elems`` elements: f32 x
     read and y written once (P2: the table, int32 idx, y); P1a two flops a

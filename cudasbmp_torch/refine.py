@@ -10,22 +10,31 @@ checker before a caller keeps it.
 
 The JAX package takes ``jax.value_and_grad`` through the unrolled Euler
 chain (``_loss``), vmapped over problems, inside one jitted scan of Adam
-steps. Here the problems are a batch axis, and each Adam step is one
-launch of kernel R1 (ops/refine_cuda.py::refine_penalty_cuda: the penalty's
-value and gradient with respect to the controls, by a hand-written reverse
-sweep) with a dozen small torch ops around it: the sigmoid, the masks, the
-time term, the clip by each problem's gradient norm and the Adam update.
-On the CPU the penalty is its plain twin under autograd. Nothing is read
-back to the host inside the Adam loop; the losses come back as one
-[iterations, B] tensor at the end.
+steps. Here the problems are a batch axis, and on the card the whole
+refinement is one launch of ``refine_adam_kernel``
+(ops/refine_cuda.py::refine_adam_cuda: every Adam step, the clip by each
+problem's gradient norm, the best iterate and the final choice, each
+problem integrating its own path only); on the CPU it is the plain twin's
+loop, one step an iteration, the penalty under autograd. ``_refine_core``
+is the entry to both, and given a penalty it runs that loop around it:
+with R1's wrapper (ops/refine_cuda.py::refine_penalty_cuda, one launch a
+step) on the card it is the step path the kernel equals to the bit.
+Nothing is read back to the host inside the Adam loop; the losses come
+back as one [iterations, B] tensor at the end.
 
 The revalidation replays the refined edge chain with the exact checker,
-one launch an edge: kernel B1 (``rollout_cuda``) for ``refine_path``, B6
-(``rollout_batched_cuda``, a box set per problem) for ``refine_batch``,
-with the config's footprint (B3), as the JAX ``_revalidate_jit`` passes it;
-a system without a device struct replays through its generic ``step``
-(``rollout_batch``, the planners' rule ``ops/rollout_cuda.py::
-rollout_route``), as JAX replays every system.
+one launch an edge up to the longest real path: kernel B1
+(``rollout_cuda``) for ``refine_path``, B6 (``rollout_batched_cuda``, a
+box set per problem) for ``refine_batch``, with the config's footprint
+(B3), as the JAX ``_revalidate_jit`` passes it; a system without a device
+struct replays through its generic ``step`` (``rollout_batch``, the
+planners' rule ``ops/rollout_cuda.py::rollout_route``), as JAX replays
+every system. ``refine_batch`` refines and replays its batch cut to the
+longest real path and keeps the padded columns' controls as they were:
+padded edges add exact zeros, so on the card the bits are the padded
+run's. On the CPU torch's vectorised sigmoid and log may round a cut row
+apart from the padded one in the last bits (tests/test_torch_refine_trim.py
+holds the two within tests/test_torch_refine.py's tolerances).
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ import torch
 
 from cudasbmp_torch._math import row_sum
 from cudasbmp_torch.config import KGMTConfig
-from cudasbmp_torch.ops.refine_cuda import (refine_penalty_cuda, soft_penetration,
+from cudasbmp_torch.ops.refine_cuda import (objective, refine_adam_cuda, refine_adam_torch,
+                                            refine_penalty_cuda, soft_penetration,
                                             unroll_positions)
 from cudasbmp_torch.ops.rollout import rollout_batch
 from cudasbmp_torch.ops.rollout_cuda import (rollout_batched_cuda, rollout_cuda,
@@ -63,84 +73,47 @@ def _loss(system, cfg: KGMTConfig, rcfg: RefineConfig, x0: Tensor, goal_xy: Tens
           obstacles: Tensor, raw: Tensor, lo: Tensor, hi: Tensor, mask: Tensor,
           penalty=refine_penalty_cuda) -> Tensor:
     """The refinement objective [B] of raw controls [B, L, C+1] (JAX's
-    ``_loss`` over a batch). Masked edges get duration 0, so the unroll
-    freezes at the path's end, and weight 0, so their points add nothing:
-    a padded problem's objective is its unpadded one's. ``penalty`` is R1's
-    wrapper, or its plain twin."""
-    controls = lo + (hi - lo) * torch.sigmoid(raw)
-    dur = torch.where(mask, controls[..., -1], 0.0)
-    controls = torch.cat([controls[..., :-1], dur[..., None]], -1)
-    time_cost = row_sum(dur)[:, 0]
-    return rcfg.time_weight * time_cost + penalty(
-        system, x0, controls, mask.to(torch.float32), goal_xy, obstacles,
-        num_disc=cfg.num_disc, width=cfg.width, height=cfg.height,
-        margin=rcfg.margin, goal_threshold=cfg.goal_threshold,
-        collision_weight=rcfg.collision_weight, goal_weight=rcfg.goal_weight)
+    ``_loss`` over a batch; ops/refine_cuda.py::objective). ``penalty`` is
+    R1's wrapper, or its plain twin."""
+    return objective(system, x0, goal_xy, obstacles, raw, lo, hi, mask, penalty=penalty,
+                     **_objective_kw(cfg, rcfg))
+
+
+def _objective_kw(cfg: KGMTConfig, rcfg: RefineConfig) -> dict:
+    return dict(num_disc=cfg.num_disc, width=cfg.width, height=cfg.height,
+                margin=rcfg.margin, goal_threshold=cfg.goal_threshold,
+                collision_weight=rcfg.collision_weight, goal_weight=rcfg.goal_weight,
+                time_weight=rcfg.time_weight)
 
 
 def _refine_core(system, cfg: KGMTConfig, rcfg: RefineConfig, x0: Tensor,
                  goal_xy: Tensor, obstacles: Tensor, controls0: Tensor, mask: Tensor,
-                 penalty=refine_penalty_cuda) -> tuple[Tensor, Tensor]:
+                 penalty=None) -> tuple[Tensor, Tensor]:
     """Adam through the rollout for B problems: x0 [B, S], goal_xy [B, 2],
     obstacles [K, 4] or [B, K, 4], controls0 [B, L, C+1], mask [B, L].
-    Returns (refined controls [B, L, C+1], losses [iterations, B]). Each
-    problem clips by its own gradient norm, as the vmapped JAX core does;
-    the bias corrections are computed in f32 as jitted JAX computes them;
-    the best iterate is kept on the device and one final loss decides
-    between it and the last."""
-    dev = x0.device
-    lo, hi = system.control_spec.bounds(dev)
-    eps = 1e-4
-    c0 = torch.clamp(controls0, lo + eps, hi - eps)
-    raw0 = torch.log((c0 - lo) / (hi - c0))  # inverse sigmoid
-    keep = mask[..., None]
-
-    def loss_fn(raw: Tensor) -> Tensor:
-        return _loss(system, cfg, rcfg, x0, goal_xy, obstacles,
-                     torch.where(keep, raw, raw0), lo, hi, mask, penalty)
-
-    n = rcfg.iterations
-    steps = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
-    bias1 = 1 - torch.full_like(steps, 0.9) ** steps
-    bias2 = 1 - torch.full_like(steps, 0.999) ** steps
-    raw, best_raw = raw0, raw0
-    m = torch.zeros_like(raw0)
-    v = torch.zeros_like(raw0)
-    best_loss = torch.full(mask.shape[:1], float("inf"), device=dev)
-    clip = torch.full_like(best_loss, rcfg.clip_norm)
-    losses = torch.empty((n, mask.shape[0]), dtype=torch.float32, device=dev)
-    for t in range(n):
-        raw_in = raw.detach().requires_grad_()
-        loss = loss_fn(raw_in)
-        (g,) = torch.autograd.grad(loss.sum(), raw_in)
-        loss = loss.detach()
-        losses[t] = loss
-        # nonmonotone optimisation over chaotic dynamics: remember the best
-        better = loss < best_loss
-        best_raw = torch.where(better[:, None, None], raw, best_raw)
-        best_loss = torch.where(better, loss, best_loss)
-        g = torch.where(keep, g, 0.0)
-        gn = torch.sqrt(row_sum((g * g).flatten(1))[:, 0] + 1e-12)
-        g = g * torch.minimum(torch.ones_like(gn), clip / gn)[:, None, None]
-        m = 0.9 * m + 0.1 * g
-        v = 0.999 * v + 0.001 * g * g
-        mhat = m / bias1[t]
-        vhat = v / bias2[t]
-        raw = raw - rcfg.learning_rate * mhat / (torch.sqrt(vhat) + 1e-8)
-    with torch.no_grad():
-        final_loss = loss_fn(raw)
-    raw = torch.where((final_loss < best_loss)[:, None, None], raw, best_raw)
-    refined = lo + (hi - lo) * torch.sigmoid(raw)
-    return torch.where(keep, refined, controls0), losses
+    Returns (refined controls [B, L, C+1], losses [iterations, B]). With no
+    ``penalty``, the whole refinement (ops/refine_cuda.py::refine_adam_cuda:
+    one launch on the card, the plain twin's loop on the CPU); with one,
+    the loop of one step an iteration around it
+    (ops/refine_cuda.py::refine_adam_torch): with R1's wrapper on the card,
+    the step path the whole refinement's kernel is held against."""
+    kw = dict(iterations=rcfg.iterations, learning_rate=rcfg.learning_rate,
+              clip_norm=rcfg.clip_norm, **_objective_kw(cfg, rcfg))
+    if penalty is None:
+        return refine_adam_cuda(system, x0, goal_xy, obstacles, controls0, mask, **kw)
+    return refine_adam_torch(system, x0, goal_xy, obstacles, controls0, mask,
+                             penalty=penalty, **kw)
 
 
 def _revalidate(system, cfg: KGMTConfig, x0s: Tensor, goal_xys: Tensor,
-                obstacles: Tensor, controls: Tensor, masks: Tensor
-                ) -> tuple[Tensor, Tensor, Tensor]:
+                obstacles: Tensor, controls: Tensor, masks: Tensor,
+                edges: int | None = None) -> tuple[Tensor, Tensor, Tensor]:
     """Replay every problem's edge chain with the exact checker, one launch
     an edge, each edge starting from the previous edge's end state: B1
     against one box set [K, 4] (one problem), B6 against [B, K, 4]. A
-    masked edge leaves the state as it is. Returns (per-edge end states
+    masked edge leaves the state as it is, so only the first ``edges``
+    edges (the longest real path; all by default) are replayed and the
+    states of the rest repeat the last. Returns (per-edge end states
     [B, L, S], frozen at the first failing step as the rollout freezes, all
     edges valid [B], end inside the goal radius [B])."""
     kw = dict(num_disc=cfg.num_disc, width=cfg.width, height=cfg.height,
@@ -148,7 +121,8 @@ def _revalidate(system, cfg: KGMTConfig, x0s: Tensor, goal_xys: Tensor,
     generic = rollout_route(system, cfg.rollout_backend) == "generic"
     states, ok = x0s, torch.ones(x0s.shape[0], dtype=torch.bool, device=x0s.device)
     per_edge = []
-    for l in range(controls.shape[1]):
+    L = controls.shape[1]
+    for l in range(L if edges is None else min(edges, L)):
         ctrl, m = controls[:, l].contiguous(), masks[:, l]
         if generic:
             x1, valid = rollout_batch(system, states, ctrl, cfg.num_disc, obstacles,
@@ -162,6 +136,7 @@ def _revalidate(system, cfg: KGMTConfig, x0s: Tensor, goal_xys: Tensor,
         states = torch.where(m[:, None], x1, states)
         ok = ok & (valid | ~m)
         per_edge.append(states)
+    per_edge += [states] * (L - len(per_edge))
     d = states[:, :2] - goal_xys
     in_goal = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) < cfg.goal_threshold
     return torch.stack(per_edge, 1), ok, in_goal
@@ -190,7 +165,8 @@ def refine_path(system, cfg: KGMTConfig, path: np.ndarray, goal: np.ndarray,
     goal_xy = torch.as_tensor(np.asarray(goal, np.float32)[None, :2], device=dev)
     obs = torch.as_tensor(np.asarray(obstacles, np.float32), device=dev)
     mask = torch.ones((1, L), dtype=torch.bool, device=dev)
-    refined, losses = _refine_core(system, cfg, rcfg, x0, goal_xy, obs, controls0, mask)
+    refined, losses = _refine_core(system, cfg, rcfg, x0, goal_xy, obs, controls0,
+                                   mask)
     edge_states, ok, in_goal = _revalidate(system, cfg, x0, goal_xy, obs, refined, mask)
     states = torch.cat([x0, edge_states[0]], 0)
     refined_np = refined[0].cpu().numpy()
@@ -236,9 +212,15 @@ def refine_batch(system, cfg: KGMTConfig, paths: np.ndarray, path_lengths: np.nd
     lengths = np.asarray(path_lengths).astype(np.int64)
     masks = torch.as_tensor(np.arange(Lmax - 1)[None, :] < (lengths[:, None] - 1),
                             device=dev)
-    refined, losses = _refine_core(system, cfg, rcfg, x0s, goal_xys, shared, controls0,
-                                   masks)
-    _, ok, in_goal = _revalidate(system, cfg, x0s, goal_xys, per_problem, refined, masks)
+    # edges past the longest real path are masked in every row: refine and
+    # replay up to it, and keep controls0 beyond (the same bits)
+    n = min(max(int(lengths.max(initial=0)) - 1, 1), Lmax - 1)
+    refined, losses = _refine_core(system, cfg, rcfg, x0s, goal_xys, shared,
+                                   controls0[:, :n].contiguous(),
+                                   masks[:, :n].contiguous())
+    refined = torch.cat([refined, controls0[:, n:]], 1)
+    _, ok, in_goal = _revalidate(system, cfg, x0s, goal_xys, per_problem, refined, masks,
+                                 edges=n)
     cost_before = row_sum(torch.where(masks, controls0[..., -1], 0.0))[:, 0]
     cost_after = row_sum(torch.where(masks, refined[..., -1], 0.0))[:, 0]
     cost_before, cost_after = cost_before.cpu().numpy(), cost_after.cpu().numpy()

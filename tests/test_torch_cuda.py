@@ -841,9 +841,10 @@ def test_refine_kernel_matches_its_twin(dev, name, L, num_disc, masked, per_prob
 
 
 def test_refine_path_and_batch_run_on_r1_and_b1_b6(dev):
-    """On the card refine_path's Adam steps are R1 launches and its
-    revalidation B1's; refine_batch's B6's; a batch row equals
-    refine_path on its path."""
+    """On the card a refinement is one launch of the whole refinement's
+    kernel (no R1 launch); refine_path's revalidation is B1's, an edge,
+    refine_batch's B6's, an edge of its longest real path; a batch row
+    equals refine_path on its path."""
     from cudasbmp_torch import refine as tr
     from cudasbmp_torch.ops import refine_cuda as rf
 
@@ -853,10 +854,10 @@ def test_refine_path_and_batch_run_on_r1_and_b1_b6(dev):
     paths = [planner.plan(base, seed=s).path for s in (1, 2)]
     rcfg = tr.RefineConfig(iterations=20)
     rc.reset_launch_counts()
-    rf.refine_penalty_cuda.launches = 0
+    rf.refine_penalty_cuda.launches = rf.refine_adam_cuda.launches = 0
     one = tr.refine_path(planner.system, cfg, paths[0], base.goal, base.obstacles, rcfg,
                          device=dev)
-    assert rf.refine_penalty_cuda.launches == rcfg.iterations + 1
+    assert rf.refine_adam_cuda.launches == 1 and rf.refine_penalty_cuda.launches == 0
     assert rc.rollout_cuda.launches == len(paths[0]) - 1
     assert rc.rollout_batched_cuda.launches == 0
     Lmax = max(map(len, paths)) + 1
@@ -868,11 +869,109 @@ def test_refine_path_and_batch_run_on_r1_and_b1_b6(dev):
     rc.reset_launch_counts()
     out = tr.refine_batch(planner.system, cfg, batch, lengths, goals, base.obstacles, rcfg,
                           device=dev)
-    assert rc.rollout_batched_cuda.launches == Lmax - 1 and rc.rollout_cuda.launches == 0
+    assert rf.refine_adam_cuda.launches == 2 and rf.refine_penalty_cuda.launches == 0
+    assert rc.rollout_batched_cuda.launches == lengths.max() - 1
+    assert rc.rollout_cuda.launches == 0
     n = len(paths[0]) - 1
     np.testing.assert_array_equal(out["controls"][0, :n], one["controls"])
     np.testing.assert_array_equal(out["losses"][0], one["losses"])
     assert out["valid"][0] == one["valid"] and not out["valid"][2]
+    np.testing.assert_array_equal(out["controls"][2], batch[2, 1:, 4:])
+
+
+def adam_inputs(name: str, B: int, L: int, seed: int, dev, per_problem: bool):
+    """The whole refinement's inputs: refine_inputs' starts, controls (every
+    duration real) and boxes, and a mask of each problem's path: row 0 of a
+    batch unsolved (all masked), row 1 whole, row 2 with its first edge
+    masked too, the rest a random prefix; B = 1 a prefix of L - 2 edges."""
+    system, (x0, c, _, goal, obs) = refine_inputs(name, B, L, 10, seed, dev, False,
+                                                  per_problem)
+    r = np.random.default_rng(seed + 1)
+    lengths = r.integers(0, L + 1, B) if B > 1 else np.array([max(L - 2, 1)])
+    if B > 2:
+        lengths[:3] = (0, L, L)
+    mask = np.arange(L)[None] < lengths[:, None]
+    if B > 2:
+        mask[2, 0] = False
+    return system, x0, c, torch.tensor(mask, device=dev), goal, obs
+
+
+def _adam(system, x0, c, mask, goal, obs, rcfg):
+    """The whole refinement through refine.py's entry: one launch of
+    refine_adam_kernel."""
+    from cudasbmp_torch import refine as tr
+
+    return tr._refine_core(system, ctt.KGMTConfig(), rcfg, x0, goal, obs, c, mask)
+
+
+@pytest.mark.parametrize("iterations", [20, 400])
+@pytest.mark.parametrize("B,L", [(1, 9), (128, 24)])
+@pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per_problem"])
+@pytest.mark.parametrize("name", SYSTEMS)
+def test_whole_refinement_is_the_step_path(dev, name, per_problem, B, L, iterations):
+    """One launch of refine_adam_kernel gives the losses [iterations, B]
+    and the refined controls of the step path (R1 and torch's Adam ops, a
+    launch of R1 a step) to the bit, unsolved rows and masked edges
+    included."""
+    from cudasbmp_torch import refine as tr
+    from cudasbmp_torch.ops import refine_cuda as rf
+
+    system, x0, c, mask, goal, obs = adam_inputs(name, B, L, 3 + B, dev, per_problem)
+    rcfg = tr.RefineConfig(iterations=iterations)
+    want = tr._refine_core(system, ctt.KGMTConfig(), rcfg, x0, goal, obs, c, mask,
+                           penalty=rf.refine_penalty_cuda)
+    n = rf.refine_adam_cuda.launches
+    got = _adam(system, x0, c, mask, goal, obs, rcfg)
+    assert rf.refine_adam_cuda.launches == n + 1
+    assert _bitwise(got[1], want[1]), (got[1] - want[1]).abs().max()
+    assert _bitwise(got[0], want[0]), (got[0] - want[0]).abs().max()
+
+
+@pytest.mark.parametrize("per_problem", [False, True], ids=["shared", "per_problem"])
+@pytest.mark.parametrize("name", SYSTEMS)
+def test_whole_refinement_agrees_with_its_twin(dev, name, per_problem):
+    """Against the plain twin (the penalty under autograd) at 3 steps,
+    within tests/test_torch_refine.py's tolerances: controls rtol and atol
+    1e-5, the first two losses rtol 1e-5."""
+    from cudasbmp_torch import refine as tr
+    from cudasbmp_torch.ops import refine_cuda as rf
+
+    system, x0, c, mask, goal, obs = adam_inputs(name, 16, 9, 5, dev, per_problem)
+    rcfg = tr.RefineConfig(iterations=3)
+    want = tr._refine_core(system, ctt.KGMTConfig(), rcfg, x0, goal, obs, c, mask,
+                           penalty=rf.refine_penalty_torch)
+    got = _adam(system, x0, c, mask, goal, obs, rcfg)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1][:2], want[1][:2], rtol=1e-5, atol=0)
+
+
+def test_whole_refinement_workspaces_agree(dev):
+    """Either side of the switch, the working set in shared memory below it
+    and in global scratch past it (the wrapper picks by size), the whole
+    refinement gives the step path's bits, so the two instantiations
+    agree."""
+    from cudasbmp_torch import refine as tr
+    from cudasbmp_torch.ops import refine_cuda as rf
+
+    system = get_system("bicycle")
+    limit = rf.adam_workspace(system, 1, 10, dev)[1]
+    assert 0 < rf.adam_workspace(system, 24, 10, dev)[0] <= limit
+    L = 1
+    while rf.adam_workspace(system, L, 10, dev)[0] <= limit:
+        L *= 2
+    lo, hi = L // 2, L
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if rf.adam_workspace(system, mid, 10, dev)[0] <= limit else (lo, mid)
+    rcfg = tr.RefineConfig(iterations=3)
+    for edges, where in ((lo, "shared"), (hi, "global")):
+        system, x0, c, mask, goal, obs = adam_inputs("bicycle", 3, edges, 8, dev, False)
+        want = tr._refine_core(system, ctt.KGMTConfig(), rcfg, x0, goal, obs, c, mask,
+                               penalty=rf.refine_penalty_cuda)
+        rf.refine_adam_cuda.workspaces.clear()
+        got = _adam(system, x0, c, mask, goal, obs, rcfg)
+        assert rf.refine_adam_cuda.workspaces == {where: 1}
+        assert _bitwise(got[0], want[0]) and _bitwise(got[1], want[1]), edges
 
 
 def test_refine_wrapper_rejects_bad_inputs(dev):
@@ -892,6 +991,23 @@ def test_refine_wrapper_rejects_bad_inputs(dev):
         rf._launch(system, x0, c, w, goal, obs, **dict(REFINE_KW, num_disc=2 ** 30))
     with pytest.raises(ValueError, match="several devices"):
         rf.refine_penalty_cuda(system, x0.cpu(), c, w, goal, obs, **REFINE_KW)
+    rcfg_kw = dict(iterations=2, learning_rate=1e-3, clip_norm=1.0, time_weight=1.0)
+    system, x0, c, mask, goal, obs = adam_inputs("bicycle", 3, 4, 0, dev, False)
+    with pytest.raises(ValueError, match="controls0"):
+        rf.refine_adam_cuda(system, x0, goal, obs, c.double(), mask, **REFINE_KW, **rcfg_kw)
+    with pytest.raises(ValueError, match="mask"):
+        rf.refine_adam_cuda(system, x0, goal, obs, c, mask.float(), **REFINE_KW, **rcfg_kw)
+    with pytest.raises(ValueError, match="obstacles"):
+        rf.refine_adam_cuda(system, x0, goal, obs[None].expand(2, -1, -1).contiguous(), c,
+                            mask, **REFINE_KW, **rcfg_kw)
+    with pytest.raises(ValueError, match="points a problem"):
+        rf.refine_adam_cuda(system, x0, goal, obs, c, mask,
+                            **dict(REFINE_KW, num_disc=2 ** 30), **rcfg_kw)
+    with pytest.raises(ValueError, match="iterations"):
+        rf.refine_adam_cuda(system, x0, goal, obs, c, mask, **REFINE_KW,
+                            **dict(rcfg_kw, iterations=-1))
+    with pytest.raises(ValueError, match="several devices"):
+        rf.refine_adam_cuda(system, x0.cpu(), goal, obs, c, mask, **REFINE_KW, **rcfg_kw)
 
 
 @pytest.mark.parametrize("backend", ["auto", "cuda_rng"])
@@ -1051,6 +1167,33 @@ def test_user_refine_kernel_with_and_without_back(dev):
         rf.refine_penalty_cuda(DriftNoBack(), x0, c, w, goal, obs, **REFINE_KW)
     with pytest.raises(NotImplementedError, match="no device struct"):
         rf.refine_penalty_cuda(Drift(), x0, c, w, goal, obs, **REFINE_KW)
+
+
+def test_user_whole_refinement_with_and_without_back(dev):
+    """The whole refinement of the bicycle copy is the built-in's to the
+    bit, in the copy's library; of the damped double integrator, its step
+    path's (R1 of its struct and torch's Adam); a struct without back()
+    raises, naming the hook, and a system without a struct too."""
+    from cudasbmp_torch import refine as tr
+    from cudasbmp_torch.ops import refine_cuda as rf
+
+    system, x0, c, mask, goal, obs = adam_inputs("bicycle", 8, 6, 4, dev, False)
+    rcfg = tr.RefineConfig(iterations=20)
+    want = _adam(system, x0, c, mask, goal, obs, rcfg)
+    rf.refine_adam_cuda.user_systems.clear()
+    got = _adam(BicycleCopy(), x0, c, mask, goal, obs, rcfg)
+    assert _bitwise(want[0], got[0]) and _bitwise(want[1], got[1])
+    assert rf.refine_adam_cuda.user_systems == {"bicycle_copy": 1}
+    _, x0, c, mask, goal, obs = adam_inputs("double_integrator", 8, 6, 5, dev, True)
+    drift = DriftStruct()
+    want = tr._refine_core(drift, ctt.KGMTConfig(), rcfg, x0, goal, obs, c, mask,
+                           penalty=rf.refine_penalty_cuda)
+    got = _adam(drift, x0, c, mask, goal, obs, rcfg)
+    assert _bitwise(want[0], got[0]) and _bitwise(want[1], got[1])
+    with pytest.raises(NotImplementedError, match="back"):
+        _adam(DriftNoBack(), x0, c, mask, goal, obs, rcfg)
+    with pytest.raises(NotImplementedError, match="no device struct"):
+        _adam(Drift(), x0, c, mask, goal, obs, rcfg)
 
 
 def test_a_broken_struct_raises_with_nvccs_text(dev):

@@ -35,7 +35,11 @@ lanes far apart: little to cull) and at its one-warp floor (the first 32 of thos
 (f32 [2048, 128], probes/roofline.py::calibrate): P1a, the FMA chain, at
 16,384 links (``p1a``), P1b, the accurate trig chains, for cos, sin and
 tan at 2,048 links (``p1b_<op>``), and P2, the shared-memory gathers, at
-512 links from tables of 8, 128 and 1,024 rows (``p2_<rows>``). ``--only``
+512 links from tables of 8, 128 and 1,024 rows (``p2_<rows>``); where the
+checkout has the whole refinement's kernel (``refine_adam_cuda``), a
+refinement at RefineConfig() on the CLI demo's path (``refine_demo``), on
+128 problems of 2 to 24 real edges padded to 24 (the quality pipeline's
+lengths, ``refine_128x24``) and on one 24-edge path (``refine_1x24``). ``--only``
 keeps the rows whose names start with one of its prefixes. Each is timed ``--reps`` times by its device time under
 torch.profiler (with the regular profiler windows each reading took,
 probes/timing.py) and by CUDA events (which measure the host's launch rate
@@ -84,7 +88,17 @@ from the register file, ``bank_conflicts``, under the model of two banks
 by the register number's parity, and how many take a source from the
 operand reuse cache, ``reused``) and P2's (``p2_issue``: the larger of its
 loop's instructions a shared-memory load at 4 warp-instructions a clock
-per SM and its 4-byte loads at 128 bytes a clock per SM).
+per SM and its 4-byte loads at 128 bytes a clock per SM); and, where the
+checkout has the whole refinement's kernel, its chain limit
+(``refine_chain``): the staged chains' loops in the SASS of
+refine_adam_kernel<Bicycle, shared> on their fast paths, their
+instructions and cycles a step by the loop-carried critical path and by
+one warp's in-order issue, at latencies a probe measures on the card
+(``latency``: one warp's chain of 256 dependent FADD, FMUL, FFMA, IMAD,
+MUFU, F2I+I2F or shared-memory loads between two clock64 reads), and a
+refinement's limit in ms at each (``limit_ms``: 400 steps of the
+bicycle's six passes over the refine rows' points at the card's top
+clock).
 
 To compare two checkouts, time both on the same card one after the other,
 in the order parent, change, change, parent.
@@ -120,7 +134,9 @@ SASS_KERNELS = {
        for k in ("rollout_kernel", "sample_and_rollout_kernel")},
     "sample_and_rollout_kernel<(anonymous namespace)::Bicycle, false, false, true>": 128,
     **{f"trans_chain_kernel<{op}>": 256 for op in range(3)},
-    "alu_chain_kernel": 256, "gather_chain_kernel": 256}
+    "alu_chain_kernel": 256, "gather_chain_kernel": 256,
+    "refine_adam_kernel<(anonymous namespace)::Bicycle, true>": 256}
+REFINE_ADAM = "refine_adam_kernel<(anonymous namespace)::Bicycle, true>"
 # an H100's SM: threads, registers, blocks and shared memory (each block
 # also takes 1 KB of it for the system) it holds at once
 SM_THREADS, SM_REGISTERS, SM_BLOCKS, SM_SMEM = 2048, 65536, 32, 228 * 1024
@@ -159,14 +175,16 @@ def _short(name: str) -> str:
 _INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 
 
-def fast_path(ins: list, lo: int, hi: int) -> tuple[list[str], int]:
+def fast_path(ins: list, lo: int, hi: int, slow=("DMUL", "LDL", "STL"),
+              whole: bool = False) -> tuple[list, int]:
     """One pass through the loop [lo, hi] of ``ins`` (address, predicate,
     opcode, operands) that takes each conditional forward branch over a
     path with double-precision multiplies or local-memory loads or stores
     (the math library's Payne-Hanek reduction, which the calibration inputs
-    never take): the opcodes it issues, and how many such paths it skips
-    (one a trig call)."""
-    body = [(a, pred, op) for a, pred, op, _ in ins if lo <= a <= hi]
+    never take; ``slow`` names the opcodes that mark such a path): the
+    opcodes it issues (with ``whole``, its instructions), and how many such
+    paths it skips (one a trig call)."""
+    body = [i for i in ins if lo <= i[0] <= hi]
     skipped = []
     for a, pred, op, args in ins:
         if not (lo <= a <= hi and pred and op.startswith("BRA")):
@@ -174,12 +192,10 @@ def fast_path(ins: list, lo: int, hi: int) -> tuple[list[str], int]:
         target = int(re.search(r"0x([0-9a-f]+)", args)[1], 16)
         if target <= a or target > hi or any(s < a < e for s, e in skipped):
             continue
-        if any(o.split(".")[0] in ("DMUL", "LDL", "STL")
-               for b, _, o in body if a < b < target):
+        if any(o.split(".")[0] in slow for b, _, o, _ in body if a < b < target):
             skipped.append((a, target))
-    kept = [o.split(".")[0] for b, _, o in body
-            if not any(s < b < e for s, e in skipped)]
-    return kept, len(skipped)
+    kept = [i for i in body if not any(s < i[0] < e for s, e in skipped)]
+    return (kept if whole else [i[2].split(".")[0] for i in kept]), len(skipped)
 
 
 def _issue_ms(elems: int, links: int, per_link: float, sm_count: int,
@@ -262,6 +278,215 @@ def p2_issue(sass: dict, elems: int, links: int, sm_count: int, clock_hz: float
     out["issue_ms"] = max(out["instruction_ms"], out["load_ms"])
     out["bound_by"] = "loads" if out["load_ms"] >= out["instruction_ms"] else "instructions"
     return out
+
+
+# The latency probe: one warp runs a dependent chain of LATENCY_LINKS
+# instructions of one kind between two clock64 reads (PTX written so that
+# ptxas emits one SASS instruction a link; the F2I+I2F kind is a pair a
+# link, the LDS kind a pointer chase through shared memory); cycles a link.
+LATENCY_LINKS = 256
+LATENCY_KINDS = ("FADD", "FMUL", "FFMA", "IMAD", "MUFU", "F2I+I2F", "LDS")
+LATENCY_SOURCE = r"""
+#include <cuda_runtime.h>
+#define R2(x) x x
+#define R16(x) R2(R2(R2(R2(x))))
+#define R256(x) R16(R16(x))
+__global__ void probe(int kind, float* out, long long* cycles) {
+  __shared__ unsigned ring[32];
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(ring));
+  ring[threadIdx.x] = base + 4u * ((threadIdx.x + 1) & 31);
+  __syncwarp();
+  float x = 1.0f + 1e-3f * threadIdx.x, y = 1e-7f, z = 0.5f;
+  int i = threadIdx.x;
+  unsigned a = base + 4u * threadIdx.x;
+  const long long t0 = clock64();
+  switch (kind) {
+    case 0: R256(asm volatile("add.rn.f32 %0, %0, %1;" : "+f"(x) : "f"(y));) break;
+    case 1: R256(asm volatile("mul.rn.f32 %0, %0, %1;" : "+f"(x) : "f"(y));) break;
+    case 2: R256(asm volatile("fma.rn.f32 %0, %0, %1, %2;" : "+f"(x) : "f"(y), "f"(z));) break;
+    case 3: R256(asm volatile("mad.lo.s32 %0, %0, %1, %2;" : "+r"(i) : "r"(3), "r"(1));) break;
+    case 4: R256(asm volatile("ex2.approx.ftz.f32 %0, %0;" : "+f"(x));) break;
+    case 5: R256(asm volatile("cvt.rni.s32.f32 %0, %1;\n\tcvt.rn.f32.s32 %1, %0;"
+                              : "+r"(i), "+f"(x));) break;
+    case 6: R256(asm volatile("ld.shared.u32 %0, [%0];" : "+r"(a));) break;
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) {
+    cycles[kind] = t1 - t0;
+    out[kind] = x + y + z + static_cast<float>(i) + static_cast<float>(a);
+  }
+}
+extern "C" int latency_probe(int kind, void* out, void* cycles) {
+  probe<<<1, 32>>>(kind, static_cast<float*>(out), static_cast<long long*>(cycles));
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def measure_latencies(out_dir: pathlib.Path) -> dict:
+    """Cycles a link of each LATENCY_KINDS chain on this card (the probe
+    built with the package's nvcc and flags into ``out_dir``), and the
+    SASS opcodes of each chain, to show what was timed."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from cudasbmp_torch.ops import _build
+
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        src, lib = pathlib.Path(tmp, "latency.cu"), pathlib.Path(tmp, "latency.so")
+        src.write_text(LATENCY_SOURCE)
+        subprocess.run([_build.find_nvcc(), *_build.ARCH, "-std=c++17", "-O3", "-shared",
+                        "-Xcompiler", "-fPIC", "-o", str(lib), str(src)], check=True,
+                       capture_output=True, text=True, timeout=300)
+        cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        probe = ctypes.CDLL(str(lib))
+        probe.latency_probe.argtypes = (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
+        out = torch.zeros(len(LATENCY_KINDS), device="cuda")
+        cycles = torch.zeros(len(LATENCY_KINDS), dtype=torch.int64, device="cuda")
+        best = {}
+        for _ in range(5):  # the least of five runs
+            for k, kind in enumerate(LATENCY_KINDS):
+                if probe.latency_probe(k, out.data_ptr(), cycles.data_ptr()) != 0:
+                    raise RuntimeError(f"latency probe {kind} failed")
+                best[kind] = min(best.get(kind, float("inf")),
+                                 int(cycles[k]) / LATENCY_LINKS)
+    ops = Counter(op.split(".")[0] for _, _, op, _ in _INSTRUCTION.findall(sass))
+    return {"cycles_a_link": best, "links": LATENCY_LINKS,
+            "sass_opcodes": {k: n for k, n in ops.items() if n >= LATENCY_LINKS}}
+
+
+_REGS = re.compile(r"\b(UR\d+|R\d+|UP\d+|P\d+)\b")
+_NO_DEST = {"ST", "STS", "STG", "STL", "RED", "BRA", "BSSY", "BSYNC", "CALL", "RET",
+            "EXIT", "BAR", "WARPSYNC", "NOP", "YIELD", "DEPBAR", "MEMBAR", "JMP", "BRX"}
+_TWO_PREDICATES = {"ISETP", "FSETP", "DSETP", "PLOP3"}
+_FLOAT_ALU = {"FMNMX", "FSEL", "FSETP", "FSET", "FCHK", "FADD32I", "FMUL32I", "FFMA32I",
+              "FSWZADD"}
+
+
+def _registers(ins) -> tuple[list[str], list[str]]:
+    """(registers an instruction writes, registers it reads), predicates
+    included; a .64 or .128 result (or IMAD.WIDE's) spans 2 or 4 registers."""
+    _, pred, op, args = ins
+    parts = [a.strip() for a in args.split(",")]
+    base = op.split(".")[0]
+    n = 0 if base in _NO_DEST else 2 if base in _TWO_PREDICATES else 1
+    width = 4 if ".128" in op else 2 if (".64" in op or ".WIDE" in op) else 1
+    dests = []
+    for part in parts[:n]:
+        for r in _REGS.findall(part):
+            dests += ([f"R{int(r[1:]) + k}" for k in range(width)]
+                      if r.startswith("R") else [r])
+    srcs = [r for part in parts[n:] for r in _REGS.findall(part)]
+    srcs += _REGS.findall(pred or "")
+    return dests, srcs
+
+
+def _latency(op: str, lat: dict) -> float:
+    """Cycles until an instruction's result can be read, from the probe's
+    chains: FADD, FMUL and FFMA their own, other float ALU ops FADD's,
+    MUFU its own, F2I/I2F/I2FP/F2F/FRND half an F2I+I2F pair, loads LDS's,
+    every other op with a result IMAD's."""
+    base = op.split(".")[0]
+    if base in ("FADD", "FMUL", "FFMA"):
+        return lat[base]
+    if base in _FLOAT_ALU:
+        return lat["FADD"]
+    if base == "MUFU":
+        return lat["MUFU"]
+    if base in ("F2I", "I2F", "I2FP", "F2F", "FRND"):
+        return lat["F2I+I2F"] / 2
+    if base in ("LDS", "LDG", "LDC", "LD", "LDL"):
+        return lat["LDS"]
+    return lat["IMAD"]
+
+
+def chain_cycles(body: list, lat: dict, in_order: bool, iterations: int = 32) -> float:
+    """Cycles an iteration of a loop ``body`` (instructions in order) takes
+    in steady state: with ``in_order`` as one warp issues it alone (an
+    instruction a cycle at most, none before its operands are ready),
+    else its loop-carried critical path (data dependencies alone: the
+    heaviest recurrence through registers carried from one iteration to
+    the next)."""
+    ready: dict = {}
+    issue, ends = 0.0, []
+    for _ in range(iterations):
+        for ins in body:
+            dests, srcs = _registers(ins)
+            start = max([issue + 1 if in_order else 0.0] + [ready.get(r, 0.0) for r in srcs])
+            issue = start if in_order else issue
+            for d in dests:
+                ready[d] = start + _latency(ins[2], lat)
+        ends.append(issue if in_order else max(ready.values(), default=0.0))
+    half = iterations // 2
+    return (ends[-1] - ends[half - 1]) / (iterations - half)
+
+
+CHAIN_INSTRUCTIONS = 16  # a chain loop's instructions a step, at most
+
+
+def refine_chain(library: pathlib.Path, lat: dict) -> dict:
+    """The whole refinement's serial chains from the SASS of
+    refine_adam_kernel<Bicycle, shared>: its chain loops, the innermost
+    loops that on their fast path (the trig's Payne-Hanek paths and the
+    division's slow call skipped) hold an add (FADD) and a shared-memory
+    store a step, at most a shared-memory load a step (a batch's increments
+    come in vector loads), at most CHAIN_INSTRUCTIONS instructions a step,
+    and no global load or barrier: the staged forward and reverse passes
+    (whole batches, and the rest one step at a time). For each
+    loop its steps an iteration, instructions a step, and cycles a step by
+    the loop-carried critical path and by one warp's in-order issue
+    (``chain_cycles``), at the probe's latencies ``lat``; ``passes``: the
+    bicycle's chains a refinement step (three levels forward, three in
+    reverse)."""
+    cuobjdump = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    chunks = re.split(r"\n\s*Function : (\S+)\n", text)
+    names = subprocess.run(["c++filt"], input="\n".join(chunks[1::2]), text=True,
+                           capture_output=True, timeout=60, check=True).stdout.splitlines()
+    body = next((b for n, b in zip(names, chunks[2::2]) if _short(n) == REFINE_ADAM), None)
+    if body is None:
+        return {}
+    ins = [(int(a, 16), pred, op, args) for a, pred, op, args in _INSTRUCTION.findall(body)]
+    loops = []
+    for addr, _, op, args in ins:
+        m = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+        if m and int(m[1], 16) <= addr:
+            loops.append((int(m[1], 16), addr))
+    chains = []
+    for lo, hi in loops:
+        fast, skipped = fast_path(ins, lo, hi, ("DMUL", "LDL", "STL", "CALL"), whole=True)
+        if any(i[2].startswith("BRA") and lo <= int(re.search(r"0x([0-9a-f]+)", i[3])[1], 16)
+               < i[0] < hi for i in fast):
+            continue  # holds a loop on its fast path
+        ops = [i[2].split(".")[0] for i in fast]
+        steps = ops.count("FADD")
+        if (steps and steps == ops.count("STS") and 1 <= ops.count("LDS") <= steps
+                and len(fast) <= CHAIN_INSTRUCTIONS * steps and not {"LDG", "BAR"} & set(ops)):
+            chains.append({"from": hex(lo), "to": hex(hi), "steps_an_iteration": steps,
+                           "batched": ops.count("LDS") < steps,
+                           "instructions_a_step": len(fast) / steps,
+                           "slow_paths_skipped": skipped,
+                           "carried_cycles_a_step": chain_cycles(fast, lat, False) / steps,
+                           "in_order_cycles_a_step": chain_cycles(fast, lat, True) / steps})
+    return {"loops": chains, "passes": {"forward": 3, "reverse": 3}} if chains else {}
+
+
+def chain_limit_ms(chain: dict, points: int, iterations: int, clock_hz: float,
+                   key: str) -> float:
+    """A refinement's chains at ``key`` cycles a step of the slowest batched
+    chain loop (vector loads of the increments: the whole batches; the rest
+    are under a batch a pass): ``iterations`` forward and reverse passes
+    over ``points`` steps and one more forward pass (the final loss), at
+    ``clock_hz``."""
+    cycles = max(loop[key] for loop in chain["loops"] if loop["batched"])
+    fwd, rev = chain["passes"]["forward"], chain["passes"]["reverse"]
+    return 1e3 * points * cycles * ((iterations + 1) * fwd + iterations * rev) / clock_hz
 
 
 _REGISTER = re.compile(r"^-?\|?R(\d+)")
@@ -429,8 +654,9 @@ def main() -> int:
     ap.add_argument("--only", help="time only the rows whose names start with one "
                     "of these comma-separated prefixes")
     ap.add_argument("--sass", action="store_true",
-                    help="dump the SASS of B6, B5, P1a, P1b and P2 and count the "
-                    "instructions of their loops")
+                    help="dump the SASS of B6, B5, P1a, P1b, P2 and the whole "
+                    "refinement, count the instructions of their loops, and give the "
+                    "refinement's chain limit")
     ap.add_argument("--clocks", action="store_true",
                     help="read the SM clock and power draw while each row runs 2 s")
     ap.add_argument("--demo-tts", action="store_true",
@@ -457,7 +683,8 @@ def main() -> int:
     here = pathlib.Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
     from chip_smoke import (EXTENSION_BUCKETS, RAGGED_PROGRAM_ROWS, SPLIT_WIDTHS,
-                            SWEEP_SHAPE, demo_batch, problem_batch, ragged_chain_inputs)
+                            SWEEP_SHAPE, demo_batch, problem_batch, ragged_chain_inputs,
+                            refine_inputs)
 
     spec = importlib.util.spec_from_file_location(
         "_timing", here / "cudasbmp_torch" / "probes" / "timing.py")
@@ -536,6 +763,33 @@ def main() -> int:
     for rows, (tbl, idx) in gathers.items():
         runs[f"p2_{rows}_ms"] = lambda tbl=tbl, idx=idx: cc.gather_chain_cuda(
             tbl, idx, rf.GATHER_CHAIN)
+    refine_points = {}
+    from cudasbmp_torch.ops import refine_cuda as rfc
+    if hasattr(rfc, "refine_adam_cuda"):  # the whole refinement, RefineConfig()
+        import numpy as np
+
+        from cudasbmp_torch.refine import RefineConfig, _refine_core
+
+        rcfg = RefineConfig()
+
+        def adam(x0, goal, obs, c0, mask):
+            return _refine_core(system, cfg, rcfg, x0, goal, obs, c0, mask)
+
+        demo = Scenario.demo()
+        path = cudasbmp_torch.KGMT(cfg, device=dev).plan(demo).path
+        one = [torch.tensor(np.ascontiguousarray(a), device=dev) for a in (
+            path[None, 0, :4], demo.goal[None, :2], demo.obstacles, path[None, 1:, 4:])]
+        one.append(torch.ones((1, len(path) - 1), dtype=torch.bool, device=dev))
+        runs["refine_demo_ms"] = lambda: adam(*one)
+        # 128 problems of 2 to 24 real edges (the quality pipeline's), one whole
+        _, (rx0, rc0, _, rgoal, robs) = refine_inputs("bicycle", 128, 24, cfg.num_disc, 14,
+                                                      dev, False, False)
+        real = np.random.default_rng(14).integers(2, 25, 128)
+        real[0] = 24
+        rmask = torch.tensor(np.arange(24)[None] < real[:, None], device=dev)
+        runs["refine_128x24_ms"] = lambda: adam(rx0, rgoal, robs, rc0, rmask)
+        runs["refine_1x24_ms"] = lambda: adam(rx0[:1], rgoal[:1], robs, rc0[:1], rmask[:1])
+        refine_points = {"demo": (len(path) - 1) * cfg.num_disc, "1x24": 24 * cfg.num_disc}
     only = tuple(args.only.split(",")) if args.only else ()
     splits = {}
     if groups:
@@ -602,10 +856,21 @@ def main() -> int:
                                     here / "chiprun_out" / f"sass_{root.name}.txt",
                                     {**{k: 16 * 24 + store for k in b5},
                                      "gather_chain_kernel": slice_bytes})
+        if REFINE_ADAM in result["sass"]:  # the whole refinement's chain limit
+            lat = result["latency"] = measure_latencies(here / "chiprun_out")
+            chain = result["refine_chain"] = refine_chain(_build.build()[0],
+                                                          lat["cycles_a_link"])
         mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                                     "--format=csv,noheader,nounits"], capture_output=True,
                                    text=True, timeout=60, check=True).stdout.split()[0])
         sms, elems = rc.sm_count(0), cx.numel()
+        chain = result.get("refine_chain", {})
+        if chain:
+            chain["limit_ms"] = {
+                tag: {key: chain_limit_ms(chain, points, 400, mhz * 1e6, key)
+                      for key in ("carried_cycles_a_step", "in_order_cycles_a_step")}
+                for tag, points in refine_points.items()}
+            chain["points"], chain["clock_mhz"] = refine_points, mhz
         result["p1b_issue"] = p1b_issue(result["sass"], elems, rf.TRANS_CHAIN, sms, mhz * 1e6)
         result["p1b_issue"]["clock_mhz"] = mhz
         # P1a and P2 at the top clock and, where read, at the clock held
