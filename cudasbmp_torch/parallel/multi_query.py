@@ -44,6 +44,9 @@ With a mesh (parallel/mesh.py) the batch is laid over the scenario axis:
 each rank solves its problems under their global keys, with its own trips
 (the problems share nothing), and the results are gathered, so every rank
 returns the whole batch, bitwise the batch solved in one process.
+
+Spans (the tree is utils/profiling.py's): ``kgmt_plan_batch`` around
+``plan_batch``, ``kgmt_trip`` around each trip, the phases inside.
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ from cudasbmp_torch.parallel import collectives
 from cudasbmp_torch.parallel.mesh import PlannerMesh
 from cudasbmp_torch.planners.kgmt import _fresh_target, _num_waves, rollout_kind
 from cudasbmp_torch.systems.registry import get_system
-from cudasbmp_torch.utils.profiling import phase_scope
+from cudasbmp_torch.utils.profiling import host_read, phase_scope
 
 Tensor = torch.Tensor
 
@@ -266,7 +269,8 @@ def _rollout(cfg: KGMTConfig, system, k_ctrl: Tensor, x0: Tensor,
     kind = rollout_kind(cfg, system)
     if cfg.rollout_backend == "cuda_rng":
         return sample_and_rollout_batched_cuda(system, k_ctrl, x0, obstacles, **kw)
-    controls = system.control_spec.sample(k_ctrl, (x0.shape[1],))
+    with phase_scope("kgmt_rng", x0.device):
+        controls = system.control_spec.sample(k_ctrl, (x0.shape[1],))
     if kind == "generic":
         x1, valid = rollout_batch(system, x0, controls, cfg.num_disc,
                                   obstacles[:, None], cfg.width, cfg.height,
@@ -317,7 +321,8 @@ def batched_wave(cfg: KGMTConfig, system, grid: RegionGrid, goals: Tensor,
 
         d1 = counts(cfg.num_r1, r1c, in_r1)
         d2 = counts(cfg.num_r2, r2c, in_r2)
-        u = rng.uniform(k_accept, (R,))
+        with phase_scope("kgmt_rng", dev):
+            u = rng.uniform(k_accept, (R,))
         score_r = torch.where(in_r1, r1_score.gather(1, r1c), 0.0)
         seen_r = torch.where(in_r2, r2_seen.gather(1, r2c), 0)
         accept = valid & ((u <= score_r) | ~in_r2 | (seen_r == 0))
@@ -349,12 +354,13 @@ def batched_wave(cfg: KGMTConfig, system, grid: RegionGrid, goals: Tensor,
             node = id_base + node
         s.goal_node = torch.where(improved, node.to(torch.int32), s.goal_node)
 
-    s.tree_size = ts + within.sum(dim=1)
-    s.r1_total += d1[..., 0]
-    s.r1_valid += d1[..., 1]
-    s.r1_invalid += d1[..., 0] - d1[..., 1]
-    s.r1_avail |= (d1[..., 1] > 0).to(torch.int32)
-    s.r2_avail |= (d2[..., 1] > 0).to(torch.int32)
+    with phase_scope("kgmt_boundary", dev):
+        s.tree_size = ts + within.sum(dim=1)
+        s.r1_total += d1[..., 0]
+        s.r1_valid += d1[..., 1]
+        s.r1_invalid += d1[..., 0] - d1[..., 1]
+        s.r1_avail |= (d1[..., 1] > 0).to(torch.int32)
+        s.r2_avail |= (d2[..., 1] > 0).to(torch.int32)
     return d1, d2, valid, within, samples1, r2_seen
 
 
@@ -367,54 +373,60 @@ def multi_query_trip(cfg: KGMTConfig, system, grid: RegionGrid, goals: Tensor,
     R = cfg.rollouts_per_iter
     dev = goals.device
     run = s.running
+    with phase_scope("kgmt_trip", dev, trip=s.trips):
+        # iteration start (w == 0): scores, frontier range, target, r2 snapshot
+        with phase_scope("kgmt_scores", dev):
+            is0 = run & (s.w == 0)
+            s.r1_score = torch.where(is0[:, None], region_scores(cfg, s), s.r1_score)
+            s.fl0 = torch.where(is0, s.frontier_lo, s.fl0)
+            s.ts0 = torch.where(is0, s.tree_size, s.ts0)
+            frontier_size = s.ts0 - s.fl0
+            s.n_tgt = torch.where(is0, _fresh_target(cfg, frontier_size, s.ts0), s.n_tgt)
+            s.r2_seen = torch.where(is0[:, None], s.r2_avail, s.r2_seen)
 
-    # iteration start (w == 0): scores, frontier range, target, r2 snapshot
-    is0 = run & (s.w == 0)
-    s.r1_score = torch.where(is0[:, None], region_scores(cfg, s), s.r1_score)
-    s.fl0 = torch.where(is0, s.frontier_lo, s.fl0)
-    s.ts0 = torch.where(is0, s.tree_size, s.ts0)
-    frontier_size = s.ts0 - s.fl0
-    s.n_tgt = torch.where(is0, _fresh_target(cfg, frontier_size, s.ts0), s.n_tgt)
-    s.r2_seen = torch.where(is0[:, None], s.r2_avail, s.r2_seen)
+        # expand: round-robin parents over each frontier, then the wave
+        with phase_scope("kgmt_parents", dev):
+            slot = torch.arange(R, dtype=torch.int64, device=dev)
+            gslot = s.w[:, None] * R + slot
+            slot_active = (gslot < s.n_tgt[:, None]) & run[:, None]
+            parent_idx = s.fl0[:, None] + gslot % frontier_size.clamp(min=1)[:, None]
+            if cfg.goal_bias > 0.0:
+                parent_idx = _goal_biased(cfg, s, goals, parent_idx)
+            parent_rows = s.tree_samples.gather(
+                1, parent_idx[..., None].expand(B, R, SAMPLE_DIM))
+            parent_cost = s.costs.gather(1, parent_idx)
+        with phase_scope("kgmt_rng", dev):
+            k_ctrl, k_accept = _wave_keys(s)
+        *_, s.r2_seen = batched_wave(cfg, system, grid, goals, obstacles, s, slot,
+                                     parent_rows, parent_cost, parent_idx, slot_active,
+                                     k_ctrl, k_accept, s.r1_score, s.r2_seen)
 
-    # expand: round-robin parents over each frontier, then the wave
-    slot = torch.arange(R, dtype=torch.int64, device=dev)
-    gslot = s.w[:, None] * R + slot
-    slot_active = (gslot < s.n_tgt[:, None]) & run[:, None]
-    parent_idx = s.fl0[:, None] + gslot % frontier_size.clamp(min=1)[:, None]
-    if cfg.goal_bias > 0.0:
-        parent_idx = _goal_biased(cfg, s, goals, parent_idx)
-    parent_rows = s.tree_samples.gather(
-        1, parent_idx[..., None].expand(B, R, SAMPLE_DIM))
-    parent_cost = s.costs.gather(1, parent_idx)
-    k_ctrl, k_accept = _wave_keys(s)
-    *_, s.r2_seen = batched_wave(cfg, system, grid, goals, obstacles, s, slot,
-                                 parent_rows, parent_cost, parent_idx, slot_active,
-                                 k_ctrl, k_accept, s.r1_score, s.r2_seen)
-
-    # iteration boundary, per problem
-    w2 = s.w + 1
-    last = run & (w2 >= _num_waves(cfg, s.n_tgt))
-    stalled = s.tree_size == s.ts0
-    if cfg.keep_frontier_on_stall:
-        new_lo = torch.where(stalled, s.fl0, s.ts0)
-    else:
-        new_lo = s.ts0
-    s.frontier_lo = torch.where(last, new_lo, s.frontier_lo)
-    s.stalled = torch.where(last, stalled, s.stalled)
-    s.itr = s.itr + last.to(torch.int64)
-    s.w = torch.where(run, torch.where(last, 0, w2), s.w)
-    s.running = _keep_going(cfg, s)
-    s.trips += 1
-    return bool(s.running.any())
+        # iteration boundary, per problem
+        with phase_scope("kgmt_boundary", dev):
+            w2 = s.w + 1
+            last = run & (w2 >= _num_waves(cfg, s.n_tgt))
+            stalled = s.tree_size == s.ts0
+            if cfg.keep_frontier_on_stall:
+                new_lo = torch.where(stalled, s.fl0, s.ts0)
+            else:
+                new_lo = s.ts0
+            s.frontier_lo = torch.where(last, new_lo, s.frontier_lo)
+            s.stalled = torch.where(last, stalled, s.stalled)
+            s.itr = s.itr + last.to(torch.int64)
+            s.w = torch.where(run, torch.where(last, 0, w2), s.w)
+            s.running = _keep_going(cfg, s)
+            s.trips += 1
+            more = s.running.any()
+        return host_read(more)
 
 
 def multi_query_solve(cfg: KGMTConfig, system, grid: RegionGrid, inits: Tensor,
                       goals: Tensor, obstacles: Tensor, keys: Tensor
                       ) -> MultiQueryState:
     """``vmap(kgmt_solve)``: trips until no problem runs."""
-    s = init_batch_state(cfg, grid, inits, keys)
-    more = bool(s.running.any())
+    with phase_scope("kgmt_init", inits.device):
+        s = init_batch_state(cfg, grid, inits, keys)
+        more = host_read(s.running.any())
     while more:
         more = multi_query_trip(cfg, system, grid, goals, obstacles, s)
     return s
@@ -448,38 +460,47 @@ class MultiQueryPlanner:
 
         cfg, dev = self.config, self.device
         B = inits.shape[0]
-        lo, hi = (0, B) if self.mesh is None else self.mesh.batch_range(B)
-        obstacles = np.asarray(obstacles, dtype=np.float32)
-        if obstacles.ndim == 2:
-            obstacles = np.broadcast_to(obstacles, (B,) + obstacles.shape)
-        keys = rng.fold_in(rng.key(seed, dev), torch.arange(lo, hi, device=dev))
-        t0 = time.perf_counter()
-        final = multi_query_solve(
-            cfg, self.system, self.grid,
-            torch.as_tensor(np.asarray(inits)[lo:hi], dtype=torch.float32, device=dev),
-            torch.as_tensor(np.asarray(goals)[lo:hi], dtype=torch.float32, device=dev),
-            torch.as_tensor(np.ascontiguousarray(obstacles[lo:hi]), device=dev), keys)
-        # the goal -> root walk of extract_path, per problem
-        _, samples, lengths = arena_extract_paths(final, cfg.num_iterations + 1)
-        costs, tree_sizes, iters, paths, lengths = (
-            collectives.axis_gather(self.mesh, "scenario", t).cpu().numpy()
-            for t in (final.cost_to_goal, final.tree_size, final.itr, samples, lengths))
-        wall = time.perf_counter() - t0
-        self.last_state = final
-        solved = np.isfinite(costs)
-        tree_sizes, iters = tree_sizes.astype(np.int32), iters.astype(np.int32)
-        return MultiQueryResult(
-            solved=solved,
-            costs=costs,
-            tree_sizes=tree_sizes,
-            iterations=iters,
-            paths=paths,
-            path_lengths=lengths,
-            wall_time_s=wall,
-            solves_per_sec=B / wall,
-            budget_exhausted=~solved & ((iters >= cfg.num_iterations)
-                                        | (tree_sizes >= cfg.max_tree_size)),
-        )
+        with phase_scope("kgmt_plan_batch", dev, seed=seed, problems=B):
+            lo, hi = (0, B) if self.mesh is None else self.mesh.batch_range(B)
+            with phase_scope("kgmt_init", dev):
+                obstacles = np.asarray(obstacles, dtype=np.float32)
+                if obstacles.ndim == 2:
+                    obstacles = np.broadcast_to(obstacles, (B,) + obstacles.shape)
+                with phase_scope("kgmt_rng", dev):
+                    keys = rng.fold_in(rng.key(seed, dev),
+                                       torch.arange(lo, hi, device=dev))
+                t0 = time.perf_counter()
+                args = (torch.as_tensor(np.asarray(inits)[lo:hi],
+                                        dtype=torch.float32, device=dev),
+                        torch.as_tensor(np.asarray(goals)[lo:hi],
+                                        dtype=torch.float32, device=dev),
+                        torch.as_tensor(np.ascontiguousarray(obstacles[lo:hi]),
+                                        device=dev))
+            final = multi_query_solve(cfg, self.system, self.grid, *args, keys)
+            with phase_scope("kgmt_extract", dev):
+                # the goal -> root walk of extract_path, per problem
+                _, samples, lengths = arena_extract_paths(final, cfg.num_iterations + 1)
+                costs, tree_sizes, iters, paths, lengths = (
+                    host_read(collectives.axis_gather(self.mesh, "scenario", t),
+                              numpy=True)
+                    for t in (final.cost_to_goal, final.tree_size, final.itr, samples,
+                              lengths))
+            wall = time.perf_counter() - t0
+            self.last_state = final
+            solved = np.isfinite(costs)
+            tree_sizes, iters = tree_sizes.astype(np.int32), iters.astype(np.int32)
+            return MultiQueryResult(
+                solved=solved,
+                costs=costs,
+                tree_sizes=tree_sizes,
+                iterations=iters,
+                paths=paths,
+                path_lengths=lengths,
+                wall_time_s=wall,
+                solves_per_sec=B / wall,
+                budget_exhausted=~solved & ((iters >= cfg.num_iterations)
+                                            | (tree_sizes >= cfg.max_tree_size)),
+            )
 
     def plan_scenarios(self, scenarios: list[Scenario], seed: int = 0
                        ) -> MultiQueryResult:

@@ -3,9 +3,10 @@ region guidance, in PyTorch (counterpart of cudasbmp_tpu/planners/kgmt.py).
 
 The JAX planner runs the whole solve as one jitted ``lax.while_loop``. Here
 the same flat (iteration x wave) loop is a Python loop on the host that
-launches tensor work on the device of the state, and reads back ONE small
+launches tensor work on the device of the state, and reads back one small
 tensor per wave: the number of accepted children, the number of valid
-rollouts and whether the goal has been reached. The host therefore holds the
+rollouts and whether the goal has been reached (the tree loop also reads
+the goal test's best lane, which it indexes by). The host therefore holds the
 planner's scalar control state (``tree_size``, ``frontier_lo``, ``itr``,
 ``stalled`` and the per-iteration metrics) as Python ints and numpy arrays,
 and the device holds every tensor.
@@ -32,8 +33,29 @@ Per wave, as in the JAX package:
 end; ``KGMT.plan_recorded`` steps ``kgmt_iteration`` with per-iteration
 artifact dumps. ``expansion_wave`` also takes the sharded tree's exchange
 pool and global-id base (parallel/sharded_tree.py drives the batched form).
-The phases run under ``utils.profiling.phase_scope``, named as the JAX
-package's ``named_scope``s, so a ``trace_to`` trace shows them.
+
+The loops run under ``utils.profiling.phase_scope`` spans, so a
+``trace_to`` trace shows them (the tree is utils/profiling.py's):
+
+- ``kgmt_plan`` (seed, problems): ``plan``/``resume``, tree or pathless;
+  ``kgmt_init`` (the inputs on the device, the key, the state, the first
+  ``solved`` read), then the waves, then ``kgmt_extract`` (the path walk
+  and the result's reads);
+- ``kgmt_wave`` (itr, w): each wave of ``kgmt_run`` and
+  ``kgmt_run_pathless``: ``kgmt_scores`` at w = 0, ``kgmt_parents``,
+  ``kgmt_rng`` (the wave keys), ``kgmt_expand`` (with ``kgmt_rng`` around
+  the threefry controls), ``kgmt_region_stats`` (with ``kgmt_rng`` around
+  the acceptance uniforms), ``kgmt_goal``, ``kgmt_commit`` (with the wave's
+  ``kgmt_host_read``; the tree loop's goal test has one too) and
+  ``kgmt_boundary`` (the statistics tail and the iteration boundary);
+- ``kgmt_iteration``'s stepwise form keeps ``kgmt_scores``,
+  ``kgmt_frontier`` and ``kgmt_waves``, the same wave phases inside.
+
+Every read of the card goes through ``utils.profiling.host_read``: two a
+wave of the tree loop (the goal test's best lane, the readout), one a
+wave of the pathless loop, and per call one before the waves and five in
+the result (cost, path length, path, path nodes, threshold), two in the
+pathless result.
 """
 
 from __future__ import annotations
@@ -52,7 +74,7 @@ from cudasbmp_torch.ops.rollout import rollout_batch
 from cudasbmp_torch.ops.rollout_cuda import (rollout_cuda, rollout_route,
                                              sample_and_rollout_cuda)
 from cudasbmp_torch.systems.registry import get_system
-from cudasbmp_torch.utils.profiling import phase_scope
+from cudasbmp_torch.utils.profiling import host_read, phase_scope
 
 Tensor = torch.Tensor
 
@@ -246,7 +268,8 @@ def _expand_rollout(cfg: KGMTConfig, system, key: Tensor, x0: Tensor,
                                        height=cfg.height,
                                        footprint=cfg.footprint,
                                        fast_math=cfg.fast_math)
-    controls = system.control_spec.sample(key, (x0.shape[0],))
+    with phase_scope("kgmt_rng", x0.device):
+        controls = system.control_spec.sample(key, (x0.shape[0],))
     x1, valid = _dispatch_rollout(cfg, system, x0, controls, obstacles)
     return x1, controls, valid
 
@@ -375,25 +398,29 @@ def expansion_wave(cfg: KGMTConfig, system, obstacles: Tensor, goal: Tensor,
         frontier_size = s.tree_size - s.frontier_lo
     if n_target is None:
         n_target = min(cfg.fanout * frontier_size, M - s.tree_size, R)
-    gslot = wave * R + torch.arange(R, dtype=torch.int64, device=dev)
-    slot_active = gslot < n_target
-    parent_idx = frontier_lo + gslot % max(frontier_size, 1)
-    if cfg.goal_bias > 0.0:
-        parent_idx = _goal_biased(
-            cfg, s.tree_samples[frontier_lo:frontier_lo + frontier_size], goal,
-            parent_idx, frontier_lo)
-    parent_rows = s.tree_samples[parent_idx]
-    parent_cost = s.costs[parent_idx]
-    parent_gid = parent_idx + gid_base if gid_base else parent_idx
-    if pool is not None:
-        parent_rows, parent_cost, parent_gid, slot_active = apply_pool(
-            cfg, gslot, parent_rows, parent_cost, parent_gid, slot_active, pool)
-    x0 = parent_rows[:, :system.state_dim].contiguous()
-    k_ctrl, k_accept = _wave_keys(s.key, s.itr, wave)
-    x1, controls, valid = _expand_rollout(cfg, system, k_ctrl, x0, obstacles)
-    valid = valid & slot_active
-    samples1 = torch.cat([x1, controls], dim=-1)
-    return (slot_active, parent_gid.to(torch.int32), parent_cost, x1,
+    with phase_scope("kgmt_parents", dev):
+        gslot = wave * R + torch.arange(R, dtype=torch.int64, device=dev)
+        slot_active = gslot < n_target
+        parent_idx = frontier_lo + gslot % max(frontier_size, 1)
+        if cfg.goal_bias > 0.0:
+            parent_idx = _goal_biased(
+                cfg, s.tree_samples[frontier_lo:frontier_lo + frontier_size], goal,
+                parent_idx, frontier_lo)
+        parent_rows = s.tree_samples[parent_idx]
+        parent_cost = s.costs[parent_idx]
+        parent_gid = parent_idx + gid_base if gid_base else parent_idx
+        if pool is not None:
+            parent_rows, parent_cost, parent_gid, slot_active = apply_pool(
+                cfg, gslot, parent_rows, parent_cost, parent_gid, slot_active, pool)
+        x0 = parent_rows[:, :system.state_dim].contiguous()
+        parent_gid = parent_gid.to(torch.int32)
+    with phase_scope("kgmt_rng", dev):
+        k_ctrl, k_accept = _wave_keys(s.key, s.itr, wave)
+    with phase_scope("kgmt_expand", dev):
+        x1, controls, valid = _expand_rollout(cfg, system, k_ctrl, x0, obstacles)
+        valid = valid & slot_active
+        samples1 = torch.cat([x1, controls], dim=-1)
+    return (slot_active, parent_gid, parent_cost, x1,
             controls, valid, samples1, k_accept)
 
 
@@ -424,7 +451,8 @@ def _region_stats_and_accept(cfg: KGMTConfig, grid: RegionGrid, x1: Tensor,
     # acceptance (KGMT.cu:394-400): Bernoulli(score of the child's R1 cell)
     # OR its R2 subcell was never reached. Outside the grid score_r = 0 and
     # the child counts as virgin (r1 < 0 implies r2 < 0).
-    u = rng.uniform(k_accept, (R,))
+    with phase_scope("kgmt_rng", x1.device):
+        u = rng.uniform(k_accept, (R,))
     score_r = torch.where(in_r1, r1_score[r1c], 0.0)
     seen_r = torch.where(in_r2, r2_seen[r2c], 0)
     virgin_r2 = ~in_r2 | (seen_r == 0)
@@ -460,8 +488,8 @@ def _goal_costs(cfg: KGMTConfig, x1: Tensor, goal: Tensor, within: Tensor,
 def _readout(accept: Tensor, valid: Tensor, cost_to_goal: Tensor
              ) -> tuple[int, int, bool]:
     """The wave's one device->host read: (accepted, valid, solved)."""
-    n_sum, n_valid, solved = torch.stack(
-        [accept.sum(), valid.sum(), torch.isfinite(cost_to_goal).long()]).tolist()
+    n_sum, n_valid, solved = host_read(torch.stack(
+        [accept.sum(), valid.sum(), torch.isfinite(cost_to_goal).long()]))
     return n_sum, n_valid, bool(solved)
 
 
@@ -474,12 +502,11 @@ def _wave_step(cfg: KGMTConfig, system, grid: RegionGrid, obstacles: Tensor,
     M = cfg.max_tree_size
     w, s, r2_seen = carry
     dev = s.tree_samples.device
-    with phase_scope("kgmt_expand", dev):
-        (slot_active, parent_idx, parent_cost, x1, controls, valid, samples1,
-         k_accept) = expansion_wave(cfg, system, obstacles, goal, s, wave=w,
-                                    frontier_lo=frontier_lo0,
-                                    frontier_size=tree_size0 - frontier_lo0,
-                                    n_target=n_target)
+    (slot_active, parent_idx, parent_cost, x1, controls, valid, samples1,
+     k_accept) = expansion_wave(cfg, system, obstacles, goal, s, wave=w,
+                                frontier_lo=frontier_lo0,
+                                frontier_size=tree_size0 - frontier_lo0,
+                                n_target=n_target)
     with phase_scope("kgmt_region_stats", dev):
         d1, d2, accept, r2_seen = _region_stats_and_accept(
             cfg, grid, x1, slot_active, valid, r1_score, r2_seen, k_accept)
@@ -489,7 +516,8 @@ def _wave_step(cfg: KGMTConfig, system, grid: RegionGrid, obstacles: Tensor,
         incl, accept_pos, within = _commit_plan(accept, ts, M)
         child_cost = parent_cost + controls[:, -1]
         goal_costs = _goal_costs(cfg, x1, goal, within, child_cost)
-        best = torch.argmin(goal_costs)  # first index on ties
+        # first index on ties; read, since indexing by a 0-d tensor reads it anyway
+        best = host_read(torch.argmin(goal_costs))
         best_cost = goal_costs[best]
         improved = best_cost < s.cost_to_goal
         s.cost_to_goal = torch.where(improved, best_cost, s.cost_to_goal)
@@ -504,19 +532,20 @@ def _wave_step(cfg: KGMTConfig, system, grid: RegionGrid, obstacles: Tensor,
             s.tree_samples[ts:ts + n_acc] = samples1[lanes]
             s.tree_parent[ts:ts + n_acc] = parent_idx[lanes]
             s.costs[ts:ts + n_acc] = child_cost[lanes]
-    s.tree_size = ts + n_acc
-    s.r1_total += d1[:, 0]
-    s.r1_valid += d1[:, 1]
-    s.r1_invalid += d1[:, 0] - d1[:, 1]
-    s.r1_avail |= (d1[:, 1] > 0).to(torch.int32)
-    s.r2_total += d2[:, 0]
-    s.r2_valid += d2[:, 1]
-    s.r2_invalid += d2[:, 0] - d2[:, 1]
-    s.r2_avail |= (d2[:, 1] > 0).to(torch.int32)
-    s.u_samples = samples1
-    s.u_parent = parent_idx
-    s.m_valid[s.itr] += n_valid
-    s.m_accepted[s.itr] += n_acc
+    with phase_scope("kgmt_boundary", dev):
+        s.tree_size = ts + n_acc
+        s.r1_total += d1[:, 0]
+        s.r1_valid += d1[:, 1]
+        s.r1_invalid += d1[:, 0] - d1[:, 1]
+        s.r1_avail |= (d1[:, 1] > 0).to(torch.int32)
+        s.r2_total += d2[:, 0]
+        s.r2_valid += d2[:, 1]
+        s.r2_invalid += d2[:, 0] - d2[:, 1]
+        s.r2_avail |= (d2[:, 1] > 0).to(torch.int32)
+        s.u_samples = samples1
+        s.u_parent = parent_idx
+        s.m_valid[s.itr] += n_valid
+        s.m_accepted[s.itr] += n_acc
     return w + 1, s, r2_seen, solved
 
 
@@ -553,32 +582,35 @@ def kgmt_run(cfg: KGMTConfig, system, grid: RegionGrid, goal: Tensor,
     is off) or the iteration budget: the flat (iteration x wave) loop of the
     JAX kgmt_run, one host sync per wave. Iteration-start context: fl0, ts0,
     n_tgt, r1_score, r2_seen."""
-    solved = bool(torch.isfinite(s.cost_to_goal))
+    dev = s.tree_samples.device
+    with phase_scope("kgmt_init", dev):
+        solved = host_read(torch.isfinite(s.cost_to_goal))
     w = fl0 = ts0 = n_tgt = 0
     r1_score, r1_thr, r2_seen = s.r1_score, s.r1_threshold, s.r2_avail
-    dev = s.tree_samples.device
     while w > 0 or _keep_going(cfg, s, solved):
-        if w == 0:
-            with phase_scope("kgmt_scores", dev):
-                r1_score, r1_thr = update_region_scores(cfg, s)
-            fl0, ts0 = s.frontier_lo, s.tree_size
-            n_tgt = _fresh_target(cfg, ts0 - fl0, ts0)
-            r2_seen = s.r2_avail.clone()
-        it = s.itr
-        w, s, r2_seen, solved = _wave_step(cfg, system, grid, obstacles, goal,
-                                           fl0, ts0, n_tgt, r1_score,
-                                           (w, s, r2_seen))
-        s.r1_score, s.r1_threshold = r1_score, r1_thr
-        s.m_frontier_size[it] = ts0 - fl0
-        s.m_tree_size[it] = s.tree_size
-        if w >= _num_waves(cfg, n_tgt):
-            s.stalled = s.tree_size == ts0
-            if cfg.keep_frontier_on_stall and s.stalled:
-                s.frontier_lo = fl0
-            else:
-                s.frontier_lo = ts0
-            s.itr = it + 1
-            w = 0
+        with phase_scope("kgmt_wave", dev, itr=s.itr, w=w):
+            if w == 0:
+                with phase_scope("kgmt_scores", dev):
+                    r1_score, r1_thr = update_region_scores(cfg, s)
+                    fl0, ts0 = s.frontier_lo, s.tree_size
+                    n_tgt = _fresh_target(cfg, ts0 - fl0, ts0)
+                    r2_seen = s.r2_avail.clone()
+            it = s.itr
+            w, s, r2_seen, solved = _wave_step(cfg, system, grid, obstacles, goal,
+                                               fl0, ts0, n_tgt, r1_score,
+                                               (w, s, r2_seen))
+            with phase_scope("kgmt_boundary", dev):
+                s.r1_score, s.r1_threshold = r1_score, r1_thr
+                s.m_frontier_size[it] = ts0 - fl0
+                s.m_tree_size[it] = s.tree_size
+                if w >= _num_waves(cfg, n_tgt):
+                    s.stalled = s.tree_size == ts0
+                    if cfg.keep_frontier_on_stall and s.stalled:
+                        s.frontier_lo = fl0
+                    else:
+                        s.frontier_lo = ts0
+                    s.itr = it + 1
+                    w = 0
     return s
 
 
@@ -596,7 +628,7 @@ def kgmt_iteration(cfg: KGMTConfig, system, grid: RegionGrid, obstacles: Tensor,
     with phase_scope("kgmt_frontier", dev):
         fl0, ts0 = s.frontier_lo, s.tree_size
         n_tgt = _fresh_target(cfg, ts0 - fl0, ts0)
-    carry = (0, s, s.r2_avail.clone())
+        carry = (0, s, s.r2_avail.clone())
     it = s.itr
     with phase_scope("kgmt_waves", dev):
         for _ in range(_num_waves(cfg, n_tgt)):
@@ -614,8 +646,9 @@ def kgmt_iteration(cfg: KGMTConfig, system, grid: RegionGrid, obstacles: Tensor,
 
 def kgmt_solve(cfg: KGMTConfig, system, grid: RegionGrid, init: Tensor,
                goal: Tensor, obstacles: Tensor, key: Tensor) -> KGMTState:
-    return kgmt_run(cfg, system, grid, goal, obstacles,
-                    init_state(cfg, grid, init, key))
+    with phase_scope("kgmt_init", init.device):
+        s = init_state(cfg, grid, init, key)
+    return kgmt_run(cfg, system, grid, goal, obstacles, s)
 
 
 def kgmt_run_pathless(cfg: KGMTConfig, system, grid: RegionGrid, goal: Tensor,
@@ -628,77 +661,87 @@ def kgmt_run_pathless(cfg: KGMTConfig, system, grid: RegionGrid, goal: Tensor,
     the JAX package, and counted in ``m_dropped``."""
     M, R = cfg.max_tree_size, cfg.rollouts_per_iter
     dev = s.f_rows.device
-    solved = bool(torch.isfinite(s.cost_to_goal))
+    with phase_scope("kgmt_init", dev):
+        solved = host_read(torch.isfinite(s.cost_to_goal))
+        nxt_rows = torch.zeros((R, SAMPLE_DIM + 1), dtype=torch.float32, device=dev)
+        slot = torch.arange(R, dtype=torch.int64, device=dev)
     w = n_tgt = n_next = 0
     r1_score, r1_thr, r2_seen = s.r1_score, s.r1_threshold, s.r2_avail
-    nxt_rows = torch.zeros((R, SAMPLE_DIM + 1), dtype=torch.float32, device=dev)
-    slot = torch.arange(R, dtype=torch.int64, device=dev)
     while w > 0 or _keep_going(cfg, s, solved):
-        if w == 0:
-            with phase_scope("kgmt_scores", dev):
-                r1_score, r1_thr = update_region_scores(cfg, s)
-            n_tgt = _fresh_target(cfg, s.n_frontier, s.tree_size)
-            r2_seen = s.r2_avail.clone()
-            n_next = 0
-        it, n_frontier = s.itr, s.n_frontier
+        with phase_scope("kgmt_wave", dev, itr=s.itr, w=w):
+            if w == 0:
+                with phase_scope("kgmt_scores", dev):
+                    r1_score, r1_thr = update_region_scores(cfg, s)
+                    n_tgt = _fresh_target(cfg, s.n_frontier, s.tree_size)
+                    r2_seen = s.r2_avail.clone()
+                    n_next = 0
+            it, n_frontier = s.itr, s.n_frontier
 
-        gslot = w * R + slot
-        slot_active = gslot < n_tgt
-        parent_idx = gslot % max(n_frontier, 1)
-        if cfg.goal_bias > 0.0:
-            parent_idx = _goal_biased(cfg, s.f_rows[:n_frontier], goal,
-                                      parent_idx, 0)
-        parent_rows = s.f_rows[parent_idx]
-        parent_cost = parent_rows[:, SAMPLE_DIM]
-        x0 = parent_rows[:, :system.state_dim].contiguous()
-        k_ctrl, k_accept = _wave_keys(s.key, it, w)
-        x1, controls, valid = _expand_rollout(cfg, system, k_ctrl, x0, obstacles)
-        valid = valid & slot_active
-        samples1 = torch.cat([x1, controls], dim=-1)
-        d1, d2, accept, r2_seen = _region_stats_and_accept(
-            cfg, grid, x1, slot_active, valid, r1_score, r2_seen, k_accept)
+            with phase_scope("kgmt_parents", dev):
+                gslot = w * R + slot
+                slot_active = gslot < n_tgt
+                parent_idx = gslot % max(n_frontier, 1)
+                if cfg.goal_bias > 0.0:
+                    parent_idx = _goal_biased(cfg, s.f_rows[:n_frontier], goal,
+                                              parent_idx, 0)
+                parent_rows = s.f_rows[parent_idx]
+                parent_cost = parent_rows[:, SAMPLE_DIM]
+                x0 = parent_rows[:, :system.state_dim].contiguous()
+            with phase_scope("kgmt_rng", dev):
+                k_ctrl, k_accept = _wave_keys(s.key, it, w)
+            with phase_scope("kgmt_expand", dev):
+                x1, controls, valid = _expand_rollout(cfg, system, k_ctrl, x0, obstacles)
+                valid = valid & slot_active
+                samples1 = torch.cat([x1, controls], dim=-1)
+            with phase_scope("kgmt_region_stats", dev):
+                d1, d2, accept, r2_seen = _region_stats_and_accept(
+                    cfg, grid, x1, slot_active, valid, r1_score, r2_seen, k_accept)
 
-        incl, _, within = _commit_plan(accept, s.tree_size, M)
-        child_cost = parent_cost + controls[:, -1]
-        best_cost = _goal_costs(cfg, x1, goal, within, child_cost).min()
-        s.cost_to_goal = torch.minimum(best_cost, s.cost_to_goal)
-        n_sum, n_valid, solved = _readout(accept, valid, s.cost_to_goal)
-        n_acc = min(n_sum, M - s.tree_size)
-        kept = min(n_acc, R - n_next)
-        if kept:
-            rows = torch.cat([samples1, child_cost[:, None]], dim=-1)
-            nxt_rows[n_next:n_next + kept] = rows[_first_accepted(incl, kept)]
-        s.m_dropped[it] += n_acc - kept
-        n_next = min(n_next + n_acc, R)
+            with phase_scope("kgmt_goal", dev):
+                incl, _, within = _commit_plan(accept, s.tree_size, M)
+                child_cost = parent_cost + controls[:, -1]
+                best_cost = _goal_costs(cfg, x1, goal, within, child_cost).min()
+                s.cost_to_goal = torch.minimum(best_cost, s.cost_to_goal)
+            with phase_scope("kgmt_commit", dev):
+                n_sum, n_valid, solved = _readout(accept, valid, s.cost_to_goal)
+                n_acc = min(n_sum, M - s.tree_size)
+                kept = min(n_acc, R - n_next)
+                if kept:
+                    rows = torch.cat([samples1, child_cost[:, None]], dim=-1)
+                    nxt_rows[n_next:n_next + kept] = rows[_first_accepted(incl, kept)]
+                s.m_dropped[it] += n_acc - kept
+                n_next = min(n_next + n_acc, R)
 
-        last = w + 1 >= _num_waves(cfg, n_tgt)
-        stalled = n_next == 0
-        if last and not (cfg.keep_frontier_on_stall and stalled):
-            s.f_rows.copy_(nxt_rows)
-            s.n_frontier = n_next
-        s.m_frontier_size[it] = n_frontier
-        s.tree_size += n_acc
-        s.r1_total += d1[:, 0]
-        s.r1_valid += d1[:, 1]
-        s.r1_invalid += d1[:, 0] - d1[:, 1]
-        s.r1_avail |= (d1[:, 1] > 0).to(torch.int32)
-        s.r2_avail |= (d2[:, 1] > 0).to(torch.int32)
-        s.r1_score, s.r1_threshold = r1_score, r1_thr
-        s.m_valid[it] += n_valid
-        s.m_accepted[it] += n_acc
-        s.m_tree_size[it] = s.tree_size
-        if last:
-            s.stalled = stalled
-            s.itr = it + 1
-        w = 0 if last else w + 1
+            with phase_scope("kgmt_boundary", dev):
+                last = w + 1 >= _num_waves(cfg, n_tgt)
+                stalled = n_next == 0
+                if last and not (cfg.keep_frontier_on_stall and stalled):
+                    s.f_rows.copy_(nxt_rows)
+                    s.n_frontier = n_next
+                s.m_frontier_size[it] = n_frontier
+                s.tree_size += n_acc
+                s.r1_total += d1[:, 0]
+                s.r1_valid += d1[:, 1]
+                s.r1_invalid += d1[:, 0] - d1[:, 1]
+                s.r1_avail |= (d1[:, 1] > 0).to(torch.int32)
+                s.r2_avail |= (d2[:, 1] > 0).to(torch.int32)
+                s.r1_score, s.r1_threshold = r1_score, r1_thr
+                s.m_valid[it] += n_valid
+                s.m_accepted[it] += n_acc
+                s.m_tree_size[it] = s.tree_size
+                if last:
+                    s.stalled = stalled
+                    s.itr = it + 1
+                w = 0 if last else w + 1
     return s
 
 
 def kgmt_solve_pathless(cfg: KGMTConfig, system, grid: RegionGrid,
                         init: Tensor, goal: Tensor, obstacles: Tensor,
                         key: Tensor) -> PathlessState:
-    return kgmt_run_pathless(cfg, system, grid, goal, obstacles,
-                             init_pathless_state(cfg, grid, init, key))
+    with phase_scope("kgmt_init", init.device):
+        s = init_pathless_state(cfg, grid, init, key)
+    return kgmt_run_pathless(cfg, system, grid, goal, obstacles, s)
 
 
 def extract_path(cfg: KGMTConfig, s: KGMTState) -> tuple[Tensor, Tensor, Tensor]:
@@ -766,24 +809,31 @@ class KGMT:
 
     def plan(self, scenario: Scenario, seed: int | None = None) -> KGMTResult:
         cfg, dev = self.config, self.device
-        obstacles_np, _ = scenario.padded_obstacles(cfg.max_obstacles)
-        obstacles = torch.as_tensor(obstacles_np, device=dev)
-        init = torch.as_tensor(scenario.init, device=dev)
-        goal = torch.as_tensor(scenario.goal, device=dev)
-        key = rng.key(cfg.seed if seed is None else seed, dev)
-        _synchronize(dev)
-        t0 = time.perf_counter()
-        if cfg.need_path:
-            final = kgmt_solve(cfg, self.system, self.grid, init, goal,
-                               obstacles, key)
-            nodes, samples, length = extract_path(cfg, final)
-        else:
-            final = kgmt_solve_pathless(cfg, self.system, self.grid, init,
-                                        goal, obstacles, key)
+        seed = cfg.seed if seed is None else seed
+        with phase_scope("kgmt_plan", dev, seed=seed, problems=1):
+            with phase_scope("kgmt_init", dev):
+                obstacles_np, _ = scenario.padded_obstacles(cfg.max_obstacles)
+                obstacles = torch.as_tensor(obstacles_np, device=dev)
+                init = torch.as_tensor(scenario.init, device=dev)
+                goal = torch.as_tensor(scenario.goal, device=dev)
+                key = rng.key(seed, dev)
+                _synchronize(dev)
+                t0 = time.perf_counter()
+            solve = kgmt_solve if cfg.need_path else kgmt_solve_pathless
+            final = solve(cfg, self.system, self.grid, init, goal, obstacles, key)
+            return self._finish(final, t0)
+
+    def _finish(self, final: KGMTState | PathlessState, t0: float) -> KGMTResult:
+        """The path walk and the result of a finished solve, its wall from
+        ``t0``."""
+        cfg, dev = self.config, self.device
+        with phase_scope("kgmt_extract", dev):
             nodes = samples = length = None
-        _synchronize(dev)
-        wall = time.perf_counter() - t0
-        return self._build_result(final, nodes, samples, length, wall)
+            if cfg.need_path:
+                nodes, samples, length = extract_path(cfg, final)
+            _synchronize(dev)
+            wall = time.perf_counter() - t0
+            return self._build_result(final, nodes, samples, length, wall)
 
     def resume(self, state: KGMTState | PathlessState, scenario: Scenario) -> KGMTResult:
         """Continue a solve from a state, a checkpointed one for example
@@ -801,21 +851,16 @@ class KGMT:
         if state.key.device != dev:
             raise ValueError(f"state on {state.key.device}, planner on {dev}: load "
                              "the checkpoint onto the planner's device")
-        obstacles = torch.as_tensor(scenario.padded_obstacles(cfg.max_obstacles)[0],
-                                    device=dev)
-        goal = torch.as_tensor(scenario.goal, device=dev)
-        _synchronize(dev)
-        t0 = time.perf_counter()
-        if cfg.need_path:
-            final = kgmt_run(cfg, self.system, self.grid, goal, obstacles, state)
-            nodes, samples, length = extract_path(cfg, final)
-        else:
-            final = kgmt_run_pathless(cfg, self.system, self.grid, goal, obstacles,
-                                      state)
-            nodes = samples = length = None
-        _synchronize(dev)
-        wall = time.perf_counter() - t0
-        return self._build_result(final, nodes, samples, length, wall)
+        with phase_scope("kgmt_plan", dev, problems=1):
+            with phase_scope("kgmt_init", dev):
+                obstacles = torch.as_tensor(
+                    scenario.padded_obstacles(cfg.max_obstacles)[0], device=dev)
+                goal = torch.as_tensor(scenario.goal, device=dev)
+                _synchronize(dev)
+                t0 = time.perf_counter()
+            run = kgmt_run if cfg.need_path else kgmt_run_pathless
+            final = run(cfg, self.system, self.grid, goal, obstacles, state)
+            return self._finish(final, t0)
 
     def plan_recorded(self, scenario: Scenario, out_dir: str, seed: int | None = None,
                       dump_every: int = 1, checkpoint_every: int | None = None
@@ -854,13 +899,13 @@ class KGMT:
             if i % dump_every == 0:
                 it = i + 1
                 for field, sub, name, cols in _RECORDED:
-                    write_csv(getattr(state, field).cpu().numpy(),
+                    write_csv(host_read(getattr(state, field), numpy=True),
                               out / sub / f"{name}{it}.csv", cols)
                 write_csv(frontier_mask(state, cfg.max_tree_size).astype(np.int32),
                           out / "G" / f"G{it}.csv")
             if checkpoint_every and (i + 1) % checkpoint_every == 0:
                 save_checkpoint(state, out / f"checkpoint_{i + 1}.npz")
-            if not _keep_going(cfg, state, bool(torch.isfinite(state.cost_to_goal))):
+            if not _keep_going(cfg, state, host_read(torch.isfinite(state.cost_to_goal))):
                 break
         nodes, samples, length = extract_path(cfg, state)
         _synchronize(dev)
@@ -876,22 +921,22 @@ class KGMT:
                             ).generate_random_tree(scenario, num_rollouts)
 
     def _build_result(self, final, nodes, samples, length, wall) -> KGMTResult:
-        cost = float(final.cost_to_goal)
+        cost = host_read(final.cost_to_goal)
         solved = bool(np.isfinite(cost))
         it = final.itr
         if nodes is None:
             path = np.zeros((0, SAMPLE_DIM), np.float32)
             path_nodes = np.zeros(0, np.int32)
         else:
-            n = int(length)
-            path = samples[:n].cpu().numpy()
-            path_nodes = nodes[:n].cpu().numpy()
+            n = host_read(length)
+            path = host_read(samples[:n], numpy=True)
+            path_nodes = host_read(nodes[:n], numpy=True)
         metrics = {
             "frontier_size": final.m_frontier_size[:it],
             "valid": final.m_valid[:it],
             "accepted": final.m_accepted[:it],
             "tree_size": final.m_tree_size[:it],
-            "r1_threshold": float(final.r1_threshold),
+            "r1_threshold": host_read(final.r1_threshold),
             "rollout": rollout_kind(self.config, self.system),
         }
         if isinstance(final, PathlessState):
