@@ -1,6 +1,6 @@
 """Drive the cudasbmp_torch port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py            # phases 1-34, one GPU, no network
+    python3 chip_smoke.py            # phases 1-35, one GPU, no network
     python3 chip_smoke.py --profile  # also: torch.profiler over a demo solve,
                                      # an arena solve and a streaming sweep
     python3 chip_smoke.py --compare OLD.json NEW.json  # two runs' records:
@@ -206,7 +206,18 @@ cudasbmp_torch/csrc/ with nvcc at first use. Phases, one line each:
     say so, no kernel launch) equal to (b)'s seed-0 solve; under 'cuda' it
     raises. Each user library's nvcc seconds (first build, beside the
     package's) and cached load, its registers, and device ms of the user
-    kernels beside their built-in twins at the same shapes.
+    kernels beside their built-in twins at the same shapes;
+35. the threefry kernel (csrc/threefry.cu, every threefry draw of rng.py on
+    a CUDA key): each mode bitwise its torch twin on the same CUDA tensors
+    at the demo's wave (one key, 4,096 lanes) and the fleet's trip (64
+    keys, 64 x 4,096): the wave's keys, controls and acceptance uniforms,
+    fold_in with int and tensor data, split, random_bits and uniform from
+    offsets past 2^32, uniform where max(lo, ...) binds, one launch each;
+    device ms a launch of the wave's three draws at both shapes beside the
+    twin's, and their bounds. Its main-path launches are the ones counted
+    in [5] and [22] (three a wave or trip: the wave's keys, controls and
+    acceptance uniforms; under cuda_rng two, B2 drawing the controls; one
+    fold_in a batch) and, on each rank, in [33].
 
 Then the card's name and power limit, a JSON line of the kernels and,
 last, {"ok": true, "device": {...}}. Each kernel entry has its device
@@ -214,7 +225,8 @@ time, its plain twin's, both also by CUDA events, the regular profiler
 windows each device time is the median of (``regular_windows``,
 ``plain_regular_windows``; probes/timing.py), and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its f32 operations over 67
-TFLOP/s (probes/roofline.py); the rollout rows also the one-warp floor
+TFLOP/s (probes/roofline.py; the threefry row: its integer instructions
+at 4 warp-instructions a clock an SM, ``threefry_bound_ms``); the rollout rows also the one-warp floor
 (``floor_ms``, 32 lanes at the row's G) and, for B1-B4 and B6, the G
 their main path ran at (``split``). A line before the JSON flags every
 time read from fewer than MIN_REGULAR regular windows; a rollout row that
@@ -295,6 +307,9 @@ R1_RTOL, R1_GRAD_RTOL = 1e-5, 1e-4
 # tolerances (controls rtol and atol, the first two losses rtol) at 3 steps
 ADAM_TWIN_TOL, ADAM_TWIN_STEPS = 1e-5, 3
 ADAM_ROW_STEPS = 10  # the kernels line's ms, plain_ms and bound_ms: Adam steps
+# [35]'s shapes: (keys, lanes) of the demo's wave and of the fleet's trip
+TF_SHAPES = {"demo": (1, 4096), "fleet": (MULTI_B, 4096)}
+TF_SEED = 2**32 - 12345  # a large seed: its key's second word past 2^31
 
 
 def fail(msg: str) -> None:
@@ -494,6 +509,12 @@ def system_batch(name: str, B: int, seed: int, dev):
 
 def bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def threefry_launches(tfc) -> dict:
+    """The threefry wrappers' launches since their last reset, those that
+    launched (ops/threefry_cuda.py)."""
+    return {w.__name__: w.launches for w in tfc.WRAPPERS if w.launches}
 
 
 def check_against_twins(name, system, x0, c, obstacles, key, kw,
@@ -1585,6 +1606,7 @@ def multi_query_default(dev) -> tuple[dict, dict]:
     costs, goals, obstacles) for phase 25."""
     from cudasbmp_torch import KGMTConfig, rng
     from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.ops import threefry_cuda as tfc
     from cudasbmp_torch.parallel import MultiQueryPlanner
 
     out = {}
@@ -1596,10 +1618,18 @@ def multi_query_default(dev) -> tuple[dict, dict]:
         planner = MultiQueryPlanner(cfg, device=dev)
         planner.plan_batch(inits[:8], goals[:8], obstacles, seed=7)  # warm-up
         rc.reset_launch_counts()
+        tfc.reset_launch_counts()
         res = planner.plan_batch(inits, goals, obstacles, seed=cfg.seed)
         trips = planner.last_state.trips
         launches = {w.__name__: w.launches for w in rc.WRAPPERS}
         main_launches = kernel.launches
+        # a trip's keys, controls (not under cuda_rng: B6 draws them) and
+        # acceptance uniforms; the batch's keys one fold_in
+        tf_trips = threefry_launches(tfc)
+        want = {"fold_in_cuda": 1, "wave_keys_cuda": trips, "uniform_cuda": trips,
+                **({"scaled_uniform_cuda": trips} if backend == "auto" else {})}
+        check(tf_trips == want, f"multi {backend}: threefry launches {tf_trips} for "
+              f"{trips} trips")
         G = rc.lanes_per_rollout(B * cfg.rollouts_per_iter, rc.sm_count(dev.index or 0))
         check(launches.pop(kernel.__name__) == trips and set(launches.values()) == {0}
               and kernel.splits == {G: trips},
@@ -1629,7 +1659,8 @@ def multi_query_default(dev) -> tuple[dict, dict]:
             "solves_per_sec": res.solves_per_sec, "wall_time_s": res.wall_time_s,
             "trips": trips, "iterations_max": int(res.iterations.max()),
             "launches": main_launches, "split": G, "checked_problems": picks,
-            "replay_max_err": worst, "trip_costs": {str(k): v for k, v in costs.items()}}
+            "replay_max_err": worst, "trip_costs": {str(k): v for k, v in costs.items()},
+            "threefry_launches": tf_trips}
         if backend == "auto":
             batch = {"paths": res.paths, "path_lengths": res.path_lengths,
                      "costs": res.costs, "goals": goals, "obstacles": obstacles,
@@ -2974,6 +3005,10 @@ def two_ranks(out_dir: pathlib.Path, sharded_d4: dict, multi_batch: dict,
               f"B2 {arena_rng['launches']}")
         check(got["stream"]["digest"] == stream_sweeps["auto"]["digest"],
               f"two ranks: rank {r} run_sharded differs from [16]'s sweep")
+        # every rank's draws through the threefry kernel on its own card
+        check(all(sum(v.values()) > 0 for v in got["threefry"].values())
+              and len(got["threefry"]) == 5,
+              f"two ranks: rank {r} threefry launches {got['threefry']}")
     files = sorted((base / "ck").glob("sharded_checkpoint_*.npz"),
                    key=lambda q: int(q.stem.split("_")[-1]))
     check(len(files) > 1, f"two ranks: checkpoints {files}")
@@ -3003,6 +3038,7 @@ def two_ranks_child(base: pathlib.Path) -> int:
 
     from cudasbmp_torch import KGMTConfig, Scenario
     from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.ops import threefry_cuda as tfc
     from cudasbmp_torch.parallel import (
         ArenaMultiQueryPlanner,
         MultiQueryPlanner,
@@ -3016,13 +3052,14 @@ def two_ranks_child(base: pathlib.Path) -> int:
     dev = torch.device(make_planner_mesh(device="cuda").device)
     demo = Scenario.demo()
     out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
-           "rank": dist.get_rank(), "sharded": {}}
+           "rank": dist.get_rank(), "device": str(dev), "sharded": {}, "threefry": {}}
     for backend, kernel in (("auto", rc.rollout_batched_cuda),
                             ("cuda_rng", rc.sample_and_rollout_batched_cuda)):
         mesh = make_planner_mesh(n_tree=4, device="cuda")
         planner = ShardedTreePlanner(KGMTConfig(rollout_backend=backend), mesh=mesh)
         planner.plan(demo, seed=100)  # warm-up
         rc.reset_launch_counts()
+        tfc.reset_launch_counts()
         rows, walls, trips = [], [], 0
         for seed in SHARDED_SEEDS:
             r = planner.plan(demo, seed=seed)
@@ -3031,6 +3068,7 @@ def two_ranks_child(base: pathlib.Path) -> int:
             trips += planner.last_state.trips
         check(kernel.launches == trips, f"rank {out['rank']}: {kernel.launches} launches "
               f"for {trips} trips")
+        out["threefry"][f"sharded_{backend}"] = threefry_launches(tfc)
         out["sharded"][backend] = {"fields": rows, "walls": walls,
                                    "wall_p50_s": float(np.median(walls)), "trips": trips,
                                    "launches": kernel.launches, "splits": dict(kernel.splits),
@@ -3043,7 +3081,9 @@ def two_ranks_child(base: pathlib.Path) -> int:
     planner = MultiQueryPlanner(cfg, mesh=make_planner_mesh(device="cuda"))
     planner.plan_batch(inits[:8], goals[:8], obstacles, seed=7)  # warm-up
     rc.reset_launch_counts()
+    tfc.reset_launch_counts()
     res = planner.plan_batch(inits, goals, obstacles, seed=cfg.seed)
+    out["threefry"]["multi"] = threefry_launches(tfc)
     out["multi"] = {"digest": multi_digest(res), "wall_time_s": res.wall_time_s,
                     "trips": planner.last_state.trips,
                     "launches": rc.rollout_batched_cuda.launches,
@@ -3054,14 +3094,18 @@ def two_ranks_child(base: pathlib.Path) -> int:
                                    auto_capacity=True)
     arena.plan_batch(inits, goals, obstacles, seed=7)  # warm-up
     rc.reset_launch_counts()
+    tfc.reset_launch_counts()
     res = arena.plan_batch(inits, goals, obstacles, seed=8, max_extensions=1)
+    out["threefry"]["arena"] = threefry_launches(tfc)
     out["arena"] = {"digest": arena_digest(res), "wall_time_s": res.wall_time_s,
                     "solves_per_sec": res.solves_per_sec,
                     "launches": {w.__name__: w.launches for w in rc.WRAPPERS if w.launches}}
     sweep = StreamingMonteCarloPlanner(KGMTConfig(**SWEEP), pool=STREAM_POOL, device="cuda")
     rc.reset_launch_counts()
+    tfc.reset_launch_counts()
     s = sweep.run_sharded(STREAM_N, mesh=make_planner_mesh(device="cuda"), seed=1,
                           num_obstacles=8)
+    out["threefry"]["stream"] = threefry_launches(tfc)
     out["stream"] = {"digest": digest(s.costs, s.iters), "wall_time_s": s.wall_time_s,
                      "solve_rate": s.solve_rate,
                      "launches": rc.rollout_batched_cuda.launches}
@@ -3099,7 +3143,8 @@ def ranks_only(n: int) -> int:
             "sharded": {b: {k: v["sharded"][b][k] for k in (
                 "wall_p50_s", "trips", "launches", "launches_per_iteration",
                 "launches_per_trip", "host_reads_per_iteration")} for b in v["sharded"]},
-            "multi": v["multi"], "arena": v["arena"], "stream": v["stream"]}))
+            "multi": v["multi"], "arena": v["arena"], "stream": v["stream"],
+            "device": v["device"], "threefry": v["threefry"]}))
     return 0
 
 
@@ -3530,6 +3575,84 @@ def print_user_dynamics(ud: dict, seconds: float) -> None:
         f"({seconds:.1f} s)", flush=True)
 
 
+def check_threefry(dev) -> dict:
+    """Phase 35: the threefry kernel (csrc/threefry.cu) in every mode bit
+    for bit its torch twin (rng.py's ``*_torch``) on the same CUDA tensors,
+    one launch each, at TF_SHAPES: the wave's keys (``wave_keys``, the
+    fleet's per problem, some waves 0), its controls (``scaled_uniform``
+    between the bicycle's bounds, [..., 4,096, 3]) and acceptance uniforms;
+    fold_in with int data past 2^32 and tensor data; split and random_bits
+    from offsets past 2^32; uniform where max(lo, ...) binds. Then device
+    ms a launch of the wave's three draws at both shapes beside the twin's
+    (PLAIN_CALLS a window), and their bounds
+    (probes/roofline.py::threefry_bound_ms at the card's SM count)."""
+    from cudasbmp_torch import rng
+    from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.ops import threefry_cuda as tfc
+    from cudasbmp_torch.probes import roofline as rf
+    from cudasbmp_torch.systems.bicycle import KinematicBicycle
+
+    lo, hi = KinematicBicycle().control_spec.bounds(dev)
+    pair_lo = torch.tensor([19.5, 14.5], device=dev)  # above hi: the max binds
+    sms = rc.sm_count(dev.index or 0)
+    out = {"checks": {}, "times": {}, "bounds": {}, "sm_count": sms}
+    for tag, (B, R) in TF_SHAPES.items():
+        base = rng.key(TF_SEED, dev)
+        per = torch.arange(B, device=dev)
+        k = base if B == 1 else rng.fold_in(base, per)
+        itr, wave, data = (5, 2, 977) if B == 1 else (per % 9, per * 7 % 5, per * 977)
+        draws = {  # name: (kernel route, twin, mode, outputs)
+            "wave_keys": (lambda: rng.wave_keys(k, itr, wave),
+                          lambda: rng.wave_keys_torch(k, itr, wave), "wave_keys", B),
+            "controls": (lambda: rng.scaled_uniform(k, (R, 3), lo, hi),
+                         lambda: rng.scaled_uniform_torch(k, (R, 3), lo, hi),
+                         "scaled_uniform", B * R * 3),
+            "acceptance": (lambda: rng.uniform(k, (R,)), lambda: rng.uniform_torch(k, (R,)),
+                           "uniform", B * R),
+            "fold_in_int": (lambda: rng.fold_in(k, 2**33 + 9),
+                            lambda: rng.fold_in_torch(k, 2**33 + 9), "fold_in", B),
+            "fold_in_tensor": (lambda: rng.fold_in(k, data),
+                               lambda: rng.fold_in_torch(k, data), "fold_in", B),
+            "split": (lambda: rng.split(k, 3, 2**32 - 1),
+                      lambda: rng.split_torch(k, 3, 2**32 - 1), "split", B * 3),
+            "random_bits": (lambda: rng.random_bits(k, (R, 3), 2**32 + 7),
+                            lambda: rng.random_bits_torch(k, (R, 3), 2**32 + 7),
+                            "random_bits", B * R * 3),
+            "uniform_max_binds": (lambda: rng.uniform(k, (R, 2), pair_lo, -1.0, 3 * 2**32 + 1),
+                                  lambda: rng.uniform_torch(k, (R, 2), pair_lo, -1.0,
+                                                            3 * 2**32 + 1),
+                                  "uniform", B * R * 2),
+        }
+        for name, (kernel, twin, mode, outputs) in draws.items():
+            tfc.reset_launch_counts()
+            got, want = kernel(), twin()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            launched = threefry_launches(tfc)
+            same = all(g.shape == w.shape and g.dtype == w.dtype
+                       and (bitwise(g, w) if g.dtype == torch.float32 else torch.equal(g, w))
+                       for g, w in zip(got, want))
+            check(same and len(got) == len(want), f"threefry {tag} {name}: differs from "
+                  f"its twin")
+            check(sum(launched.values()) == 1, f"threefry {tag} {name}: launches {launched}")
+            out["checks"][f"{tag}/{name}"] = {"shape": list(got[0].shape),
+                                              "launches": launched, "bitwise": True}
+            if name == "uniform_max_binds":
+                check(torch.equal(got[0], pair_lo.expand_as(got[0])),
+                      f"threefry {tag}: max(lo, ...) does not bind")
+            if name in ("wave_keys", "controls", "acceptance"):
+                timed(out["times"], f"{tag}_{name}", kernel)
+                timed(out["times"], f"{tag}_{name}_plain", twin, PLAIN_CALLS, plain=True)
+                ms, by = rf.threefry_bound_ms(mode, outputs, B, sm_count=sms)
+                out["bounds"][f"{tag}_{name}"] = {"mode": mode, "outputs": outputs,
+                                                  "bound_ms": ms, "bound_by": by}
+        t = out["times"]
+        for side in ("", "_plain"):
+            t[f"{tag}_wave{side}_ms"] = sum(t[f"{tag}_{n}{side}_ms"]
+                                            for n in ("wave_keys", "controls", "acceptance"))
+    return out
+
+
 # the phases whose solves two runs of the same kernels' results must share
 SOLVE_PHASES = ("tree_auto", "tree_cuda_rng", "pathless_auto", "forty_boxes",
                 "all_options", "other_systems", "arena_config4", "arena_extension",
@@ -3597,6 +3720,7 @@ def main() -> int:
     from cudasbmp_torch.config import Scenario
     from cudasbmp_torch.ops import _build
     from cudasbmp_torch.ops import rollout_cuda as rc
+    from cudasbmp_torch.ops import threefry_cuda as tfc
     from cudasbmp_torch.ops.rollout import rollout_batch
     from cudasbmp_torch.probes import roofline as rf
     from cudasbmp_torch.probes import timing
@@ -3674,8 +3798,14 @@ def main() -> int:
     G_demo = rc.lanes_per_rollout(cfg.rollouts_per_iter, rc.sm_count(dev.index or 0))
     check(G_demo > 1, f"the rule picks G={G_demo} for the demo's wave")
     rc.reset_launch_counts()
+    tfc.reset_launch_counts()
     tree, rows = solve_seeds(cfg, dev, replay=True)
     b1_launches, b2_launches = rc.rollout_cuda.launches, rc.sample_and_rollout_cuda.launches
+    tf_demo = threefry_launches(tfc)
+    check(tf_demo == {"wave_keys_cuda": b1_launches, "scaled_uniform_cuda": b1_launches,
+                      "uniform_cuda": b1_launches},
+          f"tree/auto: threefry launches {tf_demo} for {b1_launches} waves")
+    record["threefry_main"] = {"tree_auto": tf_demo}
     check(b1_launches == tree["waves"] and b2_launches == 0
           and rc.rollout_cuda.splits == {G_demo: b1_launches},
           f"tree/auto: B1 launches {b1_launches} for {tree['waves']} waves at G "
@@ -4149,6 +4279,24 @@ def main() -> int:
     ud = record["user_dynamics"] = user_dynamics(dev, user_builds, record)
     print_user_dynamics(ud, time.perf_counter() - t0)
 
+    # 35. the threefry kernel against its twin; its main-path launches
+    t0 = time.perf_counter()
+    tf = record["threefry"] = check_threefry(dev)
+    tf_main = record["threefry_main"]
+    for b, v in multi.items():
+        tf_main[f"multi_{b}"] = v["threefry_launches"]
+    tf_ranks = {f"rank{r}": tr[f"rank{r}"]["threefry"] for r in range(TWO_RANKS)}
+    tft, tfb = tf["times"], tf["bounds"]
+    print(f"[35 threefry] {len(tf['checks'])} draws bitwise their twins, one launch each "
+          f"({', '.join(tf['checks'])}) | device ms a launch (twin's), bound ms: " + " | ".join(
+              f"{tag} " + ", ".join(
+                  f"{n} {tft[f'{tag}_{n}_ms']:.5f} ({tft[f'{tag}_{n}_plain_ms']:.4f}), "
+                  f"{tfb[f'{tag}_{n}']['bound_ms']:.3g} ({tfb[f'{tag}_{n}']['bound_by']})"
+                  for n in ("wave_keys", "controls", "acceptance"))
+              for tag in TF_SHAPES)
+          + f" | main-path launches {tf_main} | two ranks {tf_ranks} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     if "--profile" in sys.argv[1:]:
         out_dir.mkdir(exist_ok=True)
         record["profile_tree_auto"] = profile_solve(cfg, dev, out_dir)
@@ -4392,6 +4540,36 @@ def main() -> int:
          "ms_pipeline_padded": wr["pipeline_padded_ms"], "chain_ms": wr["chain_ms"],
          "switch": wr["switch"], "ms_switch_below": wr["switch_below_ms"],
          "ms_switch_past": wr["switch_past_ms"]},
+        {"name": "threefry_kernel (TF)", "route": "cuda",
+         "source": "cudasbmp_torch/csrc/threefry.cu",
+         "replaces": "no TPU kernel (jax.random's threefry, fused by XLA: "
+                     "cudasbmp_tpu/planners/kgmt.py:377-387 and :448, "
+                     "cudasbmp_tpu/systems/base.py:42-47)",
+         "modes": ["fold_in", "split", "random_bits", "uniform", "scaled_uniform",
+                   "wave_keys"],
+         "launches": sum(sum(v.values()) for v in tf_main.values()),
+         "launches_by_run": tf_main,
+         "launches_two_ranks": sum(sum(v.values()) for r in tf_ranks.values()
+                                   for v in r.values()),
+         "max_abs_err": 0.0, "bitwise_draws": len(tf["checks"]),
+         "timed": "the demo wave's controls, scaled_uniform over 4,096 x 3",
+         "ms": tft["demo_controls_ms"], "plain_ms": tft["demo_controls_plain_ms"],
+         "launch_ms": tft["demo_controls_launch_ms"],
+         "plain_launch_ms": tft["demo_controls_plain_launch_ms"],
+         **regular(tft["demo_controls_regular"], tft["demo_controls_plain_regular"]),
+         "bound_ms": tfb["demo_controls"]["bound_ms"],
+         "bound_by": tfb["demo_controls"]["bound_by"], "library_ms": None,
+         "ms_acceptance": tft["demo_acceptance_ms"], "ms_wave_keys": tft["demo_wave_keys_ms"],
+         "ms_wave": tft["demo_wave_ms"], "plain_ms_wave": tft["demo_wave_plain_ms"],
+         "ms_64x4096": tft["fleet_controls_ms"],
+         "plain_ms_64x4096": tft["fleet_controls_plain_ms"],
+         "bound_ms_64x4096": tfb["fleet_controls"]["bound_ms"],
+         "bound_by_64x4096": tfb["fleet_controls"]["bound_by"],
+         "ms_acceptance_64x4096": tft["fleet_acceptance_ms"],
+         "ms_wave_keys_64x4096": tft["fleet_wave_keys_ms"],
+         "ms_wave_64x4096": tft["fleet_wave_ms"],
+         "plain_ms_wave_64x4096": tft["fleet_wave_plain_ms"],
+         "bounds": tfb},
     ]
     for k in kernels:
         # a row with main_path None is a reference kernel no user path runs:

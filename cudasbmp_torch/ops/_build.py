@@ -46,7 +46,7 @@ from cudasbmp_torch.systems.base import struct_flags
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("rollout.cu", "chains.cu", "refine.cu")
+SOURCES = ("rollout.cu", "chains.cu", "refine.cu", "threefry.cu")
 USER_SOURCES = ("rollout.cu", "refine.cu")  # a user struct's library
 USER_MACRO = "CUDASBMP_USER_SYSTEM"
 USER_HEADER = "cudasbmp_user_system.cuh"
@@ -97,6 +97,13 @@ SIGNATURES = {
     "cudasbmp_refine_adam": (_I, _I, _F, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                              _F, _F, _F, _F, _F, _F, _P, _LL, _I, _P, _P, _I, _I,
                              _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    # device, mode, keys, key row and word strides, key div, mod; data0
+    # (pointer, value, div, mod, int64?), data1 (the same), folds; lo
+    # (pointer, value, div, mod), hi (the same), clamp; n, offset, total,
+    # out, stream
+    "cudasbmp_threefry": (_I, _I, _P, _LL, _LL, _LL, _LL, _P, _LL, _LL, _LL, _I,
+                          _P, _LL, _LL, _LL, _I, _I, _P, _F, _LL, _LL, _P, _F,
+                          _LL, _LL, _I, _LL, _LL, _LL, _P, _P),
     # (none): 1 where a user library's struct has R1's back(), else 0
     "cudasbmp_user_has_back": (),
 }
@@ -142,7 +149,7 @@ def library_path(struct: str | None = None) -> Path:
 
 def compile_commands(nvcc: str, tmp: str, struct: str | None = None
                      ) -> list[list[str]]:
-    """One nvcc a source, objects into ``tmp``: the package's three, or a
+    """One nvcc a source, objects into ``tmp``: the package's four, or a
     user struct's two with the macro and ``tmp`` (where its header is) on
     the include path."""
     if struct is None:

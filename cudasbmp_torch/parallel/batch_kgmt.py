@@ -320,7 +320,7 @@ def arena_iteration(cfg: KGMTConfig, system, grid: RegionGrid,
 
         # expansion
         with phase_scope("kgmt_rng", dev):
-            k_ctrl, k_accept = rng.split(rng.fold_in(s.key, s.it)).unbind(0)
+            k_ctrl, k_accept = rng.wave_keys(s.key, s.it, 0)
         with phase_scope("kgmt_expand", dev):
             x1, controls, valid = _rollout_wave(cfg, system, x0, obstacles, k_ctrl, row0)
             live = ~s.done

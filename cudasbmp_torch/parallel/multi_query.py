@@ -247,14 +247,6 @@ def _goal_biased(cfg: KGMTConfig, s: MultiQueryState, goals: Tensor,
     return torch.cat([biased, parent_idx[:, n_biased:]], dim=1)
 
 
-def _wave_keys(s: MultiQueryState) -> tuple[Tensor, Tensor]:
-    """(k_ctrl, k_accept) [B, 2] of each problem's wave (itr, w)."""
-    key_iter = rng.fold_in(s.key, s.itr)
-    key_wave = torch.where((s.w > 0)[:, None], rng.fold_in(key_iter, s.w), key_iter)
-    k = rng.split(key_wave)
-    return k[:, 0].contiguous(), k[:, 1].contiguous()
-
-
 def _rollout(cfg: KGMTConfig, system, k_ctrl: Tensor, x0: Tensor,
              obstacles: Tensor) -> tuple[Tensor, Tensor, Tensor]:
     """One wave of every problem: x0 [B, R, S] against obstacles [B, K, 4]
@@ -396,7 +388,7 @@ def multi_query_trip(cfg: KGMTConfig, system, grid: RegionGrid, goals: Tensor,
                 1, parent_idx[..., None].expand(B, R, SAMPLE_DIM))
             parent_cost = s.costs.gather(1, parent_idx)
         with phase_scope("kgmt_rng", dev):
-            k_ctrl, k_accept = _wave_keys(s)
+            k_ctrl, k_accept = rng.wave_keys(s.key, s.itr, s.w)
         *_, s.r2_seen = batched_wave(cfg, system, grid, goals, obstacles, s, slot,
                                      parent_rows, parent_cost, parent_idx, slot_active,
                                      k_ctrl, k_accept, s.r1_score, s.r2_seen)

@@ -332,13 +332,10 @@ def sharded_trip(cfg: KGMTConfig, system, grid: RegionGrid, goals: Tensor,
         parent_rows, parent_cost, parent_gid, slot_active = (
             x.reshape(L, *x.shape[2:]) for x in by_problem)
     slot_active = slot_active & run[:, None]
-    key_wave = rng.fold_in(s.key, s.itr)
-    if w:
-        key_wave = rng.fold_in(key_wave, w)
-    keys = rng.split(key_wave)
+    k_ctrl, k_accept = rng.wave_keys(s.key, s.itr, w)
     d1, d2, valid, within, samples1, r2_seen = batched_wave(
         cfg, system, grid, goals, obstacles, s, slot, parent_rows, parent_cost,
-        parent_gid, slot_active, keys[:, 0].contiguous(), keys[:, 1].contiguous(),
+        parent_gid, slot_active, k_ctrl, k_accept,
         r1_score, r2_seen, gid0)
     s.r2_total += d2[..., 0]
     s.r2_valid += d2[..., 1]

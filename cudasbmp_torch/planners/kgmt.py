@@ -283,16 +283,6 @@ def frontier_mask(state: KGMTState, max_tree_size: int) -> Tensor:
     return (idx >= state.frontier_lo) & (idx < state.tree_size)
 
 
-def _wave_keys(key: Tensor, itr: int, wave: int) -> tuple[Tensor, Tensor]:
-    """(k_ctrl, k_accept) of sub-wave ``wave`` of iteration ``itr``. Sub-wave
-    0 uses the iteration key directly, not fold_in(key, 0)."""
-    key_wave = rng.fold_in(key, itr)
-    if wave:
-        key_wave = rng.fold_in(key_wave, wave)
-    k = rng.split(key_wave)
-    return k[0], k[1]
-
-
 def update_region_scores(cfg: KGMTConfig, s: KGMTState | PathlessState
                          ) -> tuple[Tensor, Tensor]:
     """Exploration scores per R1 cell (updateR1, KGMT.cu:487-538):
@@ -415,7 +405,7 @@ def expansion_wave(cfg: KGMTConfig, system, obstacles: Tensor, goal: Tensor,
         x0 = parent_rows[:, :system.state_dim].contiguous()
         parent_gid = parent_gid.to(torch.int32)
     with phase_scope("kgmt_rng", dev):
-        k_ctrl, k_accept = _wave_keys(s.key, s.itr, wave)
+        k_ctrl, k_accept = rng.wave_keys(s.key, s.itr, wave)
     with phase_scope("kgmt_expand", dev):
         x1, controls, valid = _expand_rollout(cfg, system, k_ctrl, x0, obstacles)
         valid = valid & slot_active
@@ -688,7 +678,7 @@ def kgmt_run_pathless(cfg: KGMTConfig, system, grid: RegionGrid, goal: Tensor,
                 parent_cost = parent_rows[:, SAMPLE_DIM]
                 x0 = parent_rows[:, :system.state_dim].contiguous()
             with phase_scope("kgmt_rng", dev):
-                k_ctrl, k_accept = _wave_keys(s.key, it, w)
+                k_ctrl, k_accept = rng.wave_keys(s.key, it, w)
             with phase_scope("kgmt_expand", dev):
                 x1, controls, valid = _expand_rollout(cfg, system, k_ctrl, x0, obstacles)
                 valid = valid & slot_active

@@ -175,6 +175,48 @@ def refine_adam_bound_ms(system: str, problems: int, padded_edges: int, edges: i
                  refine_adam_ops(system, problems, edges, points, boxes, inside, iterations))
 
 
+# Threefry-2x32's own instructions, counted from what the function needs
+# (rng.py's twin), not from what csrc/threefry.cu compiles to: a hash is 20
+# rounds of an add, a rotation (one funnel shift) and a xor (60), the third
+# key word (one 3-input xor) and 6 injections of two adds, the round
+# constant folded into a 3-input add (13). An output adds its index, its
+# key's two words loaded and its store's address (4), and per mode:
+# fold_in the data and two words stored; split the counter's add and two
+# words stored; random_bits the 64-bit counter's add, the words' xor and a
+# store; uniform that less its store, the mantissa (shift, or, subtract 1)
+# and max(lo, u * (hi - lo) + lo) (4) and a store; scaled_uniform the same
+# without the max; wave_keys (an output pair) four hashes (two folds, the
+# split's two words), two data, the wave's test and two keys stored (4).
+# The kernel's operand maps, (index / div) % mod of each operand, are not
+# counted: the function needs no division.
+THREEFRY_HASH = 60 + 13
+THREEFRY_INSTRUCTIONS = {
+    "fold_in": THREEFRY_HASH + 4 + 3, "split": THREEFRY_HASH + 4 + 3,
+    "random_bits": THREEFRY_HASH + 4 + 4, "uniform": THREEFRY_HASH + 4 + 3 + 3 + 4 + 1,
+    "scaled_uniform": THREEFRY_HASH + 4 + 3 + 3 + 3 + 1,
+    "wave_keys": 4 * THREEFRY_HASH + 4 + 2 + 1 + 4}
+# bytes an output: the output written, and a data tensor's int64 read
+THREEFRY_BYTES = {"fold_in": 16 + 8, "split": 16, "random_bits": 8, "uniform": 4,
+                  "scaled_uniform": 4, "wave_keys": 32 + 16}
+H100_SMS = 132
+TOP_SM_CLOCK_HZ = 1.98e9  # the H100 SXM's top SM clock, held under load
+WARP_ISSUES_PER_CLOCK = 4  # warp-instructions a clock an SM, one a scheduler
+
+
+def threefry_bound_ms(mode: str, outputs: int, key_rows: int = 1,
+                      sm_count: int = H100_SMS,
+                      clock_hz: float = TOP_SM_CLOCK_HZ) -> tuple[float, str]:
+    """The least time of one threefry launch of ``mode`` over ``outputs``
+    outputs (wave_keys: output pairs) from ``key_rows`` keys: the larger of
+    its bytes (``THREEFRY_BYTES`` an output, 16 a key) over 3.35 TB/s and
+    its instructions (``THREEFRY_INSTRUCTIONS`` an output) at 4
+    warp-instructions a clock an SM. (ms, "bytes" or "instructions")."""
+    t_bytes = (THREEFRY_BYTES[mode] * outputs + 16 * key_rows) / PEAK_BYTES_PER_S
+    t_issue = (THREEFRY_INSTRUCTIONS[mode] * outputs
+               / (sm_count * WARP_ISSUES_PER_CLOCK * 32 * clock_hz))
+    return 1e3 * max(t_bytes, t_issue), "bytes" if t_bytes >= t_issue else "instructions"
+
+
 def chain_bounds(elems: int, rows: int | None = None) -> dict:
     """``bound`` of each calibration chain over ``elems`` elements: f32 x
     read and y written once (P2: the table, int32 idx, y); P1a two flops a

@@ -13,16 +13,34 @@ draws exactly the controls and acceptance numbers of the JAX planner:
 - ``randint``             = jax.random.randint (int32, ``minval`` and
   ``maxval`` scalars or tensors)
 
+and two compositions of them that the planners draw every wave:
+
+- ``scaled_uniform(k, shape, lo, hi)`` = ``lo + uniform(k, shape) * (hi -
+  lo)``, ``ControlSpec.sample``'s controls
+- ``wave_keys(k, itr, wave)`` = ``split(fold_in(fold_in(k, itr), wave))``,
+  or ``split(fold_in(k, itr))`` where ``wave`` is not above 0: a KGMT
+  wave's (control, acceptance) keys
+
 and Philox-4x32-10 (Random123), the generator the ``cuda_rng`` rollout kernel
 draws its controls from; ``philox4x32`` here is that kernel's plain twin.
 
 A key is an int64 tensor of shape [..., 2] holding the two uint32 words of
 the JAX key data; a batch of keys ([B, 2]) gives what ``jax.vmap`` of the
-same function over [B] keys gives, with the batch shape leading. torch has
-no full uint32 arithmetic, so every word is carried in int64 and masked to
-32 bits after each add, multiply or shift. Every function runs on the device
-of the key it is given, and a Python number becomes a tensor there by a
-fill, not by a copy from the host, so no function here waits for the card.
+same function over [B] keys gives, with the batch shape leading.
+
+The route follows the key's device alone. On a CUDA key each of these
+functions is one launch of the threefry kernel (csrc/threefry.cu, through
+``ops/threefry_cuda.py``; ``randint`` is three, its ``split`` and two
+``random_bits``, then torch's integer ops), and a library that fails to
+build raises. On a CPU key they run their plain twins here
+(``fold_in_torch``, ``split_torch``, ``random_bits_torch``,
+``uniform_torch``, ``scaled_uniform_torch``, ``wave_keys_torch``), which
+the tests hold against ``jax.random`` and the kernel against, bit for bit.
+torch has no full uint32 arithmetic, so the twins carry every word in int64
+and mask it to 32 bits after each add, multiply or shift. Every function
+runs on the device of the key it is given, and a Python number becomes a
+tensor there by a fill, or goes to the kernel by value, not by a copy from
+the host, so no function here waits for the card.
 """
 
 from __future__ import annotations
@@ -72,9 +90,22 @@ def _on(value: float | int | torch.Tensor, dtype: torch.dtype,
     return torch.full((), value, dtype=dtype, device=device)
 
 
+def _kernel():
+    """ops/threefry_cuda.py, imported at the first draw on a card (it loads
+    the kernel library's wrappers, which import this module)."""
+    from cudasbmp_torch.ops import threefry_cuda
+    return threefry_cuda
+
+
 def fold_in(k: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
     """``jax.random.fold_in``: the hash of the counter (0, data mod 2^32).
     ``data`` broadcasts against the key batch; returns [..., 2]."""
+    if k.is_cuda:
+        return _kernel().fold_in_cuda(k, data)
+    return fold_in_torch(k, data)
+
+
+def fold_in_torch(k: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
     d = _on(data, torch.int64, k.device) & MASK32
     a, b = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
     return torch.stack([a, b], dim=-1)
@@ -84,6 +115,12 @@ def split(k: torch.Tensor, num: int = 2, offset: int = 0) -> torch.Tensor:
     """``jax.random.split``: key i is the hash of the counter (0, i);
     returns [..., num, 2]. ``offset`` gives keys [offset, offset + num) of a
     larger split (a rank's share of a batch's keys)."""
+    if k.is_cuda:
+        return _kernel().split_cuda(k, num, offset)
+    return split_torch(k, num, offset)
+
+
+def split_torch(k: torch.Tensor, num: int = 2, offset: int = 0) -> torch.Tensor:
     i = torch.arange(offset, offset + num, dtype=torch.int64, device=k.device)
     a, b = threefry2x32(k[..., 0, None], k[..., 1, None], torch.zeros_like(i), i)
     return torch.stack([a, b], dim=-1)
@@ -94,6 +131,13 @@ def random_bits(k: torch.Tensor, shape: tuple[int, ...], offset: int = 0) -> tor
     hash words of the counter (i >> 32, i mod 2^32); returns
     [..., *shape] for keys [..., 2]. ``offset`` gives the elements from
     ``offset`` on of a larger draw (a rank's rows of a batch's draw)."""
+    if k.is_cuda:
+        return _kernel().random_bits_cuda(k, shape, offset)
+    return random_bits_torch(k, shape, offset)
+
+
+def random_bits_torch(k: torch.Tensor, shape: tuple[int, ...], offset: int = 0
+                      ) -> torch.Tensor:
     n = 1
     for s in shape:
         n *= s
@@ -112,11 +156,66 @@ def uniform(k: torch.Tensor, shape: tuple[int, ...],
     ``maxval`` broadcast against ``shape`` from the right. At the defaults
     the scaling is exact and the result is u. Returns [..., *shape];
     ``offset`` as ``random_bits``'s."""
-    bits = (random_bits(k, shape, offset) >> 9) | 0x3F800000
-    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    if k.is_cuda:
+        return _kernel().uniform_cuda(k, shape, minval, maxval, offset)
+    return uniform_torch(k, shape, minval, maxval, offset)
+
+
+def _unit(k: torch.Tensor, shape: tuple[int, ...], offset: int) -> torch.Tensor:
+    """u in [0, 1): the mantissa bits of ``random_bits_torch``."""
+    bits = (random_bits_torch(k, shape, offset) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform_torch(k: torch.Tensor, shape: tuple[int, ...],
+                  minval: float | torch.Tensor = 0.0,
+                  maxval: float | torch.Tensor = 1.0, offset: int = 0) -> torch.Tensor:
+    u = _unit(k, shape, offset)
     lo = _on(minval, torch.float32, k.device)
     hi = _on(maxval, torch.float32, k.device)
     return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+def scaled_uniform(k: torch.Tensor, shape: tuple[int, ...], lo: float | torch.Tensor,
+                   hi: float | torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """``lo + u * (hi - lo)`` with u = ``uniform(k, shape, offset=offset)``,
+    each operation rounded once and nothing clamped: the controls of
+    ``ControlSpec.sample`` (systems/base.py). ``lo`` and ``hi`` broadcast
+    against [..., *shape] from the right."""
+    if k.is_cuda:
+        return _kernel().scaled_uniform_cuda(k, shape, lo, hi, offset)
+    return scaled_uniform_torch(k, shape, lo, hi, offset)
+
+
+def scaled_uniform_torch(k: torch.Tensor, shape: tuple[int, ...],
+                         lo: float | torch.Tensor, hi: float | torch.Tensor,
+                         offset: int = 0) -> torch.Tensor:
+    lo = _on(lo, torch.float32, k.device)
+    hi = _on(hi, torch.float32, k.device)
+    return lo + _unit(k, shape, offset) * (hi - lo)
+
+
+def wave_keys(k: torch.Tensor, itr: int | torch.Tensor, wave: int | torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A KGMT wave's (control key, acceptance key), each [..., 2]: the two
+    keys of ``split(fold_in(fold_in(k, itr), wave))``, where ``wave`` is
+    above 0, else of ``split(fold_in(k, itr))`` (sub-wave 0 uses the
+    iteration key itself). ``itr`` and ``wave`` broadcast against the key
+    batch."""
+    if k.is_cuda:
+        return _kernel().wave_keys_cuda(k, itr, wave)
+    return wave_keys_torch(k, itr, wave)
+
+
+def wave_keys_torch(k: torch.Tensor, itr: int | torch.Tensor, wave: int | torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    key = fold_in_torch(k, itr)
+    if isinstance(wave, torch.Tensor):
+        key = torch.where((wave > 0)[..., None], fold_in_torch(key, wave), key)
+    elif wave > 0:
+        key = fold_in_torch(key, wave)
+    keys = split_torch(key)
+    return keys[..., 0, :], keys[..., 1, :]
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:

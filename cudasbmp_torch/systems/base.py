@@ -41,8 +41,7 @@ class ControlSpec:
         multiple of ``dim``) gives the controls from that element on of a
         larger draw."""
         lo, hi = self.bounds(key.device)
-        u = rng.uniform(key, tuple(shape) + (self.dim,), offset=offset)
-        return lo + u * (hi - lo)
+        return rng.scaled_uniform(key, tuple(shape) + (self.dim,), lo, hi, offset=offset)
 
 
 @functools.lru_cache(maxsize=None)

@@ -72,3 +72,22 @@ def test_calibrate_measures_only_the_card():
     assert tuple(x.shape) == rf.CAL_SHAPE and float(x.min()) >= 0.5
     assert tuple(tbl.shape) == (128, 128) and 0 <= int(idx.min()) <= int(idx.max()) < 128
     assert rf.OUT.parts[-2:] == ("chiprun_out", "roofline.json")
+
+
+@pytest.mark.parametrize("mode, outputs, keys, by, ms", [
+    # the fleet's controls: 786,432 outputs x 87 instructions over
+    # 132 SMs x 128 thread-instructions a clock x 1.98 GHz
+    ("scaled_uniform", 64 * 4096 * 3, 64, "instructions", 786_432 * 87 / 3.345408e13 * 1e3),
+    ("uniform", 4096, 1, "instructions", 4096 * 88 / 3.345408e13 * 1e3),
+    # a wave's keys: one output pair, its 48 bytes and one key's 16
+    ("wave_keys", 1, 1, "bytes", 64 / 3.35e12 * 1e3),
+])
+def test_threefry_bound_counts_the_function(mode, outputs, keys, by, ms):
+    assert rf.threefry_bound_ms(mode, outputs, keys) == (pytest.approx(ms, rel=1e-9), by)
+
+
+def test_threefry_counts_a_hash_per_output_and_four_per_wave_keys():
+    hashes = {m: 4 if m == "wave_keys" else 1 for m in rf.THREEFRY_INSTRUCTIONS}
+    rest = {m: n - hashes[m] * rf.THREEFRY_HASH for m, n in rf.THREEFRY_INSTRUCTIONS.items()}
+    assert rf.THREEFRY_HASH == 73 and all(0 < r < 20 for r in rest.values())
+    assert set(rf.THREEFRY_BYTES) == set(rf.THREEFRY_INSTRUCTIONS)

@@ -19,7 +19,6 @@ from cudasbmp_torch import rng
 from cudasbmp_torch.parallel import MultiQueryPlanner
 from cudasbmp_torch.parallel import batch_kgmt, multi_query
 from cudasbmp_torch.parallel.batch_kgmt import ArenaMultiQueryPlanner
-from cudasbmp_torch.planners import kgmt
 from cudasbmp_torch.utils import profiling, trace_to
 from cudasbmp_torch.utils.profiling import CALL_SPANS, LOOP_SPANS, PHASES, host_read
 
@@ -154,7 +153,7 @@ def test_host_reads_count_the_waves_and_the_calls_reads(monkeypatch, loop, per_w
     in the tree loop the goal test's best lane too; the result reads five
     times (tree: cost, path length, path, nodes, threshold) or twice
     (pathless: cost, threshold)."""
-    waves = _waves_of(monkeypatch, kgmt, "_wave_keys")
+    waves = _waves_of(monkeypatch, rng, "wave_keys")
     call = _loops()[loop]
     profiling.reset_host_reads()
     call()
@@ -241,7 +240,7 @@ def test_a_waves_threefry_ops_lie_under_kgmt_rng():
     R = cfg.rollouts_per_iter
 
     def draws():
-        k_ctrl, k_accept = kgmt._wave_keys(rng.key(3), 0, 0)
+        k_ctrl, k_accept = rng.wave_keys(rng.key(3), 0, 0)
         planner.system.control_spec.sample(k_ctrl, (R,))
         rng.uniform(k_accept, (R,))
 
@@ -260,7 +259,7 @@ def test_a_trips_threefry_ops_lie_under_kgmt_rng():
     R = cfg.rollouts_per_iter
 
     def draws():
-        k_ctrl, k_accept = multi_query._wave_keys(s)
+        k_ctrl, k_accept = rng.wave_keys(s.key, s.itr, s.w)
         planner.system.control_spec.sample(k_ctrl, (R,))
         rng.uniform(k_accept, (R,))
 
