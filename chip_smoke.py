@@ -1608,6 +1608,8 @@ def multi_query_default(dev) -> tuple[dict, dict]:
     from cudasbmp_torch.ops import rollout_cuda as rc
     from cudasbmp_torch.ops import threefry_cuda as tfc
     from cudasbmp_torch.parallel import MultiQueryPlanner
+    from cudasbmp_torch.utils import profiling
+    from cudasbmp_torch.utils.profiling import trip_graph
 
     out = {}
     B = MULTI_B
@@ -1619,15 +1621,21 @@ def multi_query_default(dev) -> tuple[dict, dict]:
         planner.plan_batch(inits[:8], goals[:8], obstacles, seed=7)  # warm-up
         rc.reset_launch_counts()
         tfc.reset_launch_counts()
+        profiling.reset_trip_graphs()
         res = planner.plan_batch(inits, goals, obstacles, seed=cfg.seed)
         trips = planner.last_state.trips
         launches = {w.__name__: w.launches for w in rc.WRAPPERS}
         main_launches = kernel.launches
         # a trip's keys, controls (not under cuda_rng: B6 draws them) and
-        # acceptance uniforms; the batch's keys one fold_in
+        # acceptance uniforms, launched by the host once, when B = 64's trip
+        # is captured (the replays launch them from the graphs); the batch's
+        # keys one fold_in
+        graphs = {"captures": trip_graph.captures, "replays": trip_graph.replays}
+        check(graphs == {"captures": 1, "replays": trips},
+              f"multi {backend}: trip graphs {graphs} for {trips} trips")
         tf_trips = threefry_launches(tfc)
-        want = {"fold_in_cuda": 1, "wave_keys_cuda": trips, "uniform_cuda": trips,
-                **({"scaled_uniform_cuda": trips} if backend == "auto" else {})}
+        want = {"fold_in_cuda": 1, "wave_keys_cuda": 1, "uniform_cuda": 1,
+                **({"scaled_uniform_cuda": 1} if backend == "auto" else {})}
         check(tf_trips == want, f"multi {backend}: threefry launches {tf_trips} for "
               f"{trips} trips")
         G = rc.lanes_per_rollout(B * cfg.rollouts_per_iter, rc.sm_count(dev.index or 0))

@@ -28,8 +28,10 @@ parallel/multi_query.py, parallel/batch_kgmt.py), outermost first:
   nested wherever it is drawn), ``kgmt_expand`` (the rollout launch and
   the concat), ``kgmt_region_stats``, ``kgmt_goal``, ``kgmt_commit``,
   ``kgmt_boundary`` (the iteration boundary and the statistics tail),
-  ``kgmt_host_read`` (a read of the card, ``host_read``) and
-  ``kgmt_extract`` (the path walk and the result read-back).
+  ``kgmt_host_read`` (a read of the card, ``host_read``),
+  ``kgmt_extract`` (the path walk and the result read-back) and
+  ``kgmt_replay`` (a replay of one of the vmapped trip's CUDA graphs,
+  ``trip_graph``, whose kernels ran under the phases above when captured).
 
 Every operator of these loops runs under a phase, never with a call or
 loop span as its innermost span, so a trace's host time and the card's
@@ -43,9 +45,11 @@ A ``record_function`` costs some 10 us on the host even with no profiler
 running, so ``phase_scope`` opens one only while a profiler records. On a
 CUDA device it also pushes an NVTX range, which Nsight tools read.
 
-The one counter, ``host_read.reads`` (the reads of the card, from process
-start; ``reset_host_reads``), is a function attribute in the rollout
-wrappers' ``.launches`` idiom.
+The counters are function attributes in the rollout wrappers'
+``.launches`` idiom, from process start: ``host_read.reads``, the reads of
+the card (``reset_host_reads``); ``trip_graph.captures``, the batch shapes
+whose trip the vmapped planner captured as CUDA graphs, and
+``trip_graph.replays``, the trips it ran from them (``reset_trip_graphs``).
 """
 
 from __future__ import annotations
@@ -98,7 +102,8 @@ CALL_SPANS = ("kgmt_plan", "kgmt_plan_batch", "kgmt_restart")
 LOOP_SPANS = ("kgmt_wave", "kgmt_trip", "kgmt_iteration", "kgmt_waves")
 PHASES = ("kgmt_init", "kgmt_scores", "kgmt_frontier", "kgmt_frontier_exchange",
           "kgmt_parents", "kgmt_rng", "kgmt_expand", "kgmt_region_stats", "kgmt_goal",
-          "kgmt_commit", "kgmt_boundary", "kgmt_host_read", "kgmt_extract")
+          "kgmt_commit", "kgmt_boundary", "kgmt_host_read", "kgmt_extract",
+          "kgmt_replay")
 
 
 def _record(name: str, ids: dict):
@@ -132,10 +137,11 @@ def phase_scope(name: str, device: torch.device | None = None, **ids) -> Iterato
 def host_read(t: torch.Tensor, numpy: bool = False):
     """Read ``t`` from its device, under the phase ``kgmt_host_read``:
     ``t.tolist()`` (a Python number for a 0-d tensor), or with ``numpy``
-    ``t.cpu().numpy()``. Counts one in ``host_read.reads``."""
+    an array of its own (a copy on the CPU too, since a planner writes its
+    tensors again). Counts one in ``host_read.reads``."""
     with phase_scope("kgmt_host_read", t.device):
         host_read.reads += 1
-        return t.cpu().numpy() if numpy else t.tolist()
+        return t.to("cpu", copy=True).numpy() if numpy else t.tolist()
 
 
 host_read.reads = 0
@@ -143,3 +149,20 @@ host_read.reads = 0
 
 def reset_host_reads() -> None:
     host_read.reads = 0
+
+
+def trip_graph(graph: torch.cuda.CUDAGraph, device: torch.device) -> None:
+    """Replay one of the vmapped trip's CUDA graphs
+    (parallel/multi_query.py::TripGraphs) under the phase ``kgmt_replay``.
+    The planner counts in ``trip_graph.captures`` (batch shapes captured)
+    and ``trip_graph.replays`` (trips run from their graphs, a pair of
+    replays each)."""
+    with phase_scope("kgmt_replay", device):
+        graph.replay()
+
+
+trip_graph.captures = trip_graph.replays = 0
+
+
+def reset_trip_graphs() -> None:
+    trip_graph.captures = trip_graph.replays = 0

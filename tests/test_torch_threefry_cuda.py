@@ -209,7 +209,9 @@ def test_a_fleet_batch_through_the_kernel_equals_the_twins(dev, twin_route):
     trips = rc.rollout_batched_cuda.launches
     twin_route()
     rc.reset_launch_counts()
-    want = planner.plan_batch(inits, goals, boxes, seed=11)
+    # a planner of its own: the first one replays the trip it captured
+    # through the kernel
+    want = _fleet(3)[0].plan_batch(inits, goals, boxes, seed=11)
     assert rc.rollout_batched_cuda.launches == trips
     assert got.solved.all()
     for a, b in ((got.costs, want.costs), (got.paths, want.paths),
